@@ -1,0 +1,121 @@
+"""Command-line entry points of the port (the serving path):
+
+    python -m ctc_asr_tpu_torch.cli evaluate --preset conv_bilstm3 \
+        --ckpt CKPT [--device=cuda] [--dump-utts a.json] [--section.key=value ...]
+    python -m ctc_asr_tpu_torch.cli transcribe --preset conv_bilstm3 \
+        --ckpt CKPT [--device=cuda] wav...
+
+The surface is the reference CLI's (``ctc_asr_tpu/cli.py``): ``--preset``
+picks a preset, ``--config file.json`` loads a full config, and any
+``--section.key=value`` overrides it. ``--ckpt`` is a ``.npz`` written by
+the reference's ``save_checkpoint`` or a train dir. ``--device``
+defaults to ``cuda``, and asking for CUDA where there is none raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from ctc_asr_tpu import config as cfg_mod
+
+
+def _split_args(argv):
+    """Separate --section.key=value overrides from plain args."""
+    overrides, rest = {}, []
+    for a in argv:
+        if a.startswith("--") and "=" in a and "." in a.split("=", 1)[0]:
+            k, v = a[2:].split("=", 1)
+            overrides[k] = v
+        else:
+            rest.append(a)
+    return overrides, rest
+
+
+def _load_cfg(args, overrides) -> cfg_mod.Config:
+    if args.config:
+        with open(args.config) as f:
+            cfg = cfg_mod.from_json(f.read())
+    elif args.preset:
+        cfg = cfg_mod.preset(args.preset)
+    else:
+        cfg = cfg_mod.Config()
+    if overrides:
+        cfg = cfg_mod.apply_overrides(cfg, overrides)
+    return cfg
+
+
+def _parser(prog: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog=prog)
+    p.add_argument("--preset", default="",
+                   help="named preset (ctc_asr_tpu.config.preset)")
+    p.add_argument("--config", default="", help="config json file")
+    p.add_argument("--ckpt", required=True,
+                   help="checkpoint .npz (or train dir)")
+    p.add_argument("--device", default="cuda", help="cuda or cpu")
+    return p
+
+
+def cmd_evaluate(argv):
+    overrides, rest = _split_args(argv)
+    p = _parser("evaluate")
+    p.add_argument("--dump-utts", default="",
+                   help="write per-utterance (we,wc,ce,cc) records to "
+                        "this JSON for `ctc_asr_tpu.cli compare`")
+    args = p.parse_args(rest)
+    cfg = _load_cfg(args, overrides)
+
+    from .checkpoint import load_params, resolve_checkpoint
+    from .evaluate import evaluate
+
+    params = load_params(args.ckpt, cfg, args.device)
+    res = evaluate(cfg, params, args.device)
+    per_utt = res.pop("per_utt")
+    if args.dump_utts:
+        with open(args.dump_utts, "w") as f:
+            json.dump({"ckpt": resolve_checkpoint(args.ckpt),
+                       "per_utt": per_utt}, f)
+    print(json.dumps(res, indent=2, default=float))
+    return 0
+
+
+def cmd_transcribe(argv):
+    overrides, rest = _split_args(argv)
+    p = _parser("transcribe")
+    p.add_argument("wavs", nargs="+")
+    args = p.parse_args(rest)
+    cfg = _load_cfg(args, overrides)
+
+    from .checkpoint import load_params
+    from .transcribe import Transcriber
+
+    tr = Transcriber(cfg, load_params(args.ckpt, cfg, args.device),
+                     args.device)
+    for wav in args.wavs:
+        print(f"{wav}\t{tr.transcribe_file(wav)}")
+    return 0
+
+
+COMMANDS = {
+    "evaluate": cmd_evaluate,
+    "transcribe": cmd_transcribe,
+}
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        print("commands:", ", ".join(COMMANDS))
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    if cmd not in COMMANDS:
+        print(f"unknown command {cmd!r}; have {sorted(COMMANDS)}",
+              file=sys.stderr)
+        return 2
+    return COMMANDS[cmd](rest)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

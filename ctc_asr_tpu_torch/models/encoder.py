@@ -1,0 +1,121 @@
+"""DS1/DS2-style acoustic encoders at inference.
+
+Counterpart of ``ctc_asr_tpu/models/encoder.py``: a dense (DS1) or
+conv2d (DS2) frontend with clipped ReLU, a (bi)LSTM stack and a dense
+head to the vocabulary, returning pre-softmax logits ``[B, T', C]`` and
+their lengths. Parameters are the flat keypath dict of
+``checkpoint.params_from_jax`` (``frontend/0/w``, ``rnn/0/fwd/wx``,
+``head/b``, ...) in the reference's layouts.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ctc_asr_tpu.config import ModelConfig
+
+from .layers import clipped_relu, conv2d_apply, dense_apply
+from .rnn import birnn_apply, lstm_apply
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def output_lengths(frame_lengths: torch.Tensor, cfg: ModelConfig):
+    """Frontend input frame counts -> encoder output lengths: each
+    stride-s SAME conv maps L -> ceil(L / s) on the time axis; the dense
+    frontend keeps the length."""
+    lens = frame_lengths.long()
+    if cfg.frontend == "conv":
+        for (st, _sf) in cfg.conv_strides:
+            lens = _cdiv(lens, st)
+    return lens.to(torch.int32)
+
+
+def init_shapes(cfg: ModelConfig, feat_dim: int) -> dict[str, tuple]:
+    """Keypath -> shape of every parameter, the same tree as the
+    reference's ``init_params``."""
+    shapes: dict[str, tuple] = {}
+    if cfg.frontend == "dense":
+        d = feat_dim
+        for i in range(cfg.dense_layers):
+            shapes[f"frontend/{i}/w"] = (d, cfg.dense_units)
+            shapes[f"frontend/{i}/b"] = (cfg.dense_units,)
+            d = cfg.dense_units
+        rnn_in = d
+    elif cfg.frontend == "conv":
+        cin, f = 1, feat_dim
+        for i, (ch, (kt, kf), (_st, sf)) in enumerate(zip(
+                cfg.conv_channels, cfg.conv_kernels, cfg.conv_strides)):
+            shapes[f"frontend/{i}/w"] = (kt, kf, cin, ch)
+            shapes[f"frontend/{i}/b"] = (ch,)
+            cin, f = ch, _cdiv(f, sf)
+        rnn_in = f * cin
+    else:
+        raise ValueError(f"unknown frontend {cfg.frontend!r}")
+    if cfg.rnn_type not in ("lstm", "gru", "rnn"):
+        raise ValueError(f"unknown rnn_type {cfg.rnn_type!r}")
+    G = {"lstm": 4, "gru": 3, "rnn": 1}[cfg.rnn_type] * cfg.rnn_units
+    d = rnn_in
+    dirs = ("fwd/", "bwd/") if cfg.bidirectional else ("",)
+    for i in range(cfg.rnn_layers):
+        for p in dirs:
+            shapes[f"rnn/{i}/{p}wx"] = (d, G)
+            shapes[f"rnn/{i}/{p}wh"] = (cfg.rnn_units, G)
+            shapes[f"rnn/{i}/{p}b"] = (G,)
+        d = len(dirs) * cfg.rnn_units
+    shapes["head/w"] = (d, cfg.num_classes)
+    shapes["head/b"] = (cfg.num_classes,)
+    return shapes
+
+
+def _layer(params: dict, prefix: str) -> dict:
+    n = len(prefix)
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
+
+
+def apply_encoder(params: dict, feats: torch.Tensor,
+                  frame_lengths: torch.Tensor, cfg: ModelConfig):
+    """feats [B, T, F], frame_lengths [B] -> (logits [B, T', C] f32,
+    lens [B] int32). The LSTM recurrence goes through the CUDA kernel
+    wrapper when ``cfg.use_pallas_rnn`` (the reference's kernel switch)."""
+    if cfg.rnn_type != "lstm":
+        raise NotImplementedError(
+            f"rnn_type={cfg.rnn_type!r} is not ported yet (GRU and the "
+            "vanilla RNN come with a later slice; see ROADMAP.md)")
+    cdt = getattr(torch, cfg.compute_dtype)
+    if cfg.frontend == "dense":
+        x = feats
+        for i in range(cfg.dense_layers):
+            x = clipped_relu(dense_apply(_layer(params, f"frontend/{i}/"), x,
+                                         cdt), cfg.relu_clip)
+        out_lens = frame_lengths.to(torch.int32)
+    elif cfg.frontend == "conv":
+        x = feats[..., None]                         # [B, T, F, 1] NHWC
+        for i, strides in enumerate(cfg.conv_strides):
+            x = clipped_relu(conv2d_apply(_layer(params, f"frontend/{i}/"),
+                                          x, strides, cdt), cfg.relu_clip)
+        Bc, Tc, Fc, Cc = x.shape
+        x = x.reshape(Bc, Tc, Fc * Cc)               # NHWC flatten order
+        out_lens = output_lengths(frame_lengths, cfg)
+    else:
+        raise ValueError(f"unknown frontend {cfg.frontend!r}")
+
+    # zero frontend output past each length (SAME convs smear into pads)
+    Tp = x.shape[1]
+    vmask = torch.arange(Tp, device=x.device)[None, :] < out_lens[:, None]
+    x = x * vmask[..., None].to(x.dtype)
+
+    x = x.transpose(0, 1)                            # [T', B, D]
+    for i in range(cfg.rnn_layers):
+        layer = _layer(params, f"rnn/{i}/")
+        if cfg.bidirectional:
+            x = birnn_apply({"fwd": _layer(layer, "fwd/"),
+                             "bwd": _layer(layer, "bwd/")}, x, out_lens,
+                            cdt, use_kernel=cfg.use_pallas_rnn)
+        else:
+            x = lstm_apply(layer, x, out_lens, cdt,
+                           use_kernel=cfg.use_pallas_rnn)
+    logits = dense_apply(_layer(params, "head/"), x, cdt)   # [T', B, C]
+    return logits.transpose(0, 1), out_lens

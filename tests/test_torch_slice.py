@@ -1,0 +1,158 @@
+"""The port's serving slice on the CPU: greedy decode, checkpoint
+reading, evaluate / Transcriber / CLI against the JAX reference, the
+no-JAX import rule, and the refusal to fall back from CUDA to the CPU.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from ctc_asr_tpu.checkpoint import _flatten, save_checkpoint
+from ctc_asr_tpu.config import Config, DataConfig, FeatureConfig, ModelConfig
+from ctc_asr_tpu.data.synth import generate_corpus
+from ctc_asr_tpu.ops.greedy import greedy_decode as j_greedy
+from ctc_asr_tpu.text import BLANK_ID
+from ctc_asr_tpu.train import init_train_state
+from ctc_asr_tpu_torch import checkpoint as t_ckpt
+from ctc_asr_tpu_torch.ops.dispatch import resolve_device
+from ctc_asr_tpu_torch.ops.greedy import greedy_decode
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_greedy_ids_identical(seed):
+    """Logits drawn from a few levels, so argmax ties and repeats occur;
+    lengths include 0 and the full T."""
+    rng = np.random.default_rng(seed)
+    B, T, C = 5, 17, 29
+    logits = rng.integers(0, 3, (B, T, C)).astype(np.float32)
+    logits[:, ::3, BLANK_ID] += 5.0
+    lens = np.array([17, 0, 1, 9, 16], np.int32)
+    want_ids, want_lens = j_greedy(jnp.asarray(logits), jnp.asarray(lens))
+    ids, dlens = greedy_decode(torch.from_numpy(logits),
+                               torch.from_numpy(lens))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids))
+    np.testing.assert_array_equal(dlens.numpy(), np.asarray(want_lens))
+
+
+def _tiny_cfg(manifest="") -> Config:
+    """A tiny f32 conv + BiLSTM config. The reference runs its plain
+    paths on the CPU whatever its use_pallas flags say; the port takes
+    the flags as given, so they are off here to compare like with like."""
+    return Config(
+        features=FeatureConfig(n_mels=40, use_pallas=False),
+        model=ModelConfig(frontend="conv", conv_channels=(4, 4),
+                          conv_kernels=((5, 11), (3, 5)), rnn_layers=2,
+                          rnn_units=16, bidirectional=True, dropout=0.0,
+                          compute_dtype="float32", use_pallas_rnn=False),
+        data=DataConfig(eval_manifest=manifest, batch_size=2, num_buckets=1,
+                        num_workers=1))
+
+
+def test_reads_reference_checkpoint(tmp_path):
+    cfg = _tiny_cfg()
+    state = init_train_state(cfg)
+    path = save_checkpoint(str(tmp_path / "ckpt"), 7, state,
+                           process_index=0)
+    params = t_ckpt.load_params(str(tmp_path), cfg)        # train dir
+    assert t_ckpt.resolve_checkpoint(str(tmp_path)) == path
+    want = _flatten(state["params"])
+    assert set(params) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(params[k].numpy(), v)
+    with np.load(path) as z:                               # opt_state etc.
+        assert any(k.startswith("opt_state/") for k in z.files)
+        assert set(t_ckpt.params_from_jax(dict(z))) == set(want)
+    wrong = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, rnn_units=8))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        t_ckpt.load_params(path, wrong)
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    d = tmp_path_factory.mktemp("synth")
+    manifest = generate_corpus(str(d), num_utterances=4, seed=3)
+    cfg = _tiny_cfg(manifest)
+    state = init_train_state(cfg)
+    path = save_checkpoint(str(d / "ckpt"), 1, state, process_index=0)
+    return cfg, state["params"], path
+
+
+def test_evaluate_and_transcribe_match_reference(corpus):
+    from ctc_asr_tpu.evaluate import evaluate as j_evaluate
+    from ctc_asr_tpu.transcribe import Transcriber as JTranscriber
+    from ctc_asr_tpu_torch.evaluate import evaluate
+    from ctc_asr_tpu_torch.transcribe import Transcriber
+    cfg, jparams, path = corpus
+    params = t_ckpt.load_params(path, cfg)
+    want = j_evaluate(cfg, jparams, log_samples=0)
+    got = evaluate(cfg, params, "cpu", log_samples=0)
+    assert got["per_utt"] == want["per_utt"]
+    assert got["utterances"] == want["utterances"] >= 3
+    assert got["device"] == "cpu"
+    for k in ("wer", "cer", "audio_seconds"):
+        assert got[k] == want[k]
+    jtr, ttr = JTranscriber(cfg, jparams), Transcriber(cfg, params, "cpu")
+    from ctc_asr_tpu.data import read_manifest
+    for utt in read_manifest(cfg.data.eval_manifest):
+        assert ttr.transcribe_file(utt.path) == jtr.transcribe_file(utt.path)
+
+
+def test_cli_evaluate_and_transcribe(corpus, tmp_path, capsys):
+    from ctc_asr_tpu.data import read_manifest
+    from ctc_asr_tpu_torch import cli
+    cfg, _, path = corpus
+    cfg_path = tmp_path / "cfg.json"
+    from ctc_asr_tpu.config import to_json
+    cfg_path.write_text(to_json(cfg))
+    dump = tmp_path / "utts.json"
+    assert cli.main(["evaluate", "--config", str(cfg_path), "--ckpt", path,
+                     "--device=cpu", f"--dump-utts={dump}",
+                     "--model.use_pallas_rnn=true"]) == 0
+    out = capsys.readouterr().out
+    res = json.loads(out[out.index("\n{") + 1:])
+    assert res["utterances"] >= 3 and "rtf" in res
+    assert len(json.loads(dump.read_text())["per_utt"]) == res["utterances"]
+    wav = read_manifest(cfg.data.eval_manifest)[0].path
+    assert cli.main(["transcribe", "--config", str(cfg_path), "--ckpt",
+                     path, "--device=cpu", wav]) == 0
+    assert capsys.readouterr().out.startswith(f"{wav}\t")
+    beam = ["--decode.method=beam"]
+    with pytest.raises(NotImplementedError, match="beam"):
+        cli.main(["evaluate", "--config", str(cfg_path), "--ckpt", path,
+                  "--device=cpu", *beam])
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, ctc_asr_tpu_torch, ctc_asr_tpu_torch.cli, "
+            "ctc_asr_tpu_torch.evaluate, ctc_asr_tpu_torch.transcribe, "
+            "ctc_asr_tpu_torch.ops.stft_cuda, ctc_asr_tpu_torch.ops.lstm_cuda;"
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
+            "if m.startswith('jax'))")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_cuda_request_raises_without_gpu(corpus):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from ctc_asr_tpu_torch.evaluate import make_eval_step
+    from ctc_asr_tpu_torch.transcribe import Transcriber
+    cfg, _, path = corpus
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_eval_step(cfg, "cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Transcriber(cfg, t_ckpt.load_params(path, cfg), "cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
