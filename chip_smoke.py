@@ -7,18 +7,35 @@ Phases (any failure exits non-zero; no phase is skipped):
 
 1. Device: name, compute capability, ``nvidia-smi`` name and power
    limit, torch / CUDA / nvcc versions. Needs CUDA with capability 9.0.
-2. Build: compiles the CUDA kernels from ``ctc_asr_tpu_torch/csrc``.
-3. Kernels versus their plain PyTorch versions, at the serving path's
-   shapes: max abs error against a stated tolerance, and the median of
-   CUDA-event times over repeated runs after warm-up.
-4. Slice: a seeded random checkpoint at full ``conv_bilstm3`` width in
-   the reference's keypath format, a synthetic corpus, then the port's
-   ``cli evaluate`` and ``cli transcribe`` on ``cuda``. The kernels'
-   launch counters must rise during that run. Every eval batch then
-   goes through the kernel path and the plain path: finite logits of
-   the expected shape and lengths, and a per-frame argmax that agrees
-   on at least 99.5% of the valid frames.
-5. Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+2. Build: compiles the CUDA kernels from ``ctc_asr_tpu_torch/csrc``
+   (one ``nvcc`` per source, all started together).
+3. Kernels versus their plain PyTorch versions, at the main paths'
+   shapes: max error against a stated tolerance, and the median of
+   CUDA-event times over repeated runs after warm-up. K1 (STFT) and K2
+   (LSTM forward) at the serving shapes; K6/K7 (CTC α, β + gradient) at
+   the train geometry B=128, T'=399, U=96 with ragged lengths, one
+   empty and one infeasible row; K2 with residuals and K3 (LSTM BPTT)
+   at nd=2, B=128, T=399, H=512.
+4. Serving slice: a seeded random checkpoint at full ``conv_bilstm3``
+   width in the reference's keypath format, a synthetic corpus, then
+   the port's ``cli evaluate`` and ``cli transcribe`` on ``cuda``. The
+   kernels' launch counters must rise during that run. Every eval batch
+   then goes through the kernel path and the plain path: finite logits
+   of the expected shape and lengths, and a per-frame argmax that
+   agrees on at least 99.5% of the valid frames.
+5. Train slice: a random full-width ``conv_bilstm3`` train state
+   written as a checkpoint, then ``cli train --device=cuda`` on the
+   synthetic corpus at B=16, to a checkpoint halfway and resumed from
+   it to the end. The loss and the gradient norm stay finite, the loss
+   falls, and the launch counters of K1, K2, K3, K6 and K7 all rise.
+   ``cli evaluate`` runs on the trained checkpoint. Then one step at
+   B=128 x 8 s from one state through the kernel path and the plain
+   path (f32 compute): relative loss and gradient-norm errors and the
+   smallest per-leaf cosine of the gradients against stated limits, the
+   step's time on the kernel path and the plain path, and where the
+   kernel path's step goes: CUDA events between its phases and a
+   ``torch.profiler`` split of its device time by kernel group.
+6. Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX.
@@ -45,6 +62,27 @@ STFT_TOL = 2e-3    # f32 log-mel / MFCC, max abs
 # shows as that ulp; allow two.
 LSTM_TOL = 8e-3
 ARGMAX_AGREEMENT = 0.995
+# CTC (f32 log space): the NLL relative, the gradient -exp(α+β-logP) in
+# [-1, 0] absolute. Kernel and plain version do the same operations per
+# state; only expf/logf's last bits and sum order differ, and α+β-logP
+# is a difference of numbers ~500 whose ulp is 3e-5.
+CTC_NLL_RTOL = 1e-5
+CTC_GRAD_ATOL = 1e-4
+# BPTT on the same bf16 residuals: dgates are bf16 (two ulps relative to
+# the largest), and a sum-order flip of one bf16 rounding propagates
+# along the reverse chain; db is the f32 sum of those dgates, dwh the
+# matmul of bf16 h and dgates.
+BPTT_RTOL = 2e-2
+# One train step at B=128 x 8 s, kernel path against the plain path at
+# f32 compute. The kernel path rounds xproj, wh, h, the residuals and
+# dgates to bf16; measured on the H100 its per-leaf gradient cosines
+# against f32 are >= 0.99998 and its loss within 1e-4. The plain path at
+# bf16 compute (the reference's scan arithmetic) is printed beside it:
+# it sums each step's dwh in bf16, as the scan's transpose does, and
+# its wh cosines against f32 are ~0.989 at T'=399.
+STEP_LOSS_RTOL = 1e-3
+STEP_GNORM_RTOL = 2e-2
+STEP_MIN_COSINE = 0.999
 
 
 def log(msg: str) -> None:
@@ -200,6 +238,124 @@ def phase_lstm() -> dict:
     return res
 
 
+def _ctc_inputs(B, T, U, C, seed):
+    """lp_z [T, B, S] of random logits, ragged lengths, row 0 an empty
+    label, the last row infeasible (U labels in 3 frames)."""
+    import torch
+    from ctc_asr_tpu_torch.ops import ctc_cuda
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(B, T, C, generator=g)
+    labels = torch.randint(0, C - 1, (B, U), generator=g)
+    lens = torch.randint(T // 2, T + 1, (B,), generator=g, dtype=torch.int32)
+    llens = torch.randint(U // 2, U + 1, (B,), generator=g,
+                          dtype=torch.int32)
+    lens[0], llens[0] = T, 0
+    lens[-1], llens[-1] = 3, U
+    z = ctc_cuda.extended_labels(labels, C - 1)
+    lpz = torch.gather(torch.log_softmax(logits, -1), 2,
+                       z[:, None, :].expand(-1, T, -1)).transpose(0, 1)
+    return [t.contiguous().cuda() for t in
+            (lpz, ctc_cuda.can_skip(z, C - 1), lens, (2 * llens).int())]
+
+
+def phase_ctc() -> dict:
+    import torch
+    from ctc_asr_tpu_torch.ops import ctc_cuda
+    lpz, skip, lens, ends = _ctc_inputs(128, 399, 96, 29, seed=7)
+    alphas, nll = ctc_cuda.ctc_alpha(lpz, skip, lens, ends)
+    grad = ctc_cuda.ctc_beta_grad(lpz, alphas, skip, lens, ends, nll)
+    palphas, pnll = ctc_cuda.ctc_alpha_plain(lpz, skip, lens, ends)
+    pgrad = ctc_cuda.ctc_beta_grad_plain(lpz, palphas, skip, lens, ends,
+                                         pnll)
+    torch.cuda.synchronize()
+    feas = pnll < 1e29
+    nll_err = ((nll - pnll).abs() / pnll.abs())[feas].max().item()
+    grad_err = (grad - pgrad).abs().max().item()
+    finite = bool(torch.isfinite(grad).all())
+    infeasible_ok = bool(nll[-1] >= 1e29) and not bool(feas[-1])
+    res = {
+        "ctc_alpha": {
+            "max_abs_err": (nll - pnll)[feas].abs().max().item(),
+            "ms": cuda_ms(lambda: ctc_cuda.ctc_alpha(lpz, skip, lens, ends),
+                          reps=20),
+            "plain_ms": cuda_ms(lambda: ctc_cuda.ctc_alpha_plain(
+                lpz, skip, lens, ends), reps=3, warmup=1)},
+        "ctc_beta_grad": {
+            "max_abs_err": grad_err,
+            "ms": cuda_ms(lambda: ctc_cuda.ctc_beta_grad(
+                lpz, alphas, skip, lens, ends, nll), reps=20),
+            "plain_ms": cuda_ms(lambda: ctc_cuda.ctc_beta_grad_plain(
+                lpz, alphas, skip, lens, ends, nll), reps=3, warmup=1)},
+    }
+    log(f"[K6/K7 ctc] B=128 T=399 U=96 S=193: nll rel err={nll_err:.3e} "
+        f"(tol {CTC_NLL_RTOL}) grad max abs err={grad_err:.3e} (tol "
+        f"{CTC_GRAD_ATOL}) grad finite={finite} infeasible row "
+        f"nll={nll[-1].item():.3e}")
+    for k, v in res.items():
+        log(f"[K6/K7 ctc] {k}: kernel {v['ms']:.4f} ms plain "
+            f"{v['plain_ms']:.4f} ms")
+    if not (nll_err <= CTC_NLL_RTOL and grad_err <= CTC_GRAD_ATOL
+            and finite and infeasible_ok):
+        raise AssertionError(f"K6/K7: nll err {nll_err}, grad err "
+                             f"{grad_err}, finite {finite}, infeasible "
+                             f"{infeasible_ok}")
+    return res
+
+
+def phase_lstm_train() -> dict:
+    import torch
+    from ctc_asr_tpu_torch.ops import lstm_cuda
+    nd, T, B, H = 2, 399, 128, 512
+    rng = np.random.default_rng(3)
+    lens = np.concatenate([[T], rng.integers(200, T + 1, B - 1)])
+    xproj, b, wh, start, end = _lstm_inputs(nd, T, B, H, lens, seed=5)
+    g = torch.Generator().manual_seed(6)
+    gout = (0.1 * torch.randn(nd, T, B, H, generator=g)).to(
+        torch.bfloat16).cuda()
+    h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
+                                     residuals=True)
+    dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
+    dwh = lstm_cuda.dwh_from_seq(h, dx)
+    ph, pc, pg = lstm_cuda.lstm_fwd_plain(xproj, b, wh, start, end)
+    # K3 and its plain version on the same inputs: the kernel's residuals
+    pdx, pdb = lstm_cuda.lstm_bwd_plain(gout, gates, c, wh, start, end)
+    pdwh = lstm_cuda.dwh_from_seq(h, pdx.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    errs = {
+        "h": (h.float() - ph).abs().max().item(),
+        "c": (c.float() - pc).abs().max().item(),
+        "gates": (gates.float() - pg).abs().max().item(),
+    }
+    rel = {
+        "dxproj": ((dx.float() - pdx).abs().max() / pdx.abs().max()).item(),
+        "db": ((db - pdb).abs().max() / pdb.abs().max()).item(),
+        "dwh": ((dwh.float() - pdwh.float()).abs().max()
+                / pdwh.float().abs().max()).item(),
+    }
+    fwd_ms = cuda_ms(lambda: lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
+                                                residuals=True), reps=10)
+    fwd_plain = cuda_ms(lambda: lstm_cuda.lstm_fwd_plain(xproj, b, wh,
+                                                         start, end),
+                        reps=3, warmup=1)
+    bwd_ms = cuda_ms(lambda: lstm_cuda.lstm_bwd(gout, gates, c, wh, start,
+                                                end), reps=10)
+    bwd_plain = cuda_ms(lambda: lstm_cuda.lstm_bwd_plain(
+        gout, gates, c, wh, start, end), reps=3, warmup=1)
+    log(f"[K2+K3 lstm train] nd=2 B=128 T=399 H=512: max abs err h/c/gates "
+        f"{errs} (tol {LSTM_TOL}); relative to the largest: {rel} (tol "
+        f"{BPTT_RTOL})")
+    log(f"[K2 residual] kernel {fwd_ms:.4f} ms plain {fwd_plain:.4f} ms; "
+        f"[K3 bptt] kernel {bwd_ms:.4f} ms plain {bwd_plain:.4f} ms")
+    if max(errs.values()) > LSTM_TOL or max(rel.values()) > BPTT_RTOL \
+            or not torch.isfinite(dx.float()).all():
+        raise AssertionError(f"K2 residuals / K3: {errs} {rel}")
+    return {"lstm_fwd_res": {"max_abs_err": max(errs.values()),
+                             "ms": fwd_ms, "plain_ms": fwd_plain},
+            "lstm_bwd": {"max_abs_err": (dx.float() - pdx).abs().max().item(),
+                         "max_rel_err": max(rel.values()),
+                         "ms": bwd_ms, "plain_ms": bwd_plain}}
+
+
 def random_checkpoint(cfg, path: str, seed: int = 0) -> None:
     """Glorot-uniform weights, zero biases with LSTM forget bias 1, in
     the reference checkpoint's keypath format."""
@@ -258,14 +414,14 @@ def phase_slice(tmp: str) -> dict:
     wavs = [u.path for u in read_manifest(manifest)][:2]
 
     stft_cuda.stft_features.launches = 0
-    lstm_cuda.lstm_seq.launches = 0
+    lstm_cuda.lstm_fwd.launches = 0
     ev = run_cli(["evaluate", "--preset", "conv_bilstm3", "--ckpt", ckpt,
                   "--device=cuda"]
                  + [f"--{k}={v}" for k, v in overrides.items()])
     tr = run_cli(["transcribe", "--preset", "conv_bilstm3", "--ckpt", ckpt,
                   "--device=cuda", *wavs])
     launches = {"stft": stft_cuda.stft_features.launches,
-                "lstm": lstm_cuda.lstm_seq.launches}
+                "lstm": lstm_cuda.lstm_fwd.launches}
     log(f"[slice] kernel launches during evaluate+transcribe: {launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
@@ -323,7 +479,262 @@ def phase_slice(tmp: str) -> dict:
         f"{agree:.6f} identical transcripts={same}/{n_utts}")
     if agree < ARGMAX_AGREEMENT:
         raise AssertionError(f"argmax agreement {agree} < {ARGMAX_AGREEMENT}")
-    return {"launches": launches, "rtf": res["rtf"]}
+    return {"launches": launches, "rtf": res["rtf"], "manifest": manifest}
+
+
+def _train_counters():
+    from ctc_asr_tpu_torch.ops import ctc_cuda, lstm_cuda, stft_cuda
+    return {"stft": stft_cuda.stft_features, "lstm_fwd": lstm_cuda.lstm_fwd,
+            "lstm_bwd": lstm_cuda.lstm_bwd, "ctc_alpha": ctc_cuda.ctc_alpha,
+            "ctc_beta_grad": ctc_cuda.ctc_beta_grad}
+
+
+def _read_metrics(train_dir: str) -> dict:
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return {r["step"]: r for r in recs if "loss" in r}
+
+
+def phase_train(tmp: str, manifest: str) -> dict:
+    """``cli train`` on the card: to a checkpoint at step 20, then
+    resumed to step 40."""
+    from ctc_asr_tpu.config import apply_overrides, preset
+    from ctc_asr_tpu_torch import checkpoint as ckpt_mod
+    from ctc_asr_tpu_torch import train as train_mod
+    train_dir = os.path.join(tmp, "train")
+    overrides = {"data.train_manifest": manifest,
+                 "data.eval_manifest": manifest, "data.batch_size": "16",
+                 "data.num_buckets": "1", "train.train_dir": train_dir,
+                 "train.learning_rate": "3e-4", "train.log_every": "1",
+                 "train.sync_every": "4", "train.checkpoint_every": "20",
+                 "train.eval_every": "0", "train.total_steps": "40"}
+    cfg = apply_overrides(preset("conv_bilstm3"), overrides)
+    # a random full-width train state, written in the reference's format
+    state = train_mod.init_train_state(cfg, "cuda")
+    ckpt_mod.save_checkpoint(train_dir + "/ckpt", 0,
+                             train_mod.state_to_flat(cfg, state))
+    args = ["train", "--preset", "conv_bilstm3", "--device=cuda"] \
+        + [f"--{k}={v}" for k, v in overrides.items()]
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run_cli(args + ["--max-steps=20"])
+    t_half = time.perf_counter() - t0
+    out = run_cli(args)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"[train] kernel launches during cli train (40 steps): {launches}")
+    if "resumed from step 20" not in out:
+        raise AssertionError("the second cli train did not resume at 20")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the train path never launched: "
+                             f"{launches}")
+    recs = _read_metrics(train_dir)
+    if sorted(recs) != list(range(1, 41)):
+        raise AssertionError(f"metrics for steps {sorted(recs)}")
+    loss = [recs[k]["loss"] for k in range(1, 41)]
+    gn = [recs[k]["grad_norm"] for k in range(1, 41)]
+    first, last = np.mean(loss[:5]), np.mean(loss[-5:])
+    log(f"[train] loss steps 1-5 mean {first:.4f}, 36-40 mean {last:.4f}; "
+        f"grad_norm {min(gn):.4f}..{max(gn):.4f}; wall {wall:.1f} s "
+        f"(first 20 steps incl. first calls {t_half:.1f} s); step time "
+        f"{np.median([recs[k]['step_time_s'] for k in range(25, 41)]):.4f}"
+        f" s (median, steps 25-40)")
+    if not (np.all(np.isfinite(loss)) and np.all(np.isfinite(gn))
+            and last < first):
+        raise AssertionError(f"loss {loss} grad_norm {gn}")
+    ev = run_cli(["evaluate", "--preset", "conv_bilstm3", "--ckpt",
+                  train_dir, "--device=cuda"]
+                 + [f"--{k}={v}" for k, v in overrides.items()])
+    res = json.loads(ev[ev.index("\n{") + 1:])
+    log(f"[train] evaluate on the step-40 checkpoint: wer={res['wer']:.4f} "
+        f"cer={res['cer']:.4f} over {res['utterances']} utterances")
+    return {"launches": launches, "loss_first": first, "loss_last": last}
+
+
+def _step_grads(cfg, params, arrs, mark=lambda: None):
+    """(loss, {k: grad}) of one train step's loss on the given path;
+    ``mark()`` is called after features, encoder, CTC and backward."""
+    import torch
+    from ctc_asr_tpu_torch.features import extract_features
+    from ctc_asr_tpu_torch.models import apply_encoder
+    from ctc_asr_tpu_torch.ops.ctc_cuda import ctc_loss
+    samples, slens, labels, llens = arrs
+    with torch.no_grad():
+        feats, flens = extract_features(samples, slens, cfg.features)
+    mark()
+    logits, lens = apply_encoder(params, feats, flens, cfg.model, train=True)
+    mark()
+    loss = ctc_loss(logits, lens, labels, llens,
+                    use_kernel=cfg.train.use_pallas_ctc)
+    mark()
+    grads = torch.autograd.grad(loss, list(params.values()))
+    mark()
+    return loss.detach(), dict(zip(params, grads))
+
+
+# device kernels of a train step, by layer (the first match names it)
+_KERNEL_GROUPS = (
+    ("K3 lstm_bwd", ("lstm_bwd_step_kernel",)),
+    ("K2 lstm_fwd", ("lstm_step_kernel",)),
+    ("K1 stft", ("stft_mel_kernel",)),
+    ("K6+K7 ctc", ("ctc_alpha_kernel", "ctc_beta_grad_kernel")),
+    ("cuDNN convs", ("cudnn", "conv", "xmma", "Nhwc", "nhwc")),
+    ("cuBLAS matmuls", ("gemm", "nvjet", "cutlass")),
+)
+
+
+def _profile_step(cfg, arrs) -> dict:
+    """Where a kernel-path train step's time goes: CUDA events between
+    its phases (median of 5 steps after one warm-up), then
+    ``torch.profiler`` over 3 steps: device time per kernel group, and
+    the device's busy share (the union of its kernel and copy intervals
+    over the event-timed step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ctc_asr_tpu_torch import train as train_mod
+    from ctc_asr_tpu_torch.optim import Adam
+    state = train_mod.init_train_state(cfg, "cuda")
+    opt = Adam(cfg.train)
+    names = ("features", "encoder_fwd", "ctc_fwd", "backward", "optimizer")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    splits = []
+    for _ in range(6):
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        it = iter(evs)
+        next(it).record()
+        _, grads = _step_grads(cfg, state["params"], arrs,
+                               mark=lambda: next(it).record())
+        opt.step(state["params"], grads, state["opt_state"])
+        next(it).record()
+        torch.cuda.synchronize()
+        splits.append([a.elapsed_time(b) for a, b in zip(evs, evs[1:])])
+    split = {n: statistics.median(s[i] for s in splits[1:])
+             for i, n in enumerate(names)}
+    step_ms = sum(split.values())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    step = train_mod.make_step_fn(cfg)
+    reps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step(state, *arrs)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and "Command Buffer" not in e.name]
+    groups: dict = {}
+    for e in kernels:
+        label = next((g for g, keys in _KERNEL_GROUPS
+                      if any(k in e.name for k in keys)),
+                     "elementwise, copies, other")
+        ms, n = groups.get(label, (0.0, 0))
+        groups[label] = (ms + e.time_range.elapsed_us() / 1e3 / reps,
+                         n + 1)
+    busy_us, end = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        s, t = e.time_range.start, e.time_range.end
+        busy_us += max(0.0, t - max(s, end))
+        end = max(end, t)
+    busy_ms = busy_us / 1e3 / reps
+    log(f"[profile] kernel-path step at B=128 x 8 s, CUDA events "
+        f"(median of 5): {step_ms:.2f} ms; "
+        + ", ".join(f"{n} {v:.2f}" for n, v in split.items())
+        + f"; peak device memory {peak:.2f} GiB")
+    log(f"[profile] torch.profiler over {reps} steps: device busy "
+        f"{busy_ms:.2f} ms a step = {busy_ms / step_ms:.3f} of the "
+        f"event-timed step")
+    total = sum(ms for ms, _ in groups.values())
+    for label, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"[profile]   {label}: {ms:.2f} ms a step, {n // reps} "
+            f"launches a step, {ms / total:.3f} of kernel time")
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device kernel")
+    return {"step_ms": step_ms, "split": split, "busy_ms": busy_ms,
+            "groups": groups, "peak_gib": peak}
+
+
+def phase_step() -> dict:
+    """One step at B=128 x 8 s from one random state (dropout 0): the
+    kernel path's loss, gradient norm and per-leaf gradient cosines
+    against the plain path at f32 compute (and, for information, at
+    bf16), and the step's time on the kernel and the bf16 plain path."""
+    import torch
+    from ctc_asr_tpu.config import preset
+    from ctc_asr_tpu_torch import train as train_mod
+    from ctc_asr_tpu_torch.optim import global_norm
+    base = preset("conv_bilstm3")
+    base = dataclasses.replace(
+        base, model=dataclasses.replace(base.model, dropout=0.0))
+    plain = dataclasses.replace(
+        base, features=dataclasses.replace(base.features, use_pallas=False),
+        model=dataclasses.replace(base.model, use_pallas_rnn=False),
+        train=dataclasses.replace(base.train, use_pallas_ctc=False))
+    plain32 = dataclasses.replace(plain, model=dataclasses.replace(
+        plain.model, compute_dtype="float32"))
+    B, S, U = 128, 128000, 96
+    rng = np.random.default_rng(11)
+    samples = _speechlike(B, S, seed=12)
+    slens = torch.as_tensor(rng.integers(S // 2, S + 1, B), dtype=torch.int32)
+    slens[0] = S
+    labels = torch.as_tensor(rng.integers(0, 28, (B, U)), dtype=torch.int32)
+    llens = torch.as_tensor(rng.integers(U // 2, U + 1, B), dtype=torch.int32)
+    arrs = [samples, slens.cuda(), labels.cuda(), llens.cuda()]
+    state = train_mod.init_train_state(base, "cuda")
+    out = {}
+    for name, cfg in (("kernel", base), ("plain_f32", plain32),
+                      ("plain_bf16", plain)):
+        loss, grads = _step_grads(cfg, state["params"], arrs)
+        out[name] = (loss.item(), grads, global_norm(grads).item())
+
+    def compare(ref):
+        loss_err = abs(out["kernel"][0] / out[ref][0] - 1)
+        gn_err = abs(out["kernel"][2] / out[ref][2] - 1)
+        cos = {k: torch.nn.functional.cosine_similarity(
+            out["kernel"][1][k].flatten().double(),
+            out[ref][1][k].flatten().double(), dim=0).item()
+            for k in out[ref][1]}
+        worst = min(cos, key=cos.get)
+        log(f"[step] B=128 x 8 s, U=96, kernel vs {ref}: loss "
+            f"{out['kernel'][0]:.4f} vs {out[ref][0]:.4f} rel err "
+            f"{loss_err:.3e}; grad_norm {out['kernel'][2]:.4f} vs "
+            f"{out[ref][2]:.4f} rel err {gn_err:.3e}; min per-leaf cosine "
+            f"{cos[worst]:.6f} at {worst}")
+        return loss_err, gn_err, cos[worst]
+
+    loss_err, gn_err, min_cos = compare("plain_f32")
+    compare("plain_bf16")
+    times = {}
+    for name, cfg in (("kernel", base), ("plain", plain), ("plain", plain),
+                      ("kernel", base)):
+        st = train_mod.init_train_state(cfg, "cuda")
+        step = train_mod.make_step_fn(cfg)
+        step(st, *arrs)                                   # first call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(st, *arrs)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(
+            (time.perf_counter() - t0) / 2 * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[step] limits against plain_f32: loss {STEP_LOSS_RTOL}, grad_norm "
+        f"{STEP_GNORM_RTOL}, cosine >= {STEP_MIN_COSINE}")
+    log(f"[step] ms per step (kernel, plain, plain, kernel order): "
+        f"kernel {times['kernel']} plain {times['plain']}; peak device "
+        f"memory {peak:.2f} GiB")
+    if not (loss_err <= STEP_LOSS_RTOL and gn_err <= STEP_GNORM_RTOL
+            and min_cos >= STEP_MIN_COSINE):
+        raise AssertionError(f"kernel vs plain step: loss {loss_err} "
+                             f"gnorm {gn_err} cosine {min_cos}")
+    _profile_step(base, arrs)
+    return {"kernel_ms": min(times["kernel"]),
+            "plain_ms": min(times["plain"])}
 
 
 def main() -> int:
@@ -345,18 +756,40 @@ def main() -> int:
     phase_build()
     k1 = phase_stft()
     k2 = phase_lstm()
+    k67 = phase_ctc()
+    k23 = phase_lstm_train()
     with tempfile.TemporaryDirectory() as tmp:
         sl = phase_slice(tmp)
+        tr = phase_train(tmp, sl["manifest"])
+    step = phase_step()
+    tl = tr["launches"]
     kernels = [
         {"name": "stft_mel", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/stft.cu",
          "replaces": "ctc_asr_tpu/ops/stft_pallas.py:102",
-         "launches": sl["launches"]["stft"], **k1},
+         "launches": tl["stft"], "serve_launches": sl["launches"]["stft"],
+         **k1},
         {"name": "lstm_fwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/lstm_fwd.cu",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:199",
-         "launches": sl["launches"]["lstm"], **k2},
+         "launches": tl["lstm_fwd"], "serve_launches": sl["launches"]["lstm"],
+         **k2, "residual_ms": k23["lstm_fwd_res"]["ms"],
+         "residual_plain_ms": k23["lstm_fwd_res"]["plain_ms"]},
+        {"name": "lstm_bwd", "route": "cuda",
+         "source": "ctc_asr_tpu_torch/csrc/lstm_bwd.cu",
+         "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:247",
+         "launches": tl["lstm_bwd"], **k23["lstm_bwd"]},
+        {"name": "ctc_alpha", "route": "cuda",
+         "source": "ctc_asr_tpu_torch/csrc/ctc.cu",
+         "replaces": "ctc_asr_tpu/ops/ctc_pallas.py:97",
+         "launches": tl["ctc_alpha"], **k67["ctc_alpha"]},
+        {"name": "ctc_beta_grad", "route": "cuda",
+         "source": "ctc_asr_tpu_torch/csrc/ctc.cu",
+         "replaces": "ctc_asr_tpu/ops/ctc_pallas.py:149",
+         "launches": tl["ctc_beta_grad"], **k67["ctc_beta_grad"]},
     ]
+    log(f"[step] train step ms at B=128 x 8 s: kernel path "
+        f"{step['kernel_ms']:.1f}, plain path {step['plain_ms']:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,19 +8,24 @@ and never ``jax``; from the reference it reuses only the JAX-free
 modules (``config``, ``text``, ``audio``, ``metrics`` and
 ``data.{manifest,loader,synth}``).
 
-This slice is the serving path (inference only): wav -> log-mel ->
-conv + (bi)LSTM encoder -> greedy CTC decode, behind ``cli evaluate``
-and ``cli transcribe``.
+Two slices are ported: serving (wav -> log-mel -> conv + (bi)LSTM
+encoder -> greedy CTC decode, behind ``cli evaluate`` and ``cli
+transcribe``) and training (CTC loss, LSTM BPTT, Adam, the train loop
+and its checkpoints, behind ``cli train``).
 
 Layout
 ------
-- ``features``    framing / log-mel / MFCC / normalization / wire decode
-- ``models``      SAME conv, dense, (bi)LSTM, encoder (JAX layouts kept)
+- ``features``    framing / log-mel / MFCC / normalization / wire decode,
+                  SpecAugment
+- ``models``      init, SAME conv, dense, dropout, (bi)LSTM, encoder
+                  (JAX layouts kept)
 - ``ops``         device dispatch, greedy decode, the hand-written CUDA
-                  kernels' wrappers (``stft_cuda``, ``lstm_cuda``)
+                  kernels' wrappers (``stft_cuda``, ``lstm_cuda``,
+                  ``ctc_cuda``)
 - ``csrc``        CUDA C++ sources of those kernels, built at first use
-- ``checkpoint``  reads the reference's flat-npz checkpoints
-- ``evaluate`` / ``transcribe`` / ``cli``  the serving drivers
+- ``optim``       global-norm clipping, Adam / AdamW, LR schedules
+- ``checkpoint``  the reference's flat-npz checkpoints, read and written
+- ``train`` / ``evaluate`` / ``transcribe`` / ``cli``  the entry points
 """
 
 __version__ = "0.1.0"

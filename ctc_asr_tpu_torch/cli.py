@@ -1,5 +1,8 @@
-"""Command-line entry points of the port (the serving path):
+"""Command-line entry points of the port:
 
+    python -m ctc_asr_tpu_torch.cli train --preset conv_bilstm3 \
+        --data.train_manifest=M.csv [--max-steps N] [--device=cuda] \
+        [--section.key=value ...]
     python -m ctc_asr_tpu_torch.cli evaluate --preset conv_bilstm3 \
         --ckpt CKPT [--device=cuda] [--dump-utts a.json] [--section.key=value ...]
     python -m ctc_asr_tpu_torch.cli transcribe --preset conv_bilstm3 \
@@ -8,8 +11,11 @@
 The surface is the reference CLI's (``ctc_asr_tpu/cli.py``): ``--preset``
 picks a preset, ``--config file.json`` loads a full config, and any
 ``--section.key=value`` overrides it. ``--ckpt`` is a ``.npz`` written by
-the reference's ``save_checkpoint`` or a train dir. ``--device``
-defaults to ``cuda``, and asking for CUDA where there is none raises.
+either package's ``save_checkpoint`` or a train dir. ``train`` resumes
+from the newest checkpoint in ``train.train_dir`` and evaluates every
+``train.eval_every`` steps when ``data.eval_manifest`` is set.
+``--device`` defaults to ``cuda``, and asking for CUDA where there is
+none raises.
 """
 
 from __future__ import annotations
@@ -46,15 +52,40 @@ def _load_cfg(args, overrides) -> cfg_mod.Config:
     return cfg
 
 
-def _parser(prog: str) -> argparse.ArgumentParser:
+def _parser(prog: str, ckpt: bool = True) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog=prog)
     p.add_argument("--preset", default="",
                    help="named preset (ctc_asr_tpu.config.preset)")
     p.add_argument("--config", default="", help="config json file")
-    p.add_argument("--ckpt", required=True,
-                   help="checkpoint .npz (or train dir)")
+    if ckpt:
+        p.add_argument("--ckpt", required=True,
+                       help="checkpoint .npz (or train dir)")
     p.add_argument("--device", default="cuda", help="cuda or cpu")
     return p
+
+
+def cmd_train(argv):
+    overrides, rest = _split_args(argv)
+    p = _parser("train", ckpt=False)
+    p.add_argument("--max-steps", type=int, default=None)
+    args = p.parse_args(rest)
+    cfg = _load_cfg(args, overrides)
+
+    from .evaluate import evaluate
+    from .train import train
+
+    eval_fn = None
+    if cfg.data.eval_manifest:
+        def eval_fn(state):
+            params = {k: v.detach() for k, v in state["params"].items()}
+            res = evaluate(cfg, params, args.device, log_samples=2)
+            res.pop("per_utt", None)
+            res.pop("device", None)
+            return res
+    state = train(cfg, args.device, max_steps=args.max_steps,
+                  eval_fn=eval_fn)
+    print(f"[train] done at step {state['step']}")
+    return 0
 
 
 def cmd_evaluate(argv):
@@ -98,6 +129,7 @@ def cmd_transcribe(argv):
 
 
 COMMANDS = {
+    "train": cmd_train,
     "evaluate": cmd_evaluate,
     "transcribe": cmd_transcribe,
 }

@@ -1,0 +1,167 @@
+// CTC forward (alpha) and backward (beta + gradient) recursions.
+//
+// Replaces: ctc_asr_tpu/ops/ctc_pallas.py, _alpha_kernel (K6, launched by
+// _run_alpha) and _beta_kernel (K7, launched by _run_beta). Both run the
+// log-space DP over the blank-interleaved extended labels, S = 2U+1
+// states, on lp_z [T, B, S] (log_softmax gathered at the labels; the
+// gather and its gradient stay in PyTorch):
+//   alpha_t(s) = lse3(alpha_{t-1}(s), alpha_{t-1}(s-1),
+//                     skip(s) ? alpha_{t-1}(s-2) : NEG) + lp_z[t, s]
+//   beta_t(s)  = lse3(x(s), x(s+1), skip(s+2) ? x(s+2) : NEG),
+//                x = beta_{t+1} + lp_z[t+1]
+//   grad[t, s] = -exp(max(alpha_t(s) + beta_t(s), NEG) - logP)
+// with the reference's semantics kept exactly: NEG = -1e30 finite
+// sentinel, max-clamped log-sum-exp, alpha_0 with state 1 invalid for an
+// empty label, rows past their length carrying alpha and getting a zero
+// gradient, the NLL from states 2U and 2U-1, beta starting at t = len-1.
+//
+// What bounds it on the H100: a strict chain of T steps per utterance,
+// each a 3-way log-sum-exp per state (3 expf + 1 logf): at B=128, T=399,
+// S=193 that is ~10 M states, far below the card's compute, and 40 MB
+// of alphas written by K6 and read back by K7. The cost is the chain's
+// latency: one shared-memory exchange and barrier per step.
+//
+// What the design does about it, simple first: one block per utterance
+// (B=128 -> 128 blocks on 132 SMs), one thread per state, the loop over
+// t inside the block (the TPU kernel's sequential grid axis becomes this
+// loop). A thread keeps its state's value in a register and publishes it
+// in a double-buffered shared array, so each step needs one
+// __syncthreads: step t reads buffer t&1's neighbours and writes buffer
+// (t+1)&1. Reads of lp_z and writes of alpha / grad are coalesced rows
+// of S floats. An infeasible row (nll = 1e30) gives -exp(0) = -1 at its
+// unreachable states, a finite gradient that the zero cotangent turns
+// into exact zeros, as in the reference. Compiled without fast math so
+// expf/logf keep the reference's f32 results.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float NEG = -1.0e30f;
+
+__device__ __forceinline__ float lse3(float a, float b, float c) {
+  float m = fmaxf(fmaxf(fmaxf(a, b), c), NEG);
+  float out = m + logf(expf(a - m) + expf(b - m) + expf(c - m));
+  return fmaxf(out, NEG);
+}
+
+__global__ void ctc_alpha_kernel(const float* __restrict__ lpz,   // [T,B,S]
+                                 const float* __restrict__ skip,  // [B,S]
+                                 const int* __restrict__ lens,    // [B]
+                                 const int* __restrict__ ends,    // [B]
+                                 float* __restrict__ alphas,      // [T,B,S]
+                                 float* __restrict__ nll,         // [B]
+                                 int T, int B, int S) {
+  extern __shared__ float buf[];        // [2][S]
+  const int b = blockIdx.x;
+  const int s = threadIdx.x;
+  const bool active = s < S;
+  const int len = lens[b];
+  const int end = ends[b];
+  const bool sk = active && skip[(size_t)b * S + s] > 0.5f;
+
+  float a = NEG;
+  if (active) {
+    const float lp0 = lpz[(size_t)b * S + s];
+    if (s == 0 || (s == 1 && end > 0)) a = lp0;
+    buf[s] = a;
+    alphas[(size_t)b * S + s] = a;
+  }
+  __syncthreads();
+  for (int t = 1; t < T; ++t) {
+    const float* prev = buf + ((t - 1) & 1) * S;
+    float* cur = buf + (t & 1) * S;
+    if (active) {
+      const float stay = prev[s];
+      const float diag = s >= 1 ? prev[s - 1] : NEG;
+      const float sk2 = (sk && s >= 2) ? prev[s - 2] : NEG;
+      const size_t o = ((size_t)t * B + b) * S + s;
+      if (t < len) a = fmaxf(lse3(stay, diag, sk2) + lpz[o], NEG);
+      cur[s] = a;
+      alphas[o] = a;
+    }
+    __syncthreads();
+  }
+  if (s == 0) {
+    const float* fin = buf + ((T - 1) & 1) * S;
+    const float ae = end < S ? fin[end] : NEG;
+    const float ae1 = (end > 0 && end - 1 < S) ? fin[end - 1] : NEG;
+    const float m = fmaxf(fmaxf(ae, ae1), NEG);
+    const float total = m + logf(expf(ae - m) + expf(ae1 - m));
+    nll[b] = -fmaxf(total, NEG);
+  }
+}
+
+__global__ void ctc_beta_grad_kernel(const float* __restrict__ lpz,
+                                     const float* __restrict__ alphas,
+                                     const float* __restrict__ skip,
+                                     const int* __restrict__ lens,
+                                     const int* __restrict__ ends,
+                                     const float* __restrict__ nll,
+                                     float* __restrict__ grad,
+                                     int T, int B, int S) {
+  extern __shared__ float xbuf[];       // [2][S]: x = beta_{t+1} + lp_z[t+1]
+  const int b = blockIdx.x;
+  const int s = threadIdx.x;
+  const bool active = s < S;
+  const int len = lens[b];
+  const int end = ends[b];
+  const float logp = -nll[b];
+  const bool sk2 = active && s + 2 < S && skip[(size_t)b * S + s + 2] > 0.5f;
+  const bool is_end = s == end || (s == end - 1 && end > 0);
+
+  float beta = NEG, plpz = NEG;          // carried beta_{t+1}, lp_z[t+1]
+  for (int t = T - 1; t >= 0; --t) {
+    float* x = xbuf + (t & 1) * S;
+    if (active) x[s] = fmaxf(plpz + beta, NEG);
+    __syncthreads();
+    if (active) {
+      const float stay = x[s];
+      const float diag = s + 1 < S ? x[s + 1] : NEG;
+      const float skp = sk2 ? x[s + 2] : NEG;
+      const float rec = lse3(stay, diag, skp);
+      if (t == len - 1)
+        beta = is_end ? 0.f : NEG;
+      else
+        beta = t < len - 1 ? rec : NEG;
+      const size_t o = ((size_t)t * B + b) * S + s;
+      plpz = lpz[o];
+      const float g = -expf(fmaxf(alphas[o] + beta, NEG) - logp);
+      grad[o] = t < len ? g : 0.f;
+    }
+    // the next step writes the other buffer; two steps on, this one is
+    // rewritten only after every thread has passed the barrier above
+  }
+}
+
+}  // namespace
+
+// K6: alphas [T,B,S] and nll [B] from lp_z [T,B,S]. Needs S <= 1024.
+extern "C" int ctc_alpha(const void* lpz, const void* skip, const void* lens,
+                         const void* ends, void* alphas, void* nll, int T,
+                         int B, int S, void* stream) {
+  if (T <= 0 || B <= 0 || S <= 0) return (int)cudaSuccess;
+  if (S > 1024) return (int)cudaErrorInvalidValue;
+  const int threads = ((S + 31) / 32) * 32;
+  ctc_alpha_kernel<<<B, threads, 2 * S * sizeof(float),
+                     (cudaStream_t)stream>>>(
+      (const float*)lpz, (const float*)skip, (const int*)lens,
+      (const int*)ends, (float*)alphas, (float*)nll, T, B, S);
+  return (int)cudaGetLastError();
+}
+
+// K7: grad [T,B,S] = d nll / d lp_z from lp_z, alphas and nll.
+extern "C" int ctc_beta_grad(const void* lpz, const void* alphas,
+                             const void* skip, const void* lens,
+                             const void* ends, const void* nll, void* grad,
+                             int T, int B, int S, void* stream) {
+  if (T <= 0 || B <= 0 || S <= 0) return (int)cudaSuccess;
+  if (S > 1024) return (int)cudaErrorInvalidValue;
+  const int threads = ((S + 31) / 32) * 32;
+  ctc_beta_grad_kernel<<<B, threads, 2 * S * sizeof(float),
+                         (cudaStream_t)stream>>>(
+      (const float*)lpz, (const float*)alphas, (const float*)skip,
+      (const int*)lens, (const int*)ends, (const float*)nll, (float*)grad,
+      T, B, S);
+  return (int)cudaGetLastError();
+}

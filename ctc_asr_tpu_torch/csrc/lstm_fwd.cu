@@ -1,4 +1,4 @@
-// Forward recurrence of one fused (bi)LSTM layer, inference only.
+// Forward recurrence of one fused (bi)LSTM layer (K2).
 //
 // Replaces: ctc_asr_tpu/ops/lstm_pallas.py, _fwd_kernel (launched by
 // _run_fwd / lstm_seq_pallas). For direction d, row b and step t:
@@ -8,8 +8,11 @@
 // Outside the row's window [start, end) the state carries through
 // unchanged and the output is 0 (lstm_pallas.py:225-229). A fused BiLSTM
 // passes the statically flipped input as direction 1 with window
-// [T-len, T); the caller flips its output back. Only h is written: no c
-// or gates are kept, since inference runs no BPTT.
+// [T-len, T); the caller flips its output back. Inference writes h only;
+// in residual mode (training) the launch also stores the carried, masked
+// c and the activated gates [i,f,g,o], both bf16, for the BPTT kernel
+// (lstm_bwd.cu), exactly as lstm_pallas.py:229-232. Null residual
+// pointers give the inference launch.
 //
 // What bounds it on the H100: a strict chain of T steps, each a
 // [B, H] x [H, 4H] product (nd=2, B=128, H=512: 0.54 GFLOP, 4 MB of
@@ -76,6 +79,8 @@ lstm_step_kernel(const bf16* __restrict__ xproj,   // [nd,T,B,4H]
                  bf16* __restrict__ hb_next,
                  float* __restrict__ c_state,          // [nd,B,H]
                  bf16* __restrict__ h_out,             // [nd,T,B,H]
+                 bf16* __restrict__ c_out,             // [nd,T,B,H] or null
+                 bf16* __restrict__ gates_out,         // [nd,T,B,4H] or null
                  int t, int T, int B, int H) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);             // [BT][LDA]
@@ -168,7 +173,16 @@ lstm_step_kernel(const bf16* __restrict__ xproj,   // [nd,T,B,4H]
     c_state[so] = m ? c_new : c_old;
     h_next[so] = h;
     hb_next[so] = __float2bfloat16(h);
-    h_out[(((size_t)d * T + t) * B + bb) * H + j] = __float2bfloat16(m ? h : 0.f);
+    const size_t ot = ((size_t)d * T + t) * B + bb;
+    h_out[ot * H + j] = __float2bfloat16(m ? h : 0.f);
+    if (c_out != nullptr) {
+      c_out[ot * H + j] = __float2bfloat16(m ? c_new : c_old);
+      bf16* gp = gates_out + ot * G;
+      gp[0 * H + j] = __float2bfloat16(gi);
+      gp[1 * H + j] = __float2bfloat16(gf);
+      gp[2 * H + j] = __float2bfloat16(gg);
+      gp[3 * H + j] = __float2bfloat16(go);
+    }
   }
 }
 
@@ -177,14 +191,18 @@ lstm_step_kernel(const bf16* __restrict__ xproj,   // [nd,T,B,4H]
 // One layer: T launches of lstm_step_kernel on `stream`. Needs H % 16 == 0
 // and 16-byte aligned xproj/wh/hb16. hbuf is [2, nd, B, H] f32 and hb16
 // [2, nd, B, H] bf16, each with index 0 zeroed by the caller; cbuf
-// [nd, B, H] f32 zeroed by the caller. Returns cudaError_t.
+// [nd, B, H] f32 zeroed by the caller. c_out [nd,T,B,H] and gates_out
+// [nd,T,B,4H] (bf16) are both given for training or both null for
+// inference. Returns cudaError_t.
 extern "C" int lstm_fwd_seq(const void* xproj, const void* bias,
                             const void* wh, const void* start,
                             const void* end, void* hbuf, void* hb16,
-                            void* cbuf, void* h_out, int nd, int T, int B,
+                            void* cbuf, void* h_out, void* c_out,
+                            void* gates_out, int nd, int T, int B,
                             int H, void* stream) {
   if (nd <= 0 || T <= 0 || B <= 0 || H <= 0) return (int)cudaSuccess;
-  if (H % 16 != 0 || (B + BT - 1) / BT > 65535 || nd > 65535)
+  if (H % 16 != 0 || (B + BT - 1) / BT > 65535 || nd > 65535
+      || (c_out == nullptr) != (gates_out == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       lstm_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -199,7 +217,8 @@ extern "C" int lstm_fwd_seq(const void* xproj, const void* bias,
     lstm_step_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
         (const bf16*)xproj, (const float*)bias, (const bf16*)wh,
         (const int*)start, (const int*)end, hf + cur, hb + cur, hf + nxt,
-        hb + nxt, (float*)cbuf, (bf16*)h_out, t, T, B, H);
+        hb + nxt, (float*)cbuf, (bf16*)h_out, (bf16*)c_out,
+        (bf16*)gates_out, t, T, B, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

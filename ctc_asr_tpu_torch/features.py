@@ -229,3 +229,55 @@ def _load_stats(path: str):
     with np.load(path) as z:
         return (np.asarray(z["mean"], np.float32),
                 np.asarray(z["var"], np.float32))
+
+
+# ---------------------------------------------------------------------------
+# SpecAugment (``features.py:296-353``): train-only time/frequency masking
+# of the normalized features. Per-utterance widths and starts come from
+# uniforms drawn from an explicit torch.Generator; the mask builder takes
+# the uniforms as arguments, so a test can feed it the reference's draws.
+# ---------------------------------------------------------------------------
+
+def axis_masks(u_w: torch.Tensor, u_s: torch.Tensor, length: int,
+               max_width: torch.Tensor, limit: torch.Tensor) -> torch.Tensor:
+    """[B, length] bool: union of the spans of ``u_w``/``u_s`` [B, n]
+    (``features._axis_masks``). max_width/limit [B]: per-row maximum
+    width and exclusive upper bound for span placement; width-0 spans
+    mask nothing."""
+    maxw = torch.minimum(max_width.float(), limit.float())[:, None]
+    w = torch.floor(u_w * (maxw + 1.0))                   # [B, n] in [0, maxw]
+    lim = limit.float()[:, None]
+    s = torch.floor(u_s * torch.clamp_min(lim - w + 1.0, 1.0))
+    pos = torch.arange(length, dtype=torch.float32,
+                       device=u_w.device)[None, None, :]
+    spans = (pos >= s[..., None]) & (pos < (s + w)[..., None])
+    return spans.any(dim=1)
+
+
+def spec_augment(feats: torch.Tensor, frame_lengths: torch.Tensor,
+                 n_time_masks: int, time_ratio: float, n_freq_masks: int,
+                 freq_width: int,
+                 generator: torch.Generator | None) -> torch.Tensor:
+    """feats [B, T, F] -> masked copy (zeros inside masked spans). Time
+    masks are at most ``time_ratio * len`` wide and lie in [0, len);
+    frequency masks at most ``freq_width``. ``generator`` lies on the
+    features' device; its draws are the time masks' (u_w, u_s), then the
+    frequency masks'."""
+    B, T, F = feats.shape
+    dev = feats.device
+
+    def uniforms(n):
+        return (torch.rand((B, n), generator=generator, device=dev),
+                torch.rand((B, n), generator=generator, device=dev))
+
+    if n_time_masks > 0:
+        lens = frame_lengths.float()
+        tm = axis_masks(*uniforms(n_time_masks), T,
+                        torch.floor(time_ratio * lens), lens)
+        feats = feats * (1.0 - tm.to(feats.dtype))[..., None]
+    if n_freq_masks > 0:
+        full = torch.full((B,), float(F), device=dev)
+        fm = axis_masks(*uniforms(n_freq_masks), F,
+                        torch.full((B,), float(freq_width), device=dev), full)
+        feats = feats * (1.0 - fm.to(feats.dtype))[:, None, :]
+    return feats

@@ -1,20 +1,26 @@
-"""DS1/DS2-style acoustic encoders at inference.
+"""DS1/DS2-style acoustic encoders.
 
 Counterpart of ``ctc_asr_tpu/models/encoder.py``: a dense (DS1) or
 conv2d (DS2) frontend with clipped ReLU, a (bi)LSTM stack and a dense
 head to the vocabulary, returning pre-softmax logits ``[B, T', C]`` and
 their lengths. Parameters are the flat keypath dict of
 ``checkpoint.params_from_jax`` (``frontend/0/w``, ``rnn/0/fwd/wx``,
-``head/b``, ...) in the reference's layouts.
+``head/b``, ...) in the reference's layouts. ``train=True`` adds
+dropout after each frontend layer and each RNN layer, and ``cfg.remat``
+recomputes each RNN layer in the backward pass
+(``torch.utils.checkpoint``), as ``jax.checkpoint`` does in the
+reference.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ctc_asr_tpu.config import ModelConfig
 
-from .layers import clipped_relu, conv2d_apply, dense_apply
+from .layers import (clipped_relu, conv2d_apply, dense_apply, dropout,
+                     dropout_mask, glorot)
 from .rnn import birnn_apply, lstm_apply
 
 
@@ -70,32 +76,56 @@ def init_shapes(cfg: ModelConfig, feat_dim: int) -> dict[str, tuple]:
     return shapes
 
 
+def init_params(cfg: ModelConfig, feat_dim: int,
+                generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """Fresh f32 CPU parameters (``encoder.init_params``): Glorot-uniform
+    weights, zero biases, LSTM forget-gate bias 1 (gate order i, f, g,
+    o). The values come from ``generator``, not JAX's PRNG."""
+    params = {}
+    for k, shape in init_shapes(cfg, feat_dim).items():
+        if k.endswith("/b"):
+            v = torch.zeros(shape, dtype=torch.float32)
+            if k.startswith("rnn/") and cfg.rnn_type == "lstm":
+                v[cfg.rnn_units:2 * cfg.rnn_units] = 1.0
+        else:
+            v = glorot(shape, generator)
+        params[k] = v
+    return params
+
+
 def _layer(params: dict, prefix: str) -> dict:
     n = len(prefix)
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
 
 
 def apply_encoder(params: dict, feats: torch.Tensor,
-                  frame_lengths: torch.Tensor, cfg: ModelConfig):
+                  frame_lengths: torch.Tensor, cfg: ModelConfig,
+                  train: bool = False,
+                  generator: torch.Generator | None = None):
     """feats [B, T, F], frame_lengths [B] -> (logits [B, T', C] f32,
     lens [B] int32). The LSTM recurrence goes through the CUDA kernel
-    wrapper when ``cfg.use_pallas_rnn`` (the reference's kernel switch)."""
+    wrappers when ``cfg.use_pallas_rnn`` (the reference's kernel switch).
+    ``train`` applies dropout at ``cfg.dropout`` with masks drawn from
+    ``generator`` (on the features' device)."""
     if cfg.rnn_type != "lstm":
         raise NotImplementedError(
             f"rnn_type={cfg.rnn_type!r} is not ported yet (GRU and the "
             "vanilla RNN come with a later slice; see ROADMAP.md)")
     cdt = getattr(torch, cfg.compute_dtype)
+    rate = cfg.dropout if train else 0.0
     if cfg.frontend == "dense":
         x = feats
         for i in range(cfg.dense_layers):
             x = clipped_relu(dense_apply(_layer(params, f"frontend/{i}/"), x,
                                          cdt), cfg.relu_clip)
+            x = dropout(x, rate, generator)
         out_lens = frame_lengths.to(torch.int32)
     elif cfg.frontend == "conv":
         x = feats[..., None]                         # [B, T, F, 1] NHWC
         for i, strides in enumerate(cfg.conv_strides):
             x = clipped_relu(conv2d_apply(_layer(params, f"frontend/{i}/"),
                                           x, strides, cdt), cfg.relu_clip)
+            x = dropout(x, rate, generator)
         Bc, Tc, Fc, Cc = x.shape
         x = x.reshape(Bc, Tc, Fc * Cc)               # NHWC flatten order
         out_lens = output_lengths(frame_lengths, cfg)
@@ -108,14 +138,25 @@ def apply_encoder(params: dict, feats: torch.Tensor,
     x = x * vmask[..., None].to(x.dtype)
 
     x = x.transpose(0, 1)                            # [T', B, D]
+    width = (2 if cfg.bidirectional else 1) * cfg.rnn_units
     for i in range(cfg.rnn_layers):
         layer = _layer(params, f"rnn/{i}/")
-        if cfg.bidirectional:
-            x = birnn_apply({"fwd": _layer(layer, "fwd/"),
-                             "bwd": _layer(layer, "bwd/")}, x, out_lens,
-                            cdt, use_kernel=cfg.use_pallas_rnn)
+
+        def body(layer, inp, mask):
+            if cfg.bidirectional:
+                y = birnn_apply({"fwd": _layer(layer, "fwd/"),
+                                 "bwd": _layer(layer, "bwd/")}, inp,
+                                out_lens, cdt, use_kernel=cfg.use_pallas_rnn)
+            else:
+                y = lstm_apply(layer, inp, out_lens, cdt,
+                               use_kernel=cfg.use_pallas_rnn)
+            return dropout(y, rate, mask=mask)
+
+        mask = (dropout_mask((x.shape[0], x.shape[1], width), rate,
+                             generator, x.device) if rate > 0 else None)
+        if cfg.remat and train and torch.is_grad_enabled():
+            x = checkpoint(body, layer, x, mask, use_reentrant=False)
         else:
-            x = lstm_apply(layer, x, out_lens, cdt,
-                           use_kernel=cfg.use_pallas_rnn)
+            x = body(layer, x, mask)
     logits = dense_apply(_layer(params, "head/"), x, cdt)   # [T', B, C]
     return logits.transpose(0, 1), out_lens

@@ -1,16 +1,20 @@
-"""LSTM layers, uni- and bidirectional, at inference.
+"""LSTM layers, uni- and bidirectional.
 
 Counterpart of ``ctc_asr_tpu/models/rnn.py`` (``lstm_apply``,
 ``birnn_apply``) for ``rnn_type="lstm"``; GRU and the vanilla RNN come
 with a later slice. Time-major ``[T, B, F]`` in and out.
 
 - The input projections ``x @ wx`` for all steps are one batched
-  ``torch.matmul`` outside the recurrence, stored in the compute dtype.
-- The recurrence runs in ``ops.lstm_cuda``: the CUDA kernel wrapper
-  ``lstm_seq`` when ``use_kernel`` (bf16 inputs, as the reference's
-  Pallas path casts them), else the plain ``lstm_seq_plain`` in the
-  compute dtype. With float32 that is the reference's ``lax.scan``
-  path; with bfloat16 it is the kernel's own arithmetic.
+  ``torch.bmm`` outside the recurrence.
+- The kernel path (``use_kernel``, the reference's Pallas path) feeds
+  the CUDA kernels bf16 xproj and wh, as the reference casts them for
+  its kernel (``rnn.py:290``): the inference wrapper ``lstm_seq`` when
+  no gradient is wanted, else the autograd function ``LstmSeq`` (K2
+  with residuals forward, K3 backward).
+- The plain path is the reference's ``lax.scan`` path: xproj from the
+  compute-dtype operands accumulated in f32 (``preferred_element_type
+  =float32``, ``rnn.py:95-97``, ``:367-371``), the recurrence in
+  ``lstm_seq_plain``, and autograd through it when training.
 - Masking: outside a row's valid window the state carries through and
   the output is 0. Bidirectional layers keep the reference's static
   flip: the backward direction reads the time-flipped input with
@@ -21,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.lstm_cuda import lstm_seq, lstm_seq_plain
+from ..ops.lstm_cuda import LstmSeq, lstm_seq, lstm_seq_plain
 
 
 def _recurrence(xd: torch.Tensor, wx: torch.Tensor, b: torch.Tensor,
@@ -30,13 +34,18 @@ def _recurrence(xd: torch.Tensor, wx: torch.Tensor, b: torch.Tensor,
     """Direction-major inputs xd [nd, T, B, F] -> h [nd, T, B, H]."""
     nd, T, B, F = xd.shape
     G = wx.shape[-1]
-    xproj = torch.bmm(xd.reshape(nd, T * B, F).to(compute_dtype),
-                      wx.to(compute_dtype)).reshape(nd, T, B, G)
+    x2 = xd.reshape(nd, T * B, F).to(compute_dtype)
     if use_kernel:
-        return lstm_seq(xproj.to(torch.bfloat16).contiguous(),
-                        b.float().contiguous(),
-                        wh.to(torch.bfloat16).contiguous(),
-                        start.contiguous(), end.contiguous())
+        xproj = torch.bmm(x2, wx.to(compute_dtype)).reshape(nd, T, B, G)
+        args = (xproj.to(torch.bfloat16).contiguous(), b.float().contiguous(),
+                wh.to(torch.bfloat16).contiguous(), start.contiguous(),
+                end.contiguous())
+        if torch.is_grad_enabled() and any(a.requires_grad
+                                           for a in args[:3]):
+            return LstmSeq.apply(*args)
+        return lstm_seq(*args)
+    xproj = torch.bmm(x2.float(), wx.to(compute_dtype).float()
+                      ).reshape(nd, T, B, G)
     return lstm_seq_plain(xproj, b, wh.to(compute_dtype), start, end)
 
 

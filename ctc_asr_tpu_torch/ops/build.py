@@ -1,15 +1,16 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds). The build happens at first use, into
+Each source compiles with its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into a shared library
+with a plain C interface, loaded with ``ctypes`` (no PyTorch headers,
+so a build takes seconds). The build happens at first use, into
 ``ctc_asr_tpu_torch/_build/<hash of the sources>/``, so a fresh checkout
 builds its kernels from its own sources and a changed source never
 loads a stale library. Nothing is built or loaded at import time.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns the ``cudaError_t`` of its launches; the wrappers
-in ``stft_cuda`` / ``lstm_cuda`` raise when it is not 0.
+in ``stft_cuda`` / ``lstm_cuda`` / ``ctc_cuda`` raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -29,8 +31,7 @@ BUILD_ROOT = os.path.join(_PKG_DIR, "_build")
 LIB_NAME = "libctc_asr_kernels.so"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,10 +43,18 @@ _SIGNATURES = {
     # use_dct, log_floor, stream
     "stft_mel_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _P],
-    # xproj, bias, wh, start, end, hbuf, hb16, cbuf, h_out, nd, T, B, H,
-    # stream
-    "lstm_fwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                     _P],
+    # xproj, bias, wh, start, end, hbuf, hb16, cbuf, h_out, c_out,
+    # gates_out, nd, T, B, H, stream
+    "lstm_fwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                     _I, _I, _P],
+    # g_out, gates, c_seq, wh, start, end, dh_state, dc_state, dxproj,
+    # db_part, nd, T, B, H, stream
+    "lstm_bwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     _I, _P],
+    # lpz, skip, lens, ends, alphas, nll, T, B, S, stream
+    "ctc_alpha": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # lpz, alphas, skip, lens, ends, nll, grad, T, B, S, stream
+    "ctc_beta_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -83,6 +92,14 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _nvcc(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> str:
     """Compile the kernel library if this source hash has none yet;
     returns its path. Records timing and ptxas output in build_info."""
@@ -93,16 +110,25 @@ def build() -> str:
         build_info.setdefault("cached", True)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc = find_nvcc()
+    tag = f"{os.getpid()}.tmp"     # concurrent builders never share files
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib_path)
+    srcs = [p for p in sources() if p.endswith(".cu")]
+    objs = [os.path.join(out_dir, os.path.basename(p) + f".{tag}.o")
+            for p in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, p]
+            for p, o in zip(srcs, objs)]
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        logs = list(pool.map(_nvcc, cmds))
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", f"{lib_path}.{tag}", *objs]
+    logs.append(_nvcc(link))
+    os.replace(f"{lib_path}.{tag}", lib_path)
+    for o in objs:
+        os.remove(o)
     build_info.update(seconds=time.perf_counter() - t0, cached=False,
-                      log=proc.stdout + proc.stderr, command=" ".join(cmd))
+                      log="".join(logs),
+                      command="\n".join(" ".join(c) for c in cmds + [link]))
     return lib_path
 
 

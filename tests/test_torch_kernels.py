@@ -15,13 +15,14 @@ import torch
 
 from ctc_asr_tpu.config import FeatureConfig, ModelConfig
 from ctc_asr_tpu_torch.models import apply_encoder, init_shapes
-from ctc_asr_tpu_torch.ops import lstm_cuda, stft_cuda
+from ctc_asr_tpu_torch.ops import ctc_cuda, lstm_cuda, stft_cuda
 from ctc_asr_tpu_torch.ops.dispatch import cuda_supported
 
 pytestmark = pytest.mark.cuda
 
 STFT_TOL = 2e-3   # f32 log-features, sums in another order
 LSTM_TOL = 8e-3   # two bf16 ulps of h at |h| in [0.5, 1)
+CTC_TOL = 1e-4    # f32 log-space DP, same operation order per state
 
 
 @pytest.fixture
@@ -94,13 +95,91 @@ def test_encoder_kernel_path_matches_plain_path(dev):
     feats = torch.from_numpy(rng.standard_normal((4, 50, 40))
                              .astype(np.float32)).to(dev)
     flens = torch.tensor([50, 31, 7, 1], dtype=torch.int32, device=dev)
-    n0 = lstm_cuda.lstm_seq.launches
+    n0 = lstm_cuda.lstm_fwd.launches
     with torch.inference_mode():
         lk, lens_k = apply_encoder(params, feats, flens, cfg)
         lp, lens_p = apply_encoder(
             params, feats, flens,
             dataclasses.replace(cfg, use_pallas_rnn=False))
-    assert lstm_cuda.lstm_seq.launches == n0 + 2
+    assert lstm_cuda.lstm_fwd.launches == n0 + 2
     assert torch.equal(lens_k, lens_p)
     # kernel path: bf16 xproj / wh; plain path at f32 compute
     assert (lk - lp).abs().max().item() <= 2e-2
+
+
+def _lstm_case(dev, nd, T, B, H, seed):
+    g = torch.Generator().manual_seed(seed)
+    xproj = torch.randn(nd, T, B, 4 * H, generator=g).to(torch.bfloat16)
+    b = 0.1 * torch.randn(nd, 4 * H, generator=g)
+    wh = (0.2 * torch.rand(nd, H, 4 * H, generator=g) - 0.1
+          ).to(torch.bfloat16)
+    lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    lens[0] = T
+    start = torch.stack([torch.zeros_like(lens), T - lens])[:nd]
+    end = torch.stack([lens, torch.full_like(lens, T)])[:nd]
+    gout = torch.randn(nd, T, B, H, generator=g).to(torch.bfloat16)
+    return [t.to(dev).contiguous() for t in (xproj, b, wh, start, end, gout)]
+
+
+@pytest.mark.parametrize("nd,T,B,H", [(1, 12, 5, 64), (2, 30, 33, 96),
+                                      (2, 7, 3, 48)])
+def test_lstm_residuals_and_bptt_match_plain(dev, nd, T, B, H):
+    """K2's residual mode and K3 against their plain versions on the same
+    bf16 inputs (bf16 outputs: two ulps relative; db f32)."""
+    xproj, b, wh, start, end, gout = _lstm_case(dev, nd, T, B, H, T + H)
+    n2, n3 = lstm_cuda.lstm_fwd.launches, lstm_cuda.lstm_bwd.launches
+    h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end, residuals=True)
+    ph, pc, pg = lstm_cuda.lstm_fwd_plain(xproj, b, wh, start, end)
+    dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
+    pdx, pdb = lstm_cuda.lstm_bwd_plain(gout, gates, c, wh, start, end)
+    torch.cuda.synchronize()
+    assert lstm_cuda.lstm_fwd.launches == n2 + 1
+    assert lstm_cuda.lstm_bwd.launches == n3 + 1
+    for got, want in ((h, ph), (c, pc), (gates, pg)):
+        assert (got.float() - want).abs().max().item() <= LSTM_TOL
+    scale = pdx.abs().max().item()
+    assert (dx.float() - pdx).abs().max().item() <= 8e-3 * scale
+    assert (db - pdb).abs().max().item() <= 1e-3 * pdb.abs().max().item()
+
+
+def test_lstmseq_autograd_on_card(dev):
+    xproj, b, wh, start, end, gout = _lstm_case(dev, 2, 20, 6, 64, 0)
+    x = xproj.clone().requires_grad_(True)
+    bb = b.clone().requires_grad_(True)
+    w = wh.clone().requires_grad_(True)
+    h = lstm_cuda.LstmSeq.apply(x, bb, w, start, end)
+    h.backward(gout)
+    assert x.grad.dtype == torch.bfloat16 and bb.grad.dtype == torch.float32
+    assert w.grad.dtype == torch.bfloat16
+    assert torch.isfinite(x.grad.float()).all()
+    with pytest.raises(RuntimeError, match="LstmSeq"):
+        lstm_cuda.lstm_seq(x, bb, w, start, end)
+
+
+@pytest.mark.parametrize("B,T,U,C", [(5, 30, 6, 29), (37, 50, 20, 29),
+                                     (3, 8, 2, 6)])
+def test_ctc_kernels_match_plain(dev, B, T, U, C):
+    g = torch.Generator().manual_seed(B * T)
+    logits = torch.randn(B, T, C, generator=g)
+    labels = torch.randint(0, C - 1, (B, U), generator=g)
+    lens = torch.randint(T // 2, T + 1, (B,), generator=g, dtype=torch.int32)
+    llens = torch.randint(0, U + 1, (B,), generator=g, dtype=torch.int32)
+    llens[0], lens[-1], llens[-1] = 0, 1, U             # empty; infeasible
+    lp = torch.log_softmax(logits, -1)
+    z = ctc_cuda.extended_labels(labels, C - 1)
+    lpz = torch.gather(lp, 2, z[:, None, :].expand(-1, T, -1)) \
+        .transpose(0, 1).contiguous().to(dev)
+    skip = ctc_cuda.can_skip(z, C - 1).to(dev)
+    lens, ends = lens.to(dev), (2 * llens).int().to(dev)
+    alphas, nll = ctc_cuda.ctc_alpha(lpz, skip, lens, ends)
+    grad = ctc_cuda.ctc_beta_grad(lpz, alphas, skip, lens, ends, nll)
+    palphas, pnll = ctc_cuda.ctc_alpha_plain(lpz, skip, lens, ends)
+    pgrad = ctc_cuda.ctc_beta_grad_plain(lpz, palphas, skip, lens, ends,
+                                         pnll)
+    torch.cuda.synchronize()
+    feas = pnll < 1e29
+    assert not feas[-1] and nll[-1].item() >= 1e29
+    rel = (nll - pnll).abs() / pnll.abs().clamp_min(1.0)
+    assert rel[feas].max().item() <= CTC_TOL
+    assert torch.isfinite(grad).all()
+    assert (grad - pgrad)[:, feas].abs().max().item() <= CTC_TOL

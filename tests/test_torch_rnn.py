@@ -123,3 +123,28 @@ def test_bi_kernel_path_matches_pallas_path():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, rtol=PALLAS_TOL,
                                atol=PALLAS_TOL)
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_plain_bf16_matches_reference_scan(bidirectional):
+    """At compute_dtype=bfloat16 the plain path keeps the input
+    projection in f32 from bf16 operands, as the reference's
+    preferred_element_type=float32 does; the golden 2e-4 holds."""
+    T, B, F, H = 20, 3, 40, 16
+    rng = np.random.default_rng(20)
+    lens = np.array([20, 7, 13], np.int32)
+    x = rng.standard_normal((T, B, F)).astype(np.float32)
+    if bidirectional:
+        p = {"fwd": _lstm_params(rng, F, H), "bwd": _lstm_params(rng, F, H)}
+        want = j_birnn(_to_jax(p), jnp.asarray(x), jnp.asarray(lens), "lstm",
+                       jnp.bfloat16)
+        got = t_rnn.birnn_apply(_to_torch(p), torch.from_numpy(x),
+                                torch.from_numpy(lens), torch.bfloat16)
+    else:
+        p = _lstm_params(rng, F, H)
+        want = j_lstm(_to_jax(p), jnp.asarray(x), jnp.asarray(lens),
+                      jnp.bfloat16)
+        got = t_rnn.lstm_apply(_to_torch(p), torch.from_numpy(x),
+                               torch.from_numpy(lens), torch.bfloat16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)

@@ -136,7 +136,9 @@ def test_cli_evaluate_and_transcribe(corpus, tmp_path, capsys):
 def test_import_leaves_jax_out():
     code = ("import sys, ctc_asr_tpu_torch, ctc_asr_tpu_torch.cli, "
             "ctc_asr_tpu_torch.evaluate, ctc_asr_tpu_torch.transcribe, "
-            "ctc_asr_tpu_torch.ops.stft_cuda, ctc_asr_tpu_torch.ops.lstm_cuda;"
+            "ctc_asr_tpu_torch.ops.stft_cuda, ctc_asr_tpu_torch.ops.lstm_cuda,"
+            "ctc_asr_tpu_torch.ops.ctc_cuda, ctc_asr_tpu_torch.train, "
+            "ctc_asr_tpu_torch.optim, ctc_asr_tpu_torch.checkpoint;"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

@@ -1,0 +1,331 @@
+"""The port's training slice on the CPU, held against the JAX reference:
+one train step from a shared checkpoint, SpecAugment's masks, dropout,
+``cli train`` end to end, checkpoints in both directions, exact resume
+and the NaN trap.
+
+The step is compared on a tiny conv + BiLSTM config with dropout 0 and
+SpecAugment off (torch cannot draw JAX's random numbers), after one
+step from the same npz state: the loss, the global gradient norm, the
+Adam moments (every gradient leaf: mu = (1-b1) g and nu = (1-b2) g^2 of
+the clipped gradient) and the updated parameters.
+
+- f32: 2e-4 (the golden tolerance) of each leaf's scale. The port's
+  CTC gradient comes from the explicit -exp(α+β-logP) of K7's plain
+  version, the reference's from autodiff through its α scan; with
+  logP ~ -260 the two differ at the ulp of logP, ~2e-5 relative.
+- bf16: both round the same operands to bf16, but a sum-order
+  difference that straddles a bf16 rounding boundary flips one ulp
+  (2**-8 relative), so the moments are held to 1e-2 of each leaf's
+  scale (two ulps) and the loss and norm to 1e-3. Adam's first update
+  is lr * g / (|g| + eps), about lr * sign(g): where the reference's g
+  is within that 1e-2 of 0 its sign, and the parameter, may differ by
+  up to 2 lr; everywhere else the update agrees to eps / |g| relative,
+  and the parameter is held to 2e-4 lr (measured: under 1e-8).
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ctc_asr_tpu.checkpoint import _flatten, load_checkpoint, save_checkpoint
+from ctc_asr_tpu.config import (Config, DataConfig, FeatureConfig,
+                                ModelConfig, TrainConfig, to_json)
+from ctc_asr_tpu.data import DataLoader, read_manifest
+from ctc_asr_tpu.data.synth import generate_corpus
+from ctc_asr_tpu.features import _axis_masks
+from ctc_asr_tpu.train import init_train_state as j_init_state
+from ctc_asr_tpu.train import make_step_fn as j_make_step
+from ctc_asr_tpu_torch import checkpoint as t_ckpt
+from ctc_asr_tpu_torch import cli
+from ctc_asr_tpu_torch import train as t_train
+from ctc_asr_tpu_torch.features import axis_masks, spec_augment
+from ctc_asr_tpu_torch.models.layers import dropout
+
+F32_TOL = 2e-4
+BF16_TOL, BF16_SCALAR_TOL = 1e-2, 1e-3
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    d = tmp_path_factory.mktemp("synth")
+    return generate_corpus(str(d), num_utterances=8, seed=5)
+
+
+def _cfg(manifest, compute_dtype="float32", train_dir="", **train) -> Config:
+    tcfg = dict(learning_rate=1e-3, log_every=1, sync_every=1,
+                checkpoint_every=0, train_dir=train_dir)
+    tcfg.update(train)
+    return Config(
+        features=FeatureConfig(n_mels=40),
+        model=ModelConfig(frontend="conv", conv_channels=(8, 8),
+                          conv_kernels=((5, 11), (3, 5)), rnn_layers=2,
+                          rnn_units=16, bidirectional=True, dropout=0.0,
+                          compute_dtype=compute_dtype,
+                          use_pallas_rnn=False),
+        data=DataConfig(train_manifest=manifest, batch_size=2,
+                        num_buckets=1, num_workers=1),
+        train=TrainConfig(**tcfg))
+
+
+def _one_step(cfg):
+    loader = DataLoader(read_manifest(cfg.data.train_manifest), cfg.data,
+                        cfg.features)
+    batch = next(loader.iter_epoch(0))
+    arrs = (batch.samples, batch.sample_lengths, batch.labels,
+            batch.label_lengths)
+    jstate = j_init_state(cfg)
+    flat0 = _flatten(jstate)
+    jnew, jm = jax.jit(j_make_step(cfg))(jstate, *map(jnp.asarray, arrs))
+    state = t_train.state_from_parts(
+        cfg, *t_ckpt.state_from_flat(flat0, cfg), torch.device("cpu"))
+    m = t_train.make_step_fn(cfg)(
+        state, *[torch.from_numpy(np.ascontiguousarray(a)) for a in arrs])
+    return flat0, _flatten(jnew), jm, t_train.state_to_flat(cfg, state), m
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_one_step_matches_reference(corpus, compute_dtype):
+    cfg = _cfg(corpus, compute_dtype)
+    flat0, want, jm, got, m = _one_step(cfg)
+    f32 = compute_dtype == "float32"
+    tol, stol = (F32_TOL, F32_TOL) if f32 else (BF16_TOL, BF16_SCALAR_TOL)
+    np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=stol)
+    np.testing.assert_allclose(m["grad_norm"].item(), float(jm["grad_norm"]),
+                               rtol=stol)
+    assert m["lr"] == pytest.approx(float(jm["lr"]))
+    assert set(got) - set(want) == {"torch_rng/dropout",
+                                    "torch_rng/specaugment"}
+    lr = cfg.train.learning_rate
+    for k, w in want.items():
+        g = got[k]
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        if k == "rng":
+            continue
+        if k.startswith("opt_state/") and (".mu/" in k or ".nu/" in k):
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=tol * np.abs(w).max(),
+                                       err_msg=k)
+        elif k.startswith("params/"):
+            if f32:
+                np.testing.assert_allclose(g, w, rtol=0, atol=F32_TOL
+                                           * np.abs(w).max(), err_msg=k)
+            else:
+                g_ref = np.abs(want["opt_state/1/0/.mu/" + k[7:]])
+                near0 = g_ref <= tol * g_ref.max()
+                np.testing.assert_allclose(g[~near0], w[~near0], rtol=0,
+                                           atol=F32_TOL * lr, err_msg=k)
+                np.testing.assert_allclose(g[near0], w[near0], rtol=0,
+                                           atol=2 * lr, err_msg=k)
+            assert not np.array_equal(g, flat0[k]), k       # it moved
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=k)   # counts, step
+
+
+def test_axis_masks_match_reference_draws():
+    """The reference's own uniforms, fed to the port's mask builder."""
+    B, T, F, n = 5, 50, 40, 2
+    rng = jax.random.PRNGKey(3)
+    lens = jnp.asarray([50, 31, 7, 1, 0], jnp.float32)
+    for length, maxw, limit in ((T, jnp.floor(0.2 * lens), lens),
+                                (F, jnp.full((B,), 15.0), jnp.full((B,), F))):
+        want = np.asarray(_axis_masks(rng, n, length, maxw, limit))
+        k1, k2 = jax.random.split(rng)
+        u_w, u_s, maxw_t, limit_t = (
+            torch.from_numpy(np.array(a)) for a in (
+                jax.random.uniform(k1, (B, n)),
+                jax.random.uniform(k2, (B, n)), maxw, limit))
+        got = axis_masks(u_w, u_s, length, maxw_t, limit_t)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert want.any()
+
+
+def test_spec_augment_masks_spans_within_bounds():
+    B, T, F = 64, 80, 40
+    feats = torch.ones(B, T, F)
+    lens = torch.randint(1, T + 1, (B,), generator=torch.Generator()
+                         .manual_seed(0))
+    out = spec_augment(feats, lens, 2, 0.1, 2, 7,
+                       torch.Generator().manual_seed(1))
+    t_masked = (out == 0).all(dim=2)                  # [B, T]
+    f_masked = (out == 0).all(dim=1)                  # [B, F]
+    assert t_masked.any() and f_masked.any()
+    for b in range(B):
+        tm = t_masked[b].numpy()
+        if f_masked[b].all():
+            continue
+        assert not tm[int(lens[b]):].any()            # inside [0, len)
+        assert tm.sum() <= 2 * int(0.1 * int(lens[b]))
+        assert f_masked[b].sum() <= 2 * 7
+    again = spec_augment(feats, lens, 2, 0.1, 2, 7,
+                         torch.Generator().manual_seed(1))
+    assert torch.equal(out, again)
+
+
+def test_dropout_keep_rate_and_scale():
+    x = torch.ones(200_000)
+    y = dropout(x, 0.1, torch.Generator().manual_seed(0))
+    kept = y != 0
+    assert abs(kept.float().mean().item() - 0.9) < 5e-3
+    assert torch.allclose(y[kept], torch.full_like(y[kept], 1 / 0.9))
+    assert dropout(x, 0.0, None) is x
+
+
+def test_remat_gives_the_same_gradients():
+    """cfg.remat recomputes each RNN layer in the backward pass with the
+    dropout masks drawn once outside it: gradients are unchanged."""
+    from ctc_asr_tpu_torch.models import apply_encoder, init_params
+    cfg = dataclasses.replace(_cfg("").model, dropout=0.3,
+                              use_pallas_rnn=True)
+    params = {k: v.requires_grad_(True) for k, v in init_params(
+        cfg, 40, torch.Generator().manual_seed(0)).items()}
+    feats = torch.randn(3, 30, 40, generator=torch.Generator().manual_seed(1))
+    flens = torch.tensor([30, 17, 5], dtype=torch.int32)
+    grads = []
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        logits, _ = apply_encoder(params, feats, flens, c, train=True,
+                                  generator=torch.Generator().manual_seed(2))
+        grads.append(torch.autograd.grad(logits.square().sum(),
+                                         list(params.values())))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def _cli_train(cfg, tmp_path, *extra):
+    path = tmp_path / f"cfg_{len(os.listdir(tmp_path))}.json"
+    path.write_text(to_json(cfg))
+    assert cli.main(["train", "--config", str(path), "--device=cpu",
+                     *extra]) == 0
+
+
+def _losses(train_dir):
+    with open(os.path.join(train_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return {r["step"]: r["loss"] for r in recs if "loss" in r}
+
+
+def test_cli_train_learns_and_writes_reference_checkpoints(corpus, tmp_path):
+    tdir = str(tmp_path / "run")
+    cfg = dataclasses.replace(
+        _cfg(corpus, train_dir=tdir, learning_rate=1e-2, checkpoint_every=4,
+             eval_every=8, keep_checkpoints=2),
+        data=dataclasses.replace(_cfg(corpus).data, eval_manifest=corpus))
+    _cli_train(cfg, tmp_path, "--max-steps=12",
+               "--model.use_pallas_rnn=true")
+    losses = _losses(tdir)
+    assert sorted(losses) == list(range(1, 13))
+    assert all(np.isfinite(v) for v in losses.values())
+    first = np.mean([losses[k] for k in (1, 2, 3)])
+    last = np.mean([losses[k] for k in (10, 11, 12)])
+    assert last < first
+    ckpts = sorted(os.listdir(os.path.join(tdir, "ckpt")))
+    assert ckpts == ["best.json", "best.npz", "step_00000008.json",
+                     "step_00000008.npz", "step_00000012.json",
+                     "step_00000012.npz"]
+    want = _flatten(j_init_state(cfg))
+    with np.load(os.path.join(tdir, "ckpt", "step_00000012.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    assert set(want) <= set(got)
+    for k, v in want.items():
+        assert got[k].shape == v.shape and got[k].dtype == v.dtype, k
+    assert int(got["step"]) == 12
+    # the reference's loader reads it into its own train state
+    state, meta = load_checkpoint(
+        os.path.join(tdir, "ckpt", "step_00000012.npz"), j_init_state(cfg))
+    assert int(state["step"]) == 12 and meta["loader"]["position"] >= 1
+    np.testing.assert_array_equal(np.asarray(state["params"]["head"]["w"]),
+                                  got["params/head/w"])
+
+
+def test_resume_from_reference_checkpoint(corpus, tmp_path):
+    """A JAX-written train state (moments, counts, step and the loader
+    cursor) is restored exactly; the port then trains on from it."""
+    tdir = str(tmp_path / "run")
+    cfg = _cfg(corpus, train_dir=tdir)
+    jstate = j_init_state(cfg)
+    rng = np.random.default_rng(0)
+    jstate["opt_state"] = jax.tree.map(
+        lambda a: (jnp.full_like(a, 3) if a.dtype == jnp.int32 else
+                   jnp.asarray(rng.uniform(0, 1e-3, a.shape), a.dtype)),
+        jstate["opt_state"])
+    jstate["step"] = jnp.asarray(3, jnp.int32)
+    save_checkpoint(tdir + "/ckpt", 3, jstate,
+                    metadata={"loader": {"epoch": 0, "position": 1,
+                                         "seed": 0}},
+                    process_index=0)
+    flat = _flatten(jstate)
+    params, opt_state, step, rngs = t_ckpt.state_from_flat(flat, cfg)
+    assert step == 3 and opt_state["count"] == 3 and rngs == {}
+    for k, v in params.items():
+        np.testing.assert_array_equal(v.numpy(), flat[f"params/{k}"])
+        np.testing.assert_array_equal(opt_state["nu"][k].numpy(),
+                                      flat[f"opt_state/1/0/.nu/{k}"])
+    state = t_train.train(cfg, "cpu", max_steps=5)
+    assert state["step"] == 5 and state["opt_state"]["count"] == 5
+    with open(os.path.join(tdir, "ckpt", "step_00000005.json")) as f:
+        cursor = json.load(f)["loader"]
+    # batches 1 and 2 of epoch 0 were trained after the restored cursor
+    assert (cursor["epoch"], cursor["position"]) == (0, 3)
+
+
+def test_resume_gives_the_uninterrupted_loss_sequence(corpus, tmp_path):
+    """With dropout and SpecAugment on, the restored generators and
+    loader cursor give the same losses as one run straight through."""
+    model = dataclasses.replace(_cfg(corpus).model, dropout=0.2)
+    full = dataclasses.replace(
+        _cfg(corpus, train_dir=str(tmp_path / "full"), specaugment=True),
+        model=model)
+    part = dataclasses.replace(
+        _cfg(corpus, train_dir=str(tmp_path / "part"), specaugment=True),
+        model=model)
+    t_train.train(full, "cpu", max_steps=6)
+    t_train.train(part, "cpu", max_steps=3)
+    t_train.train(part, "cpu", max_steps=6)
+    want, got = _losses(full.train.train_dir), _losses(part.train.train_dir)
+    assert sorted(got) == list(range(1, 7))
+    for k in range(1, 7):
+        assert got[k] == want[k], (k, got[k], want[k])
+
+
+def test_generator_state_from_another_device_raises(corpus, tmp_path):
+    """A checkpoint whose generator state does not fit this device's
+    generator (16 bytes is a CUDA Philox state; a CPU one is 5056) is
+    refused, not reseeded: the resumed draws would differ."""
+    tdir = str(tmp_path / "run")
+    cfg = _cfg(corpus, train_dir=tdir)
+    flat = t_train.state_to_flat(cfg, t_train.init_train_state(cfg))
+    flat["torch_rng/dropout"] = np.zeros(16, np.uint8)
+    t_ckpt.save_checkpoint(tdir + "/ckpt", 0, flat)
+    with pytest.raises(ValueError, match="another kind of device"):
+        t_train.train(cfg, "cpu", max_steps=1)
+
+
+def test_nan_trap_raises(corpus, tmp_path):
+    tdir = str(tmp_path / "run")
+    cfg = _cfg(corpus, train_dir=tdir)
+    jstate = j_init_state(cfg)
+    jstate["params"]["rnn"][0]["fwd"]["wh"] = \
+        jstate["params"]["rnn"][0]["fwd"]["wh"].at[0, 0].set(jnp.nan)
+    save_checkpoint(tdir + "/ckpt", 0, jstate, process_index=0)
+    with pytest.raises(FloatingPointError, match="grad_norm is NaN"):
+        t_train.train(cfg, "cpu", max_steps=2)
+
+
+def test_unported_regimes_raise(corpus, tmp_path):
+    cfg = _cfg(corpus, train_dir=str(tmp_path))
+    for bad in (dataclasses.replace(cfg, mesh=dataclasses.replace(
+                    cfg.mesh, seq_axis=2)),
+                dataclasses.replace(cfg, train=dataclasses.replace(
+                    cfg.train, profile_dir=str(tmp_path / "prof")))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_train.train(bad, "cpu", max_steps=1)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            t_train.train(cfg, "cuda", max_steps=1)
