@@ -15,7 +15,16 @@ Phases (any failure exits non-zero; no phase is skipped):
    (LSTM forward) at the serving shapes; K6/K7 (CTC α, β + gradient) at
    the train geometry B=128, T'=399, U=96 with ragged lengths, one
    empty and one infeasible row; K2 with residuals and K3 (LSTM BPTT)
-   at nd=2, B=128, T=399, H=512.
+   at nd=2, B=128, T=399, H=512; K2 also at the ds3 width H=800, and
+   K1 and K2 at the decode slice's own shapes (B=16 and B=1, 3.52 s,
+   T=175); K8 (prefix beam search) on seeded logits at B=128, T=400,
+   C=29, K=64 in four modes (acoustic, order-4 char-LM fusion, an
+   order-5 table, N-best) and at B=1. Beside each kernel's time: its
+   bound on this card (the bytes the function must move, once, over the
+   memory rate, or the operations it needs over the peak rate,
+   whichever is larger) and, where one PyTorch call computes the same
+   function, that call's time (``ctc_loss``, cuDNN ``nn.LSTM``), which
+   the port itself never calls.
 4. Serving slice: a seeded random checkpoint at full ``conv_bilstm3``
    width in the reference's keypath format, a synthetic corpus, then
    the port's ``cli evaluate`` and ``cli transcribe`` on ``cuda``. The
@@ -35,10 +44,22 @@ Phases (any failure exits non-zero; no phase is skipped):
    step's time on the kernel path and the plain path, and where the
    kernel path's step goes: CUDA events between its phases and a
    ``torch.profiler`` split of its device time by kernel group.
-6. Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+6. Decode slice: a seeded random checkpoint at full ``lm_fusion_960h``
+   width (5 x BiLSTM-800), a char LM (order 4) and a word LM (order 2)
+   trained by ``cli train-lm`` from the synthetic corpus, then ``cli
+   evaluate --preset lm_fusion_960h`` with fusion, the same with word-LM
+   rescoring, ``--preset deepspeech_beam``, ``cli transcribe`` for
+   greedy, beam and beam + fusion, and ``cli evaluate
+   --decode.method=beam`` on the trained ``conv_bilstm3`` checkpoint.
+   The launch counters of K1, K2 and K8 must rise; every eval batch
+   then goes through the kernel path and the plain path of the ds3
+   model, held as in phase 4, and its logits through K8 and the plain
+   beam search, which must agree.
+   Prints the steady-state RTF per mode and the B=1 latencies.
+7. Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
-Imports nothing of JAX.
+Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -83,6 +104,29 @@ BPTT_RTOL = 2e-2
 STEP_LOSS_RTOL = 1e-3
 STEP_GNORM_RTOL = 2e-2
 STEP_MIN_COSINE = 0.999
+# Beam search, kernel against plain version on the same logits: ids and
+# lengths identical for every row whose two best final scores differ by
+# more than BEAM_TIE (a closer pair may swap on the last bit of an
+# expf/logf); N-best scores, f32 sums of a few hundred log-probs,
+# relative.
+BEAM_TIE = 1e-3
+BEAM_SCORE_RTOL = 1e-4
+
+# Published peaks of one H100 SXM at its 700 W limit: HBM3 bytes/s, dense
+# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+
+
+def bound(n_bytes: float, n_ops: float, peak_ops: float) -> dict:
+    """The least time the card could take: every input byte read once and
+    every output byte written once at the memory rate, or the operations
+    at their type's peak rate, whichever is larger."""
+    by_bytes = n_bytes / PEAK_BYTES * 1e3
+    by_ops = n_ops / peak_ops * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def log(msg: str) -> None:
@@ -162,12 +206,17 @@ def _speechlike(B: int, S: int, seed: int):
 
 def phase_stft() -> dict:
     import torch
-    from ctc_asr_tpu.config import FeatureConfig, preset
+    from ctc_asr_tpu_torch.config import FeatureConfig, preset
+    from ctc_asr_tpu_torch.features import num_frames
     from ctc_asr_tpu_torch.ops import stft_cuda
-    res = {"max_abs_err": 0.0}
-    cases = [("mel B=128 x 8 s", preset("conv_bilstm3").features, 128, 128000),
+    res = {"max_abs_err": 0.0, "library_ms": None}
+    mel = preset("conv_bilstm3").features
+    cases = [("mel B=128 x 8 s", mel, 128, 128000),
              ("mfcc B=4 x 1.5 s", FeatureConfig(feature_type="mfcc",
-                                                n_mfcc=13, n_mels=40), 4, 24000)]
+                                                n_mfcc=13, n_mels=40), 4, 24000),
+             # the decode slice's batches (evaluate) and requests (transcribe)
+             ("mel B=16 x 3.52 s", mel, 16, 56320),
+             ("mel B=1 x 3.52 s", mel, 1, 56320)]
     for i, (label, cfg, B, S) in enumerate(cases):
         x = _speechlike(B, S, seed=B)
         got = stft_cuda.stft_features(x, cfg)
@@ -183,7 +232,12 @@ def phase_stft() -> dict:
             raise AssertionError(f"K1 {label}: max_abs_err {err} > {STFT_TOL}")
         res["max_abs_err"] = max(res["max_abs_err"], err)
         if i == 0:   # the serving path's shape gives the reported times
-            res.update(ms=ms, plain_ms=plain_ms)
+            # framed DFT (cos and sin) and the mel product, in f32
+            T, W, NB, M = (num_frames(S, cfg), cfg.win_length,
+                           cfg.n_fft // 2 + 1, cfg.n_mels)
+            res.update(ms=ms, plain_ms=plain_ms, **bound(
+                4 * (B * S + B * T * M + 2 * W * NB + NB * M),
+                B * T * (4 * W * NB + 3 * NB + 2 * NB * M), PEAK_F32))
     return res
 
 
@@ -202,6 +256,45 @@ def _lstm_inputs(nd, T, B, H, lens, seed):
     return [t.cuda().contiguous() for t in (xproj, b, wh, start, end)]
 
 
+def _cudnn_lstm_ms(T, B, H):
+    """The nearest PyTorch call to K2 / K3: ``torch.nn.LSTM`` (cuDNN) in
+    bf16, bidirectional, [T, B, 2H] -> [T, B, 2H], full-length rows.
+    Unlike the kernels it includes the input projection. Returns
+    (inference forward ms, backward ms = train forward + backward minus
+    train forward). Timed here only; the port never calls it."""
+    import torch
+    torch.manual_seed(0)
+    net = torch.nn.LSTM(2 * H, H, bidirectional=True, device="cuda",
+                        dtype=torch.bfloat16)
+    x = torch.randn(T, B, 2 * H, device="cuda", dtype=torch.bfloat16)
+    g = torch.randn(T, B, 2 * H, device="cuda", dtype=torch.bfloat16)
+
+    def infer():
+        with torch.no_grad():
+            net(x)
+
+    def train_fwd():
+        return net(x)[0]
+
+    def train_fwd_bwd():
+        net.zero_grad(set_to_none=True)
+        net(x)[0].backward(g)
+
+    fwd = cuda_ms(infer, reps=10)
+    return fwd, cuda_ms(train_fwd_bwd, reps=10) - cuda_ms(train_fwd, reps=10)
+
+
+def _lstm_bounds(nd, T, B, H):
+    """K2: xproj read, h written (bf16), wh read once; 2*B*H*4H FLOPs a
+    step and direction on the tensor cores. K3: g_out, gates and c read,
+    dxproj written; the same FLOPs for dgates @ wh^T."""
+    flops = 2.0 * nd * T * B * H * 4 * H
+    cell = 2 * nd * T * B * H                       # bytes of one bf16 [.., H]
+    wh = 2 * nd * H * 4 * H
+    return (bound(4 * cell + cell + wh, flops, PEAK_BF16),
+            bound(cell + 4 * cell + cell + 4 * cell + wh, flops, PEAK_BF16))
+
+
 def phase_lstm() -> dict:
     import torch
     from ctc_asr_tpu_torch.ops import lstm_cuda
@@ -209,11 +302,18 @@ def phase_lstm() -> dict:
     res = {"max_abs_err": 0.0}
     cases = [
         ("bi nd=2 B=128 T=399 H=512", 2, 399, 128, 512,
-         np.concatenate([[399], rng.integers(200, 400, 127)])),
+         np.concatenate([[399], rng.integers(200, 400, 127)]), ""),
         ("uni nd=1 B=37 T=50 H=512 ragged", 1, 50, 37, 512,
-         np.concatenate([[50, 1, 2], rng.integers(1, 51, 34)])),
+         np.concatenate([[50, 1, 2], rng.integers(1, 51, 34)]), None),
+        # the ds3 width: H = 3 * 256 + 32, a ragged last K chunk
+        ("bi nd=2 B=128 T=399 H=800", 2, 399, 128, 800,
+         np.concatenate([[399], rng.integers(200, 400, 127)]), "_h800"),
+        # the decode slice's own shapes: evaluate's batches, one request
+        ("bi nd=2 B=16 T=175 H=800", 2, 175, 16, 800,
+         np.concatenate([[175], rng.integers(60, 176, 15)]), None),
+        ("bi nd=2 B=1 T=175 H=800", 2, 175, 1, 800, np.array([175]), None),
     ]
-    for i, (label, nd, T, B, H, lens) in enumerate(cases):
+    for label, nd, T, B, H, lens, key in cases:
         args = _lstm_inputs(nd, T, B, H, lens, seed=nd)
         got = lstm_cuda.lstm_seq(*args)
         want = lstm_cuda.lstm_seq_plain(*args).to(torch.bfloat16)
@@ -233,8 +333,20 @@ def phase_lstm() -> dict:
         if not err <= LSTM_TOL or not zero_ok:
             raise AssertionError(f"K2 {label}: err {err} zero_ok {zero_ok}")
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        if i == 0:
-            res.update(ms=ms, plain_ms=plain_ms)
+        if key is None:
+            continue
+        lib_fwd, lib_bwd = _cudnn_lstm_ms(T, B, H)
+        b2, b3 = _lstm_bounds(nd, T, B, H)
+        log(f"[K2 lstm] {label}: bound {b2['bound_ms']:.4f} ms by "
+            f"{b2['bound_by']}, chain of {T} steps; cuDNN nn.LSTM bf16 "
+            f"(with its input projection) forward {lib_fwd:.4f} ms, "
+            f"backward {lib_bwd:.4f} ms")
+        res.update({"ms" + key: ms, "plain_ms" + key: plain_ms,
+                    "library_ms" + key: lib_fwd,
+                    "bound_ms" + key: b2["bound_ms"],
+                    "bound_by" + key: b2["bound_by"]})
+        if not key:
+            res["bwd"] = {"library_ms": lib_bwd, **b3}
     return res
 
 
@@ -258,6 +370,37 @@ def _ctc_inputs(B, T, U, C, seed):
             (lpz, ctc_cuda.can_skip(z, C - 1), lens, (2 * llens).int())]
 
 
+def _library_ctc_ms(B, T, U, C, seed):
+    """``torch.nn.functional.ctc_loss`` forward and backward on the
+    logits, labels and lengths of ``_ctc_inputs``: the one PyTorch call
+    that computes K6's NLL and K7's gradient (it takes the log-probs
+    and gathers the labels itself). Timed here only; the port never
+    calls it."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(B, T, C, generator=g)
+    labels = torch.randint(0, C - 1, (B, U), generator=g)
+    lens = torch.randint(T // 2, T + 1, (B,), generator=g, dtype=torch.int32)
+    llens = torch.randint(U // 2, U + 1, (B,), generator=g,
+                          dtype=torch.int32)
+    lens[0], llens[0] = T, 0
+    lens[-1], llens[-1] = 3, U
+    lp = torch.log_softmax(logits, -1).transpose(0, 1).contiguous().cuda() \
+        .requires_grad_(True)
+    labels, lens, llens = labels.cuda(), lens.long().cuda(), llens.long().cuda()
+
+    def fwd():
+        return torch.nn.functional.ctc_loss(
+            lp, labels, lens, llens, blank=C - 1, reduction="sum",
+            zero_infinity=True)
+
+    loss = fwd()
+    fwd_ms = cuda_ms(fwd, reps=20)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(loss, lp, retain_graph=True),
+                     reps=20)
+    return fwd_ms, bwd_ms
+
+
 def phase_ctc() -> dict:
     import torch
     from ctc_asr_tpu_torch.ops import ctc_cuda
@@ -269,18 +412,26 @@ def phase_ctc() -> dict:
                                          pnll)
     torch.cuda.synchronize()
     feas = pnll < 1e29
+    lib_fwd, lib_bwd = _library_ctc_ms(128, 399, 96, 29, seed=7)
+    T, B, S = lpz.shape
     nll_err = ((nll - pnll).abs() / pnll.abs())[feas].max().item()
     grad_err = (grad - pgrad).abs().max().item()
     finite = bool(torch.isfinite(grad).all())
     infeasible_ok = bool(nll[-1] >= 1e29) and not bool(feas[-1])
+    # lp_z read and alpha written (K7: lp_z and alpha read, the gradient
+    # written); a 3-way log-sum-exp of ~12 f32 operations a state
     res = {
         "ctc_alpha": {
+            "library_ms": lib_fwd,
+            **bound(4 * (2 * T * B * S + B * S), 12 * T * B * S, PEAK_F32),
             "max_abs_err": (nll - pnll)[feas].abs().max().item(),
             "ms": cuda_ms(lambda: ctc_cuda.ctc_alpha(lpz, skip, lens, ends),
                           reps=20),
             "plain_ms": cuda_ms(lambda: ctc_cuda.ctc_alpha_plain(
                 lpz, skip, lens, ends), reps=3, warmup=1)},
         "ctc_beta_grad": {
+            "library_ms": lib_bwd,
+            **bound(4 * (3 * T * B * S + B * S), 14 * T * B * S, PEAK_F32),
             "max_abs_err": grad_err,
             "ms": cuda_ms(lambda: ctc_cuda.ctc_beta_grad(
                 lpz, alphas, skip, lens, ends, nll), reps=20),
@@ -293,7 +444,9 @@ def phase_ctc() -> dict:
         f"nll={nll[-1].item():.3e}")
     for k, v in res.items():
         log(f"[K6/K7 ctc] {k}: kernel {v['ms']:.4f} ms plain "
-            f"{v['plain_ms']:.4f} ms")
+            f"{v['plain_ms']:.4f} ms bound {v['bound_ms']:.4f} ms by "
+            f"{v['bound_by']} (chain of {T} steps) ctc_loss "
+            f"{v['library_ms']:.4f} ms")
     if not (nll_err <= CTC_NLL_RTOL and grad_err <= CTC_GRAD_ATOL
             and finite and infeasible_ok):
         raise AssertionError(f"K6/K7: nll err {nll_err}, grad err "
@@ -356,6 +509,135 @@ def phase_lstm_train() -> dict:
                          "ms": bwd_ms, "plain_ms": bwd_plain}}
 
 
+def beam_agreement(got, want) -> dict:
+    """K8's N-best output against the plain version's on the same
+    logits. Raises unless the live entries' scores agree within
+    BEAM_SCORE_RTOL, no N-best list holds a live prefix twice, and ids
+    and lengths are identical in every row whose two best final scores
+    differ by more than BEAM_TIE. Returns the rows excused by that tie
+    rule and the largest score error."""
+    import torch
+    (ids, lens, sc), (pids, plens, psc) = got, want
+    live = psc > -1e29
+    if not torch.equal(sc > -1e29, live):
+        raise AssertionError("K8: live beams differ from the plain version")
+    abs_err = (sc - psc).abs()[live].max().item()
+    rel = ((sc - psc).abs() / psc.abs().clamp_min(1.0))[live].max().item()
+    if not rel <= BEAM_SCORE_RTOL:
+        raise AssertionError(f"K8: N-best score error {rel} > "
+                             f"{BEAM_SCORE_RTOL}")
+    pos = torch.arange(ids.shape[2], device=ids.device)
+    same = ((ids == pids) | (pos >= plens[:, :, None])).all(-1) \
+        & (lens == plens)
+    rows_same = (same | ~live).all(dim=1)
+    margin = psc[:, 0] - psc[:, 1]
+    bad = ~rows_same & (margin > BEAM_TIE)
+    if bad.any():
+        raise AssertionError(f"K8: rows {bad.nonzero().flatten().tolist()} "
+                             "differ from the plain version without a "
+                             "near-tie")
+    ids_c, lens_c, live_c = ids.cpu(), lens.cpu(), live.cpu()
+    for b in range(ids.shape[0]):
+        rows = [tuple(ids_c[b, k, :int(lens_c[b, k])].tolist())
+                for k in range(ids.shape[1]) if live_c[b, k]]
+        if len(set(rows)) != len(rows):
+            raise AssertionError(f"K8: duplicate live prefix in row {b}")
+    return {"excused": int((~rows_same).sum()), "max_abs_err": abs_err,
+            "max_rel_err": rel}
+
+
+def _beam_bound(lens, B, K, C, U, kout, table_bytes):
+    """K8 on this run's data, counting what the function needs and not
+    what this kernel does. Bytes: each valid frame's C log-probs and the
+    lengths read once; the LM table at most once (one row of C-1 floats
+    per beam and frame where that is less); the ids, lengths and scores
+    written once. The back-pointer scratch is neither input nor output
+    and is not counted. Operations per valid frame, at the f32 / integer
+    rate outside the tensor cores: ~12 for each of the K*C candidates
+    (adds, a compare, the LM and bonus terms, the hash), 4 for each of
+    the K*K merge tests, and a selection of the K best that is linear
+    in the candidates (2 each), not a full sort."""
+    frames = float(sum(int(n) for n in lens))
+    ops = frames * (12 * K * C + 4 * K * K + 2 * K * C)
+    lm_rows = 4.0 * (C - 1) * K * frames
+    n_bytes = (4 * C * frames + 4 * B + min(table_bytes, lm_rows)
+               + 4 * B * kout * (U + 2))
+    return bound(n_bytes, ops, PEAK_F32)
+
+
+def phase_beam() -> dict:
+    """K8 against its plain version on seeded logits at the decode
+    shape, four modes."""
+    import torch
+    from ctc_asr_tpu_torch.ops import beam_cuda
+    B, T, C, K = 128, 400, 29, 64
+    rng = np.random.default_rng(8)
+    logits = torch.from_numpy(
+        (rng.standard_normal((B, T, C)) * 2).astype(np.float32)).cuda()
+    lens_np = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    lens_np[0], lens_np[-1] = T, 0
+    lens = torch.from_numpy(lens_np).cuda()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    tables = {order: torch.log_softmax(
+        2 * torch.randn(28 ** (order - 1), 28, generator=g, device="cuda"),
+        dim=-1) for order in (4, 5)}
+    fused = dict(lm_weight=0.8, word_bonus=1.0)
+    modes = [("acoustic", None, {}, True),
+             ("order-4 fusion", 4, fused, True),
+             ("order-5 table", 5, fused, False),
+             ("order-4 fusion, N-best emit", 4, fused, False)]
+    res = {"max_abs_err": 0.0, "library_ms": None, "modes": {}}
+    for label, order, kw, time_plain in modes:
+        table = tables.get(order)
+        # U = T, so that no prefix is cut at the decode buffer's end
+        # (cut prefixes of different beams can coincide)
+        kw = dict(kw, beam_width=K, lm_table=table, max_decode_len=T)
+        nbest_emit = label.endswith("emit")
+        got = beam_cuda.beam_search_decode_cuda(logits, lens,
+                                                return_nbest=True, **kw)
+        want = beam_cuda.beam_search_decode_plain(logits, lens,
+                                                  return_nbest=True, **kw)
+        torch.cuda.synchronize()
+        agree = beam_agreement(got, want)
+        best = beam_cuda.beam_search_decode_cuda(logits, lens, **kw)
+        if not (torch.equal(best[0], got[0][:, 0])
+                and torch.equal(best[1], got[1][:, 0])):
+            raise AssertionError(f"K8 {label}: best differs from N-best[0]")
+        if int(got[1][-1].max()) != 0:
+            raise AssertionError("K8: the zero-length row emitted characters")
+        ms = cuda_ms(lambda: beam_cuda.beam_search_decode_cuda(
+            logits, lens, return_nbest=nbest_emit, **kw), reps=10)
+        plain_ms = cuda_ms(lambda: beam_cuda.beam_search_decode_plain(
+            logits, lens, **kw), reps=2, warmup=0) if time_plain else None
+        bd = _beam_bound(lens_np, B, K, C, T, K if nbest_emit else 1,
+                         0 if table is None else table.numel() * 4)
+        log(f"[K8 beam] {label}: B={B} T={T} C={C} K={K}: rows excused by "
+            f"the tie rule {agree['excused']}, N-best score max abs err "
+            f"{agree['max_abs_err']:.3e} rel {agree['max_rel_err']:.3e} (tol "
+            f"{BEAM_SCORE_RTOL}); kernel {ms:.4f} ms, plain "
+            + (f"{plain_ms:.1f} ms" if time_plain else "not timed")
+            + f", bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (chain "
+            f"of up to {T} steps)")
+        res["modes"][label] = {"ms": ms, "plain_ms": plain_ms, **agree, **bd}
+        res["max_abs_err"] = max(res["max_abs_err"], agree["max_abs_err"])
+    res.update({k: res["modes"]["order-4 fusion"][k]
+                for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    # one request, as ``cli transcribe`` gives it
+    kw = dict(fused, lm_table=tables[4], beam_width=K, max_decode_len=T)
+    agree = beam_agreement(
+        beam_cuda.beam_search_decode_cuda(logits[:1], lens[:1],
+                                          return_nbest=True, **kw),
+        beam_cuda.beam_search_decode_plain(logits[:1], lens[:1],
+                                           return_nbest=True, **kw))
+    one = cuda_ms(lambda: beam_cuda.beam_search_decode_cuda(
+        logits[:1], lens[:1], **kw), reps=10)
+    log(f"[K8 beam] B=1 T={T} order-4 fusion: rows excused "
+        f"{agree['excused']}, score rel err {agree['max_rel_err']:.3e}; "
+        f"kernel {one:.4f} ms")
+    res["ms_b1"] = one
+    return res
+
+
 def random_checkpoint(cfg, path: str, seed: int = 0) -> None:
     """Glorot-uniform weights, zero biases with LSTM forget bias 1, in
     the reference checkpoint's keypath format."""
@@ -390,17 +672,68 @@ def run_cli(argv) -> str:
     return out
 
 
-def phase_slice(tmp: str) -> dict:
+def paths_agreement(tag: str, cfg, params, manifest: str) -> None:
+    """Every eval batch of ``manifest`` through the kernel path (K1, K2)
+    and the plain path of ``cfg``'s model on the same weights. Raises
+    unless the logits are finite, of the expected shape and lengths, and
+    the per-frame argmax agrees on ARGMAX_AGREEMENT of the valid frames,
+    pooled over the batches (random weights give logits of std ~0.05,
+    so a few per mille of the frames have top-2 margins under 1e-3,
+    where bf16 rounding decides the argmax)."""
     import torch
-    from ctc_asr_tpu.config import apply_overrides, preset
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.data.synth import generate_corpus
-    from ctc_asr_tpu_torch.checkpoint import load_params
+    from ctc_asr_tpu_torch.data import DataLoader, read_manifest
     from ctc_asr_tpu_torch.evaluate import make_eval_step
     from ctc_asr_tpu_torch.features import frame_lengths_from_sample_lengths
     from ctc_asr_tpu_torch.models import output_lengths
-    from ctc_asr_tpu_torch.ops import lstm_cuda, stft_cuda
     from ctc_asr_tpu_torch.ops.greedy import greedy_decode
+    plain_cfg = dataclasses.replace(
+        cfg, features=dataclasses.replace(cfg.features, use_pallas=False),
+        model=dataclasses.replace(cfg.model, use_pallas_rnn=False))
+    kernel_step = make_eval_step(cfg, "cuda")
+    plain_step = make_eval_step(plain_cfg, "cuda")
+    loader = DataLoader(read_manifest(manifest), cfg.data, cfg.features,
+                        drop_last=False)
+    err, n_agree, n_frames, same, n_utts = 0.0, 0, 0, 0, 0
+    for batch in loader.iter_epoch(0):
+        lk, lens_k = kernel_step(params, batch.samples, batch.sample_lengths)
+        lp, lens_p = plain_step(params, batch.samples, batch.sample_lengths)
+        flens = frame_lengths_from_sample_lengths(
+            torch.as_tensor(batch.sample_lengths), cfg.features)
+        want_lens = output_lengths(flens, cfg.model).cuda()
+        if lk.shape[0] != batch.samples.shape[0] \
+                or lk.shape[2] != cfg.model.num_classes \
+                or not torch.equal(lens_k, want_lens) \
+                or not torch.equal(lens_k, lens_p):
+            raise AssertionError(f"bad logits shape {tuple(lk.shape)} or "
+                                 "lengths")
+        if not torch.isfinite(lk).all():
+            raise AssertionError("non-finite logits on the kernel path")
+        valid = (torch.arange(lk.shape[1], device=lk.device)[None, :]
+                 < lens_k[:, None])
+        err = max(err, (lk - lp).abs()[valid].max().item())
+        n_agree += int((lk.argmax(-1) == lp.argmax(-1))[valid].sum())
+        n_frames += int(valid.sum())
+        ids_k, dl_k = greedy_decode(lk, lens_k)
+        ids_p, dl_p = greedy_decode(lp, lens_p)
+        same += sum(int(torch.equal(ids_k[i, :dl_k[i]], ids_p[i, :dl_p[i]]))
+                    for i in range(batch.valid))
+        n_utts += batch.valid
+    agree = n_agree / n_frames
+    log(f"[{tag}] kernel vs plain path over {n_utts} utterances / "
+        f"{n_frames} frames of {tuple(lk.shape[1:])} logits: max logit "
+        f"err={err:.3e} argmax agreement={agree:.6f} (limit "
+        f"{ARGMAX_AGREEMENT}) identical transcripts={same}/{n_utts}")
+    if agree < ARGMAX_AGREEMENT:
+        raise AssertionError(f"{tag}: argmax agreement {agree} < "
+                             f"{ARGMAX_AGREEMENT}")
+
+
+def phase_slice(tmp: str) -> dict:
+    from ctc_asr_tpu_torch.checkpoint import load_params
+    from ctc_asr_tpu_torch.config import apply_overrides, preset
+    from ctc_asr_tpu_torch.data import read_manifest
+    from ctc_asr_tpu_torch.data.synth import generate_corpus
+    from ctc_asr_tpu_torch.ops import lstm_cuda, stft_cuda
 
     t0 = time.perf_counter()
     manifest = generate_corpus(os.path.join(tmp, "synth"),
@@ -436,49 +769,7 @@ def phase_slice(tmp: str) -> dict:
         raise AssertionError(f"transcribe printed {len(lines)} results "
                              f"for {len(wavs)} wavs")
 
-    # every eval batch through the kernel path and the plain path; the
-    # argmax agreement pools all valid frames (random weights give
-    # logits of std ~0.05, so a few percent of frames have top-2
-    # margins under 1e-3, where bf16 rounding decides the argmax)
-    params = load_params(ckpt, cfg, "cuda")
-    plain_cfg = dataclasses.replace(
-        cfg, features=dataclasses.replace(cfg.features, use_pallas=False),
-        model=dataclasses.replace(cfg.model, use_pallas_rnn=False))
-    kernel_step = make_eval_step(cfg, "cuda")
-    plain_step = make_eval_step(plain_cfg, "cuda")
-    loader = DataLoader(read_manifest(manifest), cfg.data, cfg.features,
-                        drop_last=False)
-    err, n_agree, n_frames, same, n_utts = 0.0, 0, 0, 0, 0
-    for batch in loader.iter_epoch(0):
-        lk, lens_k = kernel_step(params, batch.samples, batch.sample_lengths)
-        lp, lens_p = plain_step(params, batch.samples, batch.sample_lengths)
-        flens = frame_lengths_from_sample_lengths(
-            torch.as_tensor(batch.sample_lengths), cfg.features)
-        want_lens = output_lengths(flens, cfg.model).cuda()
-        if lk.shape[0] != batch.samples.shape[0] \
-                or lk.shape[2] != cfg.model.num_classes \
-                or not torch.equal(lens_k, want_lens) \
-                or not torch.equal(lens_k, lens_p):
-            raise AssertionError(f"bad logits shape {tuple(lk.shape)} or "
-                                 "lengths")
-        if not torch.isfinite(lk).all():
-            raise AssertionError("non-finite logits on the kernel path")
-        valid = (torch.arange(lk.shape[1], device=lk.device)[None, :]
-                 < lens_k[:, None])
-        err = max(err, (lk - lp).abs()[valid].max().item())
-        n_agree += int((lk.argmax(-1) == lp.argmax(-1))[valid].sum())
-        n_frames += int(valid.sum())
-        ids_k, dl_k = greedy_decode(lk, lens_k)
-        ids_p, dl_p = greedy_decode(lp, lens_p)
-        same += sum(int(torch.equal(ids_k[i, :dl_k[i]], ids_p[i, :dl_p[i]]))
-                    for i in range(batch.valid))
-        n_utts += batch.valid
-    agree = n_agree / n_frames
-    log(f"[slice] kernel vs plain path over {n_utts} utterances / "
-        f"{n_frames} frames: max logit err={err:.3e} argmax agreement="
-        f"{agree:.6f} identical transcripts={same}/{n_utts}")
-    if agree < ARGMAX_AGREEMENT:
-        raise AssertionError(f"argmax agreement {agree} < {ARGMAX_AGREEMENT}")
+    paths_agreement("slice", cfg, load_params(ckpt, cfg, "cuda"), manifest)
     return {"launches": launches, "rtf": res["rtf"], "manifest": manifest}
 
 
@@ -498,7 +789,7 @@ def _read_metrics(train_dir: str) -> dict:
 def phase_train(tmp: str, manifest: str) -> dict:
     """``cli train`` on the card: to a checkpoint at step 20, then
     resumed to step 40."""
-    from ctc_asr_tpu.config import apply_overrides, preset
+    from ctc_asr_tpu_torch.config import apply_overrides, preset
     from ctc_asr_tpu_torch import checkpoint as ckpt_mod
     from ctc_asr_tpu_torch import train as train_mod
     train_dir = os.path.join(tmp, "train")
@@ -550,7 +841,159 @@ def phase_train(tmp: str, manifest: str) -> dict:
     res = json.loads(ev[ev.index("\n{") + 1:])
     log(f"[train] evaluate on the step-40 checkpoint: wer={res['wer']:.4f} "
         f"cer={res['cer']:.4f} over {res['utterances']} utterances")
-    return {"launches": launches, "loss_first": first, "loss_last": last}
+    return {"launches": launches, "loss_first": first, "loss_last": last,
+            "train_dir": train_dir}
+
+
+def _eval_json(out: str) -> dict:
+    return json.loads(out[out.index("\n{") + 1:])
+
+
+def phase_decode(tmp: str, manifest: str, train_dir: str) -> dict:
+    """The decode slice at full ``lm_fusion_960h`` width on the card."""
+    import torch
+    from ctc_asr_tpu_torch.checkpoint import load_params
+    from ctc_asr_tpu_torch.config import apply_overrides, preset
+    from ctc_asr_tpu_torch.data import DataLoader, read_manifest
+    from ctc_asr_tpu_torch.evaluate import (make_decoder, make_eval_step,
+                                            make_nbest_decoder)
+    from ctc_asr_tpu_torch.ops import beam_cuda, lstm_cuda, stft_cuda
+    from ctc_asr_tpu_torch.transcribe import Transcriber
+
+    t0 = time.perf_counter()
+    lm_path = os.path.join(tmp, "char_lm.npz")
+    wlm_path = os.path.join(tmp, "word_lm.pkl")
+    run_cli(["train-lm", "--manifest", manifest, "--out", lm_path,
+             "--order", "4"])
+    run_cli(["train-lm", "--manifest", manifest, "--out", wlm_path,
+             "--order", "2", "--words"])
+    ckpt = os.path.join(tmp, "ds3_step_00000000.npz")
+    data = {"data.eval_manifest": manifest, "data.batch_size": "16",
+            "data.num_buckets": "1"}
+    cfg = apply_overrides(preset("lm_fusion_960h"),
+                          {**data, "decode.lm_path": lm_path})
+    random_checkpoint(cfg, ckpt, seed=1)
+    log(f"[decode] LMs + 5 x BiLSTM-800 checkpoint in "
+        f"{time.perf_counter() - t0:.1f} s")
+    wavs = [u.path for u in read_manifest(manifest)][:2]
+
+    def flags(extra):
+        return [f"--{k}={v}" for k, v in {**data, **extra}.items()]
+
+    counters = {"stft": stft_cuda.stft_features, "lstm_fwd": lstm_cuda.lstm_fwd,
+                "beam": beam_cuda.beam_search_decode_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    ds3 = ["--ckpt", ckpt, "--device=cuda"]
+    fusion = {"decode.lm_path": lm_path}
+    runs = {
+        "beam + fusion": ["evaluate", "--preset", "lm_fusion_960h", *ds3,
+                          *flags(fusion)],
+        "beam + fusion + rescoring": [
+            "evaluate", "--preset", "lm_fusion_960h", *ds3,
+            *flags({**fusion, "decode.word_lm_path": wlm_path})],
+        "beam": ["evaluate", "--preset", "deepspeech_beam", *ds3, *flags({})],
+        "greedy": ["evaluate", "--preset", "deepspeech_beam", *ds3,
+                   *flags({"decode.method": "greedy"})],
+    }
+    rtf = {}
+    for mode, argv in runs.items():
+        res = _eval_json(run_cli(argv))
+        rtf[mode] = res["rtf"]
+        log(f"[decode] ds3 {mode}: rtf={res['rtf']:.6f} rtf_incl_compile="
+            f"{res['rtf_incl_compile']:.6f} wer={res['wer']:.4f} (random "
+            f"weights) utterances={res['utterances']}")
+        if res["utterances"] < 48 or not np.isfinite(res["rtf"]):
+            raise AssertionError(f"decode {mode}: {res}")
+    for mode, extra in (("greedy", {"decode.method": "greedy"}), ("beam", {}),
+                        ("beam + fusion", fusion)):
+        out = run_cli(["transcribe", "--preset", "lm_fusion_960h", *ds3,
+                       *flags(extra), *wavs])
+        if len([ln for ln in out.splitlines() if "\t" in ln]) != len(wavs):
+            raise AssertionError(f"transcribe ({mode}) printed no result")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"[decode] kernel launches during the decode slice: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the decode path never launched: "
+                             f"{launches}")
+
+    # K1 and K2 at this path's shapes ([16, 56320] samples, H=800, 5
+    # layers) against the plain path, then every eval batch's logits
+    # through K8 and the plain beam search
+    params = load_params(ckpt, cfg, "cuda")
+    paths_agreement("decode", cfg, params, manifest)
+    eval_step = make_eval_step(cfg, "cuda")
+    plain_cfg = dataclasses.replace(cfg, decode=dataclasses.replace(
+        cfg.decode, use_pallas=False))
+    kernel_beam = make_decoder(cfg, return_nbest=True)
+    plain_beam = make_decoder(plain_cfg, return_nbest=True)
+    loader = DataLoader(read_manifest(manifest), cfg.data, cfg.features,
+                        drop_last=False)
+    nbest_decode, pick_best = make_nbest_decoder(apply_overrides(
+        cfg, {"decode.word_lm_path": wlm_path}))
+    excused, rows, err = 0, 0, 0.0
+    split = {"host load": [], "features + encoder": [], "K8": [],
+             "host rescoring": []}
+
+    def lap(name, since):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[name].append((now - since) * 1e3)
+        return now
+
+    t1 = time.perf_counter()
+    for batch in loader.iter_epoch(0):
+        t1 = lap("host load", t1)
+        logits, lens = eval_step(params, batch.samples, batch.sample_lengths)
+        t1 = lap("features + encoder", t1)
+        nbest = nbest_decode(logits, lens)
+        t1 = lap("K8", t1)
+        pick_best(*nbest)
+        lap("host rescoring", t1)
+        if not torch.isfinite(logits).all() \
+                or logits.shape[2] != cfg.model.num_classes:
+            raise AssertionError("bad ds3 logits")
+        agree = beam_agreement(kernel_beam(logits, lens),
+                               plain_beam(logits, lens))
+        excused += agree["excused"]
+        rows += logits.shape[0]
+        err = max(err, agree["max_rel_err"])
+        t1 = time.perf_counter()
+    log(f"[decode] K8 vs plain beam on the ds3 logits (fusion, N-best): "
+        f"{rows} rows, excused by the tie rule {excused}, score rel err "
+        f"{err:.3e}")
+    log(f"[decode] ds3 fusion + rescoring, ms a batch of 16 x "
+        f"{logits.shape[1]} frames (host clock, synchronized, median of "
+        f"the batches after the first): "
+        + ", ".join(f"{k} {statistics.median(v[1:]):.2f}"
+                    for k, v in split.items()))
+
+    # B=1 latency per request, host clock around a synchronized call
+    lat = {}
+    for mode, extra in (("greedy", {"decode.method": "greedy"}),
+                        ("beam", {"decode.lm_path": ""}), ("beam + fusion", {})):
+        tr = Transcriber(apply_overrides(cfg, extra), params, "cuda")
+        times = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tr.transcribe_file(wavs[i % len(wavs)])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        lat[mode] = statistics.median(times[1:])
+    log("[decode] ds3 B=1 latency per request (ms, median of 5 after one "
+        "warm-up, wav read included): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in lat.items()))
+
+    # the trained conv_bilstm3 checkpoint, whose posteriors have structure
+    res = _eval_json(run_cli(
+        ["evaluate", "--preset", "conv_bilstm3", "--ckpt", train_dir,
+         "--device=cuda", *flags({"decode.method": "beam",
+                                  "decode.lm_path": lm_path})]))
+    log(f"[decode] conv_bilstm3 step-40 checkpoint, beam + fusion: "
+        f"wer={res['wer']:.4f} cer={res['cer']:.4f} rtf={res['rtf']:.6f}")
+    return {"launches": launches, "rtf": rtf, "latency_ms": lat,
+            "excused": excused}
 
 
 def _step_grads(cfg, params, arrs, mark=lambda: None):
@@ -665,7 +1108,7 @@ def phase_step() -> dict:
     against the plain path at f32 compute (and, for information, at
     bf16), and the step's time on the kernel and the bf16 plain path."""
     import torch
-    from ctc_asr_tpu.config import preset
+    from ctc_asr_tpu_torch.config import preset
     from ctc_asr_tpu_torch import train as train_mod
     from ctc_asr_tpu_torch.optim import global_norm
     base = preset("conv_bilstm3")
@@ -758,27 +1201,33 @@ def main() -> int:
     k2 = phase_lstm()
     k67 = phase_ctc()
     k23 = phase_lstm_train()
+    k8 = phase_beam()
     with tempfile.TemporaryDirectory() as tmp:
         sl = phase_slice(tmp)
         tr = phase_train(tmp, sl["manifest"])
+        dec = phase_decode(tmp, sl["manifest"], tr["train_dir"])
     step = phase_step()
-    tl = tr["launches"]
+    tl, dl = tr["launches"], dec["launches"]
+    k3_yardsticks = k2.pop("bwd")
+    # launches: the train run's, the serving run's and the decode run's,
+    # each counted from 0 over its own run
     kernels = [
         {"name": "stft_mel", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/stft.cu",
          "replaces": "ctc_asr_tpu/ops/stft_pallas.py:102",
          "launches": tl["stft"], "serve_launches": sl["launches"]["stft"],
-         **k1},
+         "decode_launches": dl["stft"], **k1},
         {"name": "lstm_fwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/lstm_fwd.cu",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:199",
          "launches": tl["lstm_fwd"], "serve_launches": sl["launches"]["lstm"],
+         "decode_launches": dl["lstm_fwd"],
          **k2, "residual_ms": k23["lstm_fwd_res"]["ms"],
          "residual_plain_ms": k23["lstm_fwd_res"]["plain_ms"]},
         {"name": "lstm_bwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/lstm_bwd.cu",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:247",
-         "launches": tl["lstm_bwd"], **k23["lstm_bwd"]},
+         "launches": tl["lstm_bwd"], **k23["lstm_bwd"], **k3_yardsticks},
         {"name": "ctc_alpha", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/ctc.cu",
          "replaces": "ctc_asr_tpu/ops/ctc_pallas.py:97",
@@ -787,6 +1236,10 @@ def main() -> int:
          "source": "ctc_asr_tpu_torch/csrc/ctc.cu",
          "replaces": "ctc_asr_tpu/ops/ctc_pallas.py:149",
          "launches": tl["ctc_beta_grad"], **k67["ctc_beta_grad"]},
+        {"name": "beam_search", "route": "cuda",
+         "source": "ctc_asr_tpu_torch/csrc/beam.cu",
+         "replaces": "ctc_asr_tpu/ops/beam_pallas.py:107",
+         "launches": dl["beam"], **k8},
     ]
     log(f"[step] train step ms at B=128 x 8 s: kernel path "
         f"{step['kernel_ms']:.1f}, plain path {step['plain_ms']:.1f}")

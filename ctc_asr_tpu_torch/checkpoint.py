@@ -29,7 +29,7 @@ import shutil
 import numpy as np
 import torch
 
-from ctc_asr_tpu.config import Config, TrainConfig
+from .config import Config, TrainConfig
 
 from .models.encoder import init_shapes
 

@@ -7,6 +7,15 @@
         --ckpt CKPT [--device=cuda] [--dump-utts a.json] [--section.key=value ...]
     python -m ctc_asr_tpu_torch.cli transcribe --preset conv_bilstm3 \
         --ckpt CKPT [--device=cuda] wav...
+    python -m ctc_asr_tpu_torch.cli train-lm --manifest M.csv --out lm.npz \
+        [--order 4] [--words]
+    python -m ctc_asr_tpu_torch.cli compare a.json b.json
+    python -m ctc_asr_tpu_torch.cli prepare-synth --out DIR [--n 64]
+
+Beam decoding: ``--preset lm_fusion_960h --decode.lm_path=lm.npz`` fuses
+a char LM from ``train-lm`` into the beam; ``--decode.word_lm_path=w.pkl``
+(from ``train-lm --words``) adds word-LM rescoring of the N-best on the
+host; ``--preset deepspeech_beam`` is the acoustic-only beam.
 
 The surface is the reference CLI's (``ctc_asr_tpu/cli.py``): ``--preset``
 picks a preset, ``--config file.json`` loads a full config, and any
@@ -24,7 +33,7 @@ import argparse
 import json
 import sys
 
-from ctc_asr_tpu import config as cfg_mod
+from . import config as cfg_mod
 
 
 def _split_args(argv):
@@ -55,7 +64,7 @@ def _load_cfg(args, overrides) -> cfg_mod.Config:
 def _parser(prog: str, ckpt: bool = True) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog=prog)
     p.add_argument("--preset", default="",
-                   help="named preset (ctc_asr_tpu.config.preset)")
+                   help="named preset (config.preset)")
     p.add_argument("--config", default="", help="config json file")
     if ckpt:
         p.add_argument("--ckpt", required=True,
@@ -93,7 +102,7 @@ def cmd_evaluate(argv):
     p = _parser("evaluate")
     p.add_argument("--dump-utts", default="",
                    help="write per-utterance (we,wc,ce,cc) records to "
-                        "this JSON for `ctc_asr_tpu.cli compare`")
+                        "this JSON for `cli compare`")
     args = p.parse_args(rest)
     cfg = _load_cfg(args, overrides)
 
@@ -128,10 +137,82 @@ def cmd_transcribe(argv):
     return 0
 
 
+def cmd_compare(argv):
+    """Paired-bootstrap comparison of two systems evaluated on the SAME
+    manifest: `cli compare a.json b.json` where each file is an
+    `evaluate --dump-utts` dump. Reports the corpus-WER delta (A - B),
+    its 95% CI, and p(A better) (metrics.paired_bootstrap)."""
+    p = argparse.ArgumentParser(prog="compare")
+    p.add_argument("a")
+    p.add_argument("b")
+    p.add_argument("--resamples", type=int, default=2000)
+    args = p.parse_args(argv)
+    from .metrics import paired_bootstrap
+    recs = []
+    for path in (args.a, args.b):
+        with open(path) as f:
+            recs.append(json.load(f)["per_utt"])
+    out = paired_bootstrap(recs[0], recs[1], n_resamples=args.resamples)
+    print(json.dumps(out, indent=2))
+    lo, hi = out["wer_delta_ci95"]
+    verdict = "A better" if hi < 0 else \
+        "B better" if lo > 0 else "statistically tied"
+    print(f"# {verdict} (delta={out['wer_delta']:+.4f}, "
+          f"CI95=[{lo:+.4f}, {hi:+.4f}], "
+          f"p_a_better={out['p_a_better']:.3f})")
+    return 0
+
+
+def cmd_prepare_synth(argv):
+    p = argparse.ArgumentParser(prog="prepare-synth")
+    p.add_argument("--out", required=True)
+    p.add_argument("--n", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--min-words", type=int, default=2)
+    p.add_argument("--max-words", type=int, default=7)
+    args = p.parse_args(argv)
+    from .data.synth import generate_corpus
+    path = generate_corpus(args.out, num_utterances=args.n, seed=args.seed,
+                           min_words=args.min_words,
+                           max_words=args.max_words)
+    print(path)
+    return 0
+
+
+def cmd_train_lm(argv):
+    p = argparse.ArgumentParser(prog="train-lm")
+    p.add_argument("--manifest", required=True, nargs="+")
+    p.add_argument("--out", required=True)
+    p.add_argument("--order", type=int, default=4)
+    p.add_argument("--words", action="store_true",
+                   help="train a word-level LM (for N-best rescoring) "
+                        "instead of the char LM (for shallow fusion)")
+    args = p.parse_args(argv)
+    from .data.manifest import read_manifest
+    from .ops import lm as lm_mod
+    texts = []
+    for m in args.manifest:
+        texts.extend(u.transcript for u in read_manifest(m))
+    if args.words:
+        wlm = lm_mod.train_word_lm(texts, order=max(args.order, 1))
+        lm_mod.save_word_lm(args.out, wlm)
+        print(f"wrote {args.out} (word LM, order={wlm['order']}, "
+              f"|V|={len(wlm['vocab'])})")
+    else:
+        lm = lm_mod.train_char_lm(texts, order=args.order)
+        lm_mod.save_lm(args.out, lm)
+        print(f"wrote {args.out} (char LM, order={args.order}, "
+              f"table={lm['table'].shape})")
+    return 0
+
+
 COMMANDS = {
     "train": cmd_train,
     "evaluate": cmd_evaluate,
     "transcribe": cmd_transcribe,
+    "compare": cmd_compare,
+    "prepare-synth": cmd_prepare_synth,
+    "train-lm": cmd_train_lm,
 }
 
 

@@ -1,0 +1,386 @@
+// CTC prefix beam search with optional char-LM shallow fusion.
+//
+// Replaces: ctc_asr_tpu/ops/beam_pallas.py, _beam_kernel (K8, launched by
+// beam_search_decode_pallas). It computes what ops/beam.py specifies and
+// what ops/beam.py of this package (the plain version) spells out step
+// by step: per frame, K stay candidates (blank path + repeat-last-char
+// path) and K*(C-1) extend candidates; a stay absorbs the one extend that
+// spells the same prefix (pairwise rolling-hash test) by log-sum-exp; the
+// best K survive, ranked by score, ties in the reference's order (the
+// candidate's first hash ascending; then flat = beam * C + char, the stay
+// in the blank column), where
+// score = lse(p_b, p_nb) + lm_weight * lm + word_bonus * bonus and
+// p_b / p_nb stay purely acoustic. NEG = -1e30 is the finite "zero
+// probability"; a candidate below NEG/2 is dead, ranks at exactly NEG and
+// never merges; a beam made from a dead or merged-away pick gets
+// p_b = p_nb = NEG. Frames at t >= len leave the beam untouched.
+//
+// The TPU kernel's shape is Mosaic's, not the algorithm's: one-hot matmul
+// gathers, f32-coded integers, a [C,C] prefix-count matmul, a 31-step
+// threshold search and a (B/G, T) grid with the state in VMEM scratch.
+// Here parents, table rows and characters are plain indexed reads.
+//
+// What bounds it on the H100: almost nothing in bytes (the [B,T,C]
+// log-probs are read once, a few MB) or operations (K*C = 1856 candidates
+// per frame and utterance). The cost is a chain of T dependent steps per
+// utterance, each with a block-wide selection, so the time is T times
+// the barriers of one step.
+//
+// What the design does about it, simple first:
+// - One launch for the whole batch, one block per utterance (B=128 blocks
+//   on 132 SMs), the loop over the utterance's own frames inside the
+//   block; the beam state (K x 10 scalars, double-buffered) lives in
+//   shared memory for the whole utterance.
+// - Top-K is a bitonic sort, in shared memory, of 64-bit keys
+//   (monotone score bits << 32 | ~hash) that carry the flat index as a
+//   16-bit value: the reference order with no tie pass and no threshold
+//   search, so positive fused scores (word_bonus) and -1e30 order like
+//   any other float. One thread per compare-exchange pair; a warp's 32
+//   pairs span 64 consecutive keys, so the strides below 64 need only
+//   __syncwarp and a step costs 15 block-wide barriers for the sort plus
+//   3 for the phases.
+// - Prefixes are not copied: each step writes one (parent, char) record
+//   per beam to a [B, T, K] scratch, and the emitted beams are rebuilt by
+//   backtracking at the end. The emitted length clamps at U and
+//   characters past U are dropped, as in the reference; U has no cap.
+// - The LM table stays in global memory as f32 at any order (an order-5
+//   table is 69 MB): K rows of C-1 floats are read per step, mostly from
+//   L2.
+// Score arithmetic uses __fadd_rn / __fmul_rn so that no multiply-add is
+// contracted: the plain PyTorch version rounds after every operation,
+// and near-ties between candidates would otherwise break differently.
+// Compiled without fast math, so expf / logf are the accurate ones.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float NEG = -1.0e30f;
+constexpr float DEAD = -0.5e30f;
+constexpr uint32_t H1_MUL = 1000003u, H1_ADD = 0x9E3779B9u, H1_SEED = 17u;
+constexpr uint32_t H2_MUL = 69069u, H2_ADD = 0x85EBCA6Bu, H2_SEED = 29u;
+
+__device__ __forceinline__ float lse2(float a, float b) {
+  const float m = fmaxf(fmaxf(a, b), NEG);
+  return __fadd_rn(m, logf(__fadd_rn(expf(__fadd_rn(a, -m)),
+                                     expf(__fadd_rn(b, -m)))));
+}
+
+// (acoustic + lm_weight * lm) + word_bonus * bonus, rounded at each step.
+__device__ __forceinline__ float fuse(float acoustic, float lm, float bonus,
+                                      float lm_weight, float word_bonus) {
+  return __fadd_rn(__fadd_rn(acoustic, __fmul_rn(lm_weight, lm)),
+                   __fmul_rn(word_bonus, bonus));
+}
+
+// Sort key: larger score first, then smaller hash. The float maps to an
+// unsigned int that is monotone over negatives, positives and -1e30; -0
+// is folded into +0 first, as the two compare equal.
+__device__ __forceinline__ unsigned long long make_key(float score,
+                                                       uint32_t h1) {
+  if (score == 0.0f) score = 0.0f;
+  const uint32_t bits = __float_as_uint(score);
+  const uint32_t mono = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+  return ((unsigned long long)mono << 32) | (0xFFFFFFFFu - h1);
+}
+
+__device__ __forceinline__ float key_score(unsigned long long key) {
+  const uint32_t mono = (uint32_t)(key >> 32);
+  const uint32_t bits = (mono & 0x80000000u) ? (mono & 0x7FFFFFFFu) : ~mono;
+  return __uint_as_float(bits);
+}
+
+struct BeamState {      // one of two buffers, each array [K]
+  float* pb;
+  float* pnb;
+  float* total;         // lse2(pb, pnb)
+  float* lm;
+  float* bon;
+  int* last;
+  int* ctx;
+  int* flen;            // unclamped prefix length
+  uint32_t* h1;
+  uint32_t* h2;
+};
+
+__device__ __forceinline__ BeamState state_at(unsigned char* base, int K) {
+  BeamState s;
+  float* f = reinterpret_cast<float*>(base);
+  s.pb = f;
+  s.pnb = f + K;
+  s.total = f + 2 * K;
+  s.lm = f + 3 * K;
+  s.bon = f + 4 * K;
+  s.last = reinterpret_cast<int*>(f + 5 * K);
+  s.ctx = reinterpret_cast<int*>(f + 6 * K);
+  s.flen = reinterpret_cast<int*>(f + 7 * K);
+  s.h1 = reinterpret_cast<uint32_t*>(f + 8 * K);
+  s.h2 = reinterpret_cast<uint32_t*>(f + 9 * K);
+  return s;
+}
+
+constexpr int STATE_ARRAYS = 10;
+
+// Bitonic sort of (keys, vals)[NP] (NP a power of two >= 64): key
+// descending, then val ascending, so the order is total. One thread per
+// compare-exchange pair (looping when NP/2 > blockDim.x).
+__device__ void bitonic_sort_desc(unsigned long long* keys,
+                                  unsigned short* vals, int NP) {
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  for (int k = 2; k <= NP; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int p = tid; p < NP / 2; p += nt) {
+        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+        const int q = i | j;
+        const unsigned long long a = keys[i], b = keys[q];
+        const unsigned short va = vals[i], vb = vals[q];
+        const bool a_first = a > b || (a == b && va < vb);
+        if (a_first != ((i & k) == 0)) {
+          keys[i] = b;
+          keys[q] = a;
+          vals[i] = vb;
+          vals[q] = va;
+        }
+      }
+      // pairs 32w..32w+31 of a warp touch keys 64w..64w+63 while j < 64
+      if (j >= 64 || (j == 1 && k >= 64)) __syncthreads();
+      else __syncwarp();
+    }
+  }
+}
+
+__global__ void beam_search_kernel(
+    const float* __restrict__ log_probs,   // [B, T, C]
+    const int* __restrict__ lens,          // [B]
+    const float* __restrict__ table,       // [n_ctx, C-1] or null
+    int* __restrict__ back,                // [B, T, K] scratch
+    int* __restrict__ out_ids,             // [B, kout, U], filled with pad
+    int* __restrict__ out_lens,            // [B, kout]
+    float* __restrict__ out_scores,        // [B, kout]
+    int T, int C, int K, int U, int NP, int n_ctx, int lm_vocab, int space,
+    int init_ctx, float lm_weight, float word_bonus, int nbest) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int Cr = C - 1;
+  const int N = K * C;
+  const int blank = C - 1;
+
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
+  unsigned short* vals = reinterpret_cast<unsigned short*>(
+      smem + (size_t)NP * sizeof(unsigned long long));
+  unsigned char* p = smem + (size_t)NP * (sizeof(unsigned long long) +
+                                          sizeof(unsigned short));
+  BeamState st[2];
+  st[0] = state_at(p, K);
+  st[1] = state_at(p + (size_t)STATE_ARRAYS * K * sizeof(float), K);
+  float* f = reinterpret_cast<float*>(
+      p + (size_t)2 * STATE_ARRAYS * K * sizeof(float));
+  float* stay_pb = f;                // [K]
+  float* stay_pnb = f + K;           // [K] after the merge
+  float* lp_buf = f + 2 * K;         // [2][C]
+  __shared__ int best_beam;
+
+  const int len = min(max(lens[b], 0), T);
+  const float* lp_rows = log_probs + (size_t)b * T * C;
+  int* back_rows = back + (size_t)b * T * K;
+
+  if (tid < K) {
+    BeamState& s = st[0];
+    s.pb[tid] = tid == 0 ? 0.0f : NEG;
+    s.pnb[tid] = NEG;
+    s.total[tid] = lse2(s.pb[tid], NEG);
+    s.lm[tid] = 0.0f;
+    s.bon[tid] = 0.0f;
+    s.last[tid] = -1;
+    s.ctx[tid] = init_ctx;
+    s.flen[tid] = 0;
+    s.h1[tid] = H1_SEED;
+    s.h2[tid] = H2_SEED;
+  }
+  if (len > 0)
+    for (int c = tid; c < C; c += nt) lp_buf[c] = lp_rows[c];
+  __syncthreads();
+
+  int cur = 0;
+  for (int t = 0; t < len; ++t) {
+    const BeamState& s = st[cur];
+    const BeamState& n = st[cur ^ 1];
+    const float* lp = lp_buf + (t & 1) * C;
+
+    // ---- extend candidates: keys[k*C + c], c < C-1 --------------------
+    for (int flat = tid; flat < NP; flat += nt) {
+      unsigned long long key = 0ull;        // padding sorts last
+      const int k = flat / C, c = flat - k * C;
+      if (flat < N) {
+        if (c == blank) continue;           // the stay's slot, written below
+        const float v = __fadd_rn(c == s.last[k] ? s.pb[k] : s.total[k],
+                                  lp[c]);
+        float score = NEG;
+        if (v > DEAD) {
+          float lmv = s.lm[k];
+          if (table != nullptr)
+            lmv = __fadd_rn(lmv, table[(size_t)s.ctx[k] * Cr + c]);
+          const float bonv = __fadd_rn(s.bon[k], c == space ? 1.0f : 0.0f);
+          score = fuse(v, lmv, bonv, lm_weight, word_bonus);
+        }
+        key = make_key(score, s.h1[k] * H1_MUL + ((uint32_t)c + H1_ADD));
+      }
+      keys[flat] = key;
+      vals[flat] = (unsigned short)flat;
+    }
+    __syncthreads();
+
+    // ---- stay candidates, each absorbing the extend it duplicates -----
+    if (tid < K) {
+      const int k = tid;
+      const int c = s.last[k];
+      const float spb = __fadd_rn(s.total[k], lp[blank]);
+      float spnb = c >= 0 ? __fadd_rn(s.pnb[k], lp[c]) : NEG;
+      const bool live = spb > DEAD || spnb > DEAD;
+      if (live && c >= 0) {
+        const uint32_t want1 = s.h1[k], want2 = s.h2[k];
+        for (int j = 0; j < K; ++j) {
+          if (s.h1[j] * H1_MUL + ((uint32_t)c + H1_ADD) != want1 ||
+              s.h2[j] * H2_MUL + ((uint32_t)c + H2_ADD) != want2)
+            continue;
+          const float v = __fadd_rn(c == s.last[j] ? s.pb[j] : s.total[j],
+                                    lp[c]);
+          if (v > DEAD) {
+            spnb = lse2(spnb, v);
+            keys[j * C + c] = make_key(NEG, want1);
+          }
+        }
+      }
+      stay_pb[k] = spb;
+      stay_pnb[k] = spnb;
+      const float score = live ? fuse(lse2(spb, spnb), s.lm[k], s.bon[k],
+                                      lm_weight, word_bonus)
+                               : NEG;
+      keys[k * C + blank] = make_key(score, s.h1[k]);
+      vals[k * C + blank] = (unsigned short)(k * C + blank);
+    }
+    __syncthreads();
+
+    bitonic_sort_desc(keys, vals, NP);
+
+    // ---- the K best become the new beam, in rank order -----------------
+    if (tid < K) {
+      const int i = tid;
+      const int flat = vals[i];
+      const bool dead = key_score(keys[i]) <= DEAD;
+      const int par = flat / C;
+      int c = flat - par * C;
+      if (c == blank) {
+        c = -1;
+        n.pb[i] = dead ? NEG : stay_pb[par];
+        n.pnb[i] = dead ? NEG : stay_pnb[par];
+        n.last[i] = s.last[par];
+        n.h1[i] = s.h1[par];
+        n.h2[i] = s.h2[par];
+        n.ctx[i] = s.ctx[par];
+        n.lm[i] = s.lm[par];
+        n.bon[i] = s.bon[par];
+        n.flen[i] = s.flen[par];
+      } else {
+        n.pb[i] = NEG;
+        n.pnb[i] = dead ? NEG
+                        : __fadd_rn(c == s.last[par] ? s.pb[par]
+                                                     : s.total[par], lp[c]);
+        n.last[i] = c;
+        n.h1[i] = s.h1[par] * H1_MUL + ((uint32_t)c + H1_ADD);
+        n.h2[i] = s.h2[par] * H2_MUL + ((uint32_t)c + H2_ADD);
+        float lmv = s.lm[par];
+        int ctx = s.ctx[par];
+        if (table != nullptr) {
+          lmv = __fadd_rn(lmv, table[(size_t)ctx * Cr + c]);
+          ctx = (int)(((long long)ctx * lm_vocab + c) % n_ctx);
+        }
+        n.ctx[i] = ctx;
+        n.lm[i] = lmv;
+        n.bon[i] = __fadd_rn(s.bon[par], c == space ? 1.0f : 0.0f);
+        n.flen[i] = s.flen[par] + 1;
+      }
+      n.total[i] = lse2(n.pb[i], n.pnb[i]);
+      back_rows[(size_t)t * K + i] = (par << 8) | (c + 1);
+    }
+    if (t + 1 < len) {
+      // The next frame's log-probs, highest threads first: with more
+      // threads than K + C they all fall to threads that pick no beam
+      // and are fetched meanwhile; with fewer (nt == K when C == 2) the
+      // picking threads fetch them after their pick.
+      for (int c = nt - 1 - tid; c < C; c += nt)
+        lp_buf[((t + 1) & 1) * C + c] = lp_rows[(size_t)(t + 1) * C + c];
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+
+  // ---- emit: the best beam, or the whole beam in beam order ------------
+  const BeamState& s = st[cur];
+  if (tid < K)
+    stay_pb[tid] = fuse(s.total[tid], s.lm[tid], s.bon[tid], lm_weight,
+                        word_bonus);
+  __syncthreads();
+  if (tid == 0) {
+    int best = 0;
+    for (int k = 1; k < K; ++k)
+      if (stay_pb[k] > stay_pb[best]) best = k;     // first maximum
+    best_beam = best;
+  }
+  __syncthreads();
+  const int kout = nbest ? K : 1;
+  if (tid < kout) {
+    int j = nbest ? tid : best_beam;
+    const int full = s.flen[j];
+    const size_t o = (size_t)b * kout + tid;
+    out_lens[o] = min(full, U);
+    out_scores[o] = stay_pb[j];
+    int* ids = out_ids + o * U;
+    int pos = full;
+    for (int t = len - 1; t >= 0; --t) {
+      const int rec = back_rows[(size_t)t * K + j];
+      const int c = (rec & 0xFF) - 1;
+      if (c >= 0) {
+        --pos;
+        if (pos < U) ids[pos] = c;
+      }
+      j = rec >> 8;
+    }
+  }
+}
+
+}  // namespace
+
+// Shared memory of one block: the sort keys and values, two state
+// buffers, the stay arrays and two frames of log-probs.
+static size_t beam_smem_bytes(int K, int C, int NP) {
+  return (size_t)NP * (sizeof(unsigned long long) + sizeof(unsigned short)) +
+         (size_t)(2 * STATE_ARRAYS + 2) * K * sizeof(float) +
+         (size_t)2 * C * sizeof(float);
+}
+
+extern "C" int beam_search(const void* log_probs, const void* lens,
+                           const void* table, void* back, void* out_ids,
+                           void* out_lens, void* out_scores, int B, int T,
+                           int C, int K, int U, int NP, int n_ctx,
+                           int lm_vocab, int space, int init_ctx,
+                           float lm_weight, float word_bonus, int nbest,
+                           void* stream) {
+  const size_t smem = beam_smem_bytes(K, C, NP);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        beam_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int threads = NP / 2 < 1024 ? NP / 2 : 1024;
+  beam_search_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)log_probs, (const int*)lens, (const float*)table,
+      (int*)back, (int*)out_ids, (int*)out_lens, (float*)out_scores, T, C, K,
+      U, NP, n_ctx, lm_vocab, space, init_ctx, lm_weight, word_bonus, nbest);
+  return (int)cudaGetLastError();
+}

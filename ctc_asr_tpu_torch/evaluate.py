@@ -1,25 +1,26 @@
 """Evaluation driver: params -> eval-manifest decode -> corpus WER/CER.
 
 Counterpart of ``ctc_asr_tpu/evaluate.py`` (single process) and of
-``train.make_eval_step``: samples -> features -> encoder -> greedy
-decode on the device, with the reference's steady-state RTF
-accounting.
+``train.make_eval_step``: samples -> features -> encoder -> greedy or
+beam decode on the device (beam with optional char-LM fusion, and
+word-LM N-best rescoring on the host), with the reference's
+steady-state RTF accounting.
 """
 
 from __future__ import annotations
 
 import time
 
+import numpy as np
 import torch
 
-from ctc_asr_tpu.config import Config
-from ctc_asr_tpu.data import DataLoader, read_manifest
-from ctc_asr_tpu.metrics import ErrorRateAccumulator
-from ctc_asr_tpu.text import decode_ids
-
+from .config import Config
+from .data import DataLoader, read_manifest
 from .features import extract_features
+from .metrics import ErrorRateAccumulator
 from .models.encoder import apply_encoder
 from .ops.dispatch import resolve_device
+from .text import decode_ids
 
 
 def make_eval_step(cfg: Config, device: str | torch.device = "cuda"):
@@ -40,16 +41,75 @@ def make_eval_step(cfg: Config, device: str | torch.device = "cuda"):
     return eval_step
 
 
-def make_decoder(cfg: Config):
-    """``(logits, logit_lens) -> (ids, lens)`` for ``cfg.decode.method``."""
+def make_decoder(cfg: Config, return_nbest: bool = False):
+    """``(logits, logit_lens) -> (ids, lens)`` for ``cfg.decode.method``
+    (greedy, or beam with optional char-LM fusion); with
+    ``return_nbest`` the beam decoder returns its whole beam best-first,
+    ``(ids [B, K, U], lens [B, K], scores [B, K])``.
+
+    ``decode.use_pallas`` selects the beam kernel (on a CUDA tensor; it
+    launches or raises) or the plain PyTorch beam search."""
     if cfg.decode.method == "greedy":
         from .ops.greedy import greedy_decode
         return greedy_decode
     if cfg.decode.method == "beam":
-        raise NotImplementedError(
-            "beam decoding is not ported yet: it waits for the beam kernel "
-            "(ROADMAP.md, B: K8 beam_pallas._beam_kernel)")
+        from .ops import beam as beam_mod
+        lm = None
+        if cfg.decode.lm_path:
+            from .ops import lm as lm_mod
+            lm = lm_mod.load_lm(cfg.decode.lm_path)
+        return beam_mod.make_beam_decoder(
+            beam_width=cfg.decode.beam_width, lm=lm,
+            lm_weight=cfg.decode.lm_weight,
+            word_bonus=cfg.decode.word_bonus,
+            use_kernel=cfg.decode.use_pallas,
+            max_decode_len=beam_mod.derive_max_decode_len(
+                cfg.decode, cfg.data),
+            return_nbest=return_nbest)
     raise ValueError(f"unknown decode method {cfg.decode.method!r}")
+
+
+_SCORE_CACHE_MAX = 200_000
+
+
+def make_nbest_decoder(cfg: Config):
+    """``decode(logits, lens) -> (ids [B, N, U], lens [B, N], scores
+    [B, N])`` with N = min(decode.nbest, beam_width), plus ``pick_best``,
+    which rescores each utterance's N-best on the host with the word LM
+    of ``decode.word_lm_path``."""
+    from .ops import lm as lm_mod
+    word_lm = lm_mod.load_word_lm(cfg.decode.word_lm_path)
+    full_beam = make_decoder(cfg, return_nbest=True)
+    N = min(cfg.decode.nbest, cfg.decode.beam_width)
+
+    def decode(logits, logit_lens):
+        ids, lens, scores = full_beam(logits, logit_lens)
+        return ids[:, :N], lens[:, :N], scores[:, :N]
+
+    # text -> word-LM log-prob, lives across batches. Bounded: one entry
+    # per unique hypothesis string would otherwise grow without limit
+    # over a large corpus; cross-batch hits come mostly from recent or
+    # short hypotheses, so a flush loses little.
+    score_cache: dict = {}
+
+    def pick_best(ids, lens, scores):
+        """Host: rescore each utterance's N-best, return numpy
+        (ids [B, U], lens [B]). Duplicate hypotheses, within an N-best
+        list and across the corpus, are scored once."""
+        if len(score_cache) > _SCORE_CACHE_MAX:
+            score_cache.clear()
+        ids, lens, scores = (ids.cpu().numpy(), lens.cpu().numpy(),
+                             scores.cpu().numpy())
+        B, N = ids.shape[0], ids.shape[1]
+        texts = [[decode_ids(ids[b, k, :lens[b, k]]) for k in range(N)]
+                 for b in range(B)]
+        best = lm_mod.rescore_nbest_batch(
+            texts, scores, word_lm, alpha=cfg.decode.rescore_alpha,
+            beta=cfg.decode.rescore_beta, cache=score_cache)
+        bidx = np.arange(B)
+        return ids[bidx, best], lens[bidx, best]
+
+    return decode, pick_best
 
 
 def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
@@ -64,7 +124,11 @@ def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
         loader = DataLoader(read_manifest(cfg.data.eval_manifest), cfg.data,
                             cfg.features, drop_last=False)
     eval_step = make_eval_step(cfg, device)
-    decoder = make_decoder(cfg)
+    rescorer = None
+    if cfg.decode.word_lm_path and cfg.decode.method == "beam":
+        decoder, rescorer = make_nbest_decoder(cfg)
+    else:
+        decoder = make_decoder(cfg)
     acc = ErrorRateAccumulator()
     total_audio = 0.0
     t0 = time.perf_counter()
@@ -77,9 +141,12 @@ def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
             break
         logits, logit_lens = eval_step(params, batch.samples,
                                        batch.sample_lengths)
-        ids, lens = decoder(logits, logit_lens)
         # the copy to the host waits for the device: a true barrier
-        ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
+        if rescorer is not None:
+            ids, lens = rescorer(*decoder(logits, logit_lens))
+        else:
+            ids, lens = decoder(logits, logit_lens)
+            ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
         for i in range(batch.valid):
             hyp = decode_ids(ids[i, :lens[i]])
             ref = batch.transcripts[i]

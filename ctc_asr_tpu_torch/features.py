@@ -20,8 +20,8 @@ import functools
 import numpy as np
 import torch
 
-from ctc_asr_tpu.audio import ULAW_MU, WIRE_SCALE
-from ctc_asr_tpu.config import FeatureConfig
+from .audio import ULAW_MU, WIRE_SCALE
+from .config import FeatureConfig
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +201,7 @@ def extract_features(samples: torch.Tensor, sample_lengths: torch.Tensor,
     with ``sample_lengths`` already holding frame counts."""
     if samples.dim() == 3:
         if samples.dtype == torch.int8:
-            from ctc_asr_tpu.data.feature_cache import FEATURE_INT8_SCALE
+            from .data.feature_cache import FEATURE_INT8_SCALE
             return (samples.to(torch.float32) * (1.0 / FEATURE_INT8_SCALE),
                     sample_lengths.to(torch.int32))
         return samples.to(torch.float32), sample_lengths.to(torch.int32)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ctc_asr_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from .layers import (clipped_relu, conv2d_apply, dense_apply, dropout,
                      dropout_mask, glorot)

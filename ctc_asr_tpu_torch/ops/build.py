@@ -10,7 +10,8 @@ loads a stale library. Nothing is built or loaded at import time.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns the ``cudaError_t`` of its launches; the wrappers
-in ``stft_cuda`` / ``lstm_cuda`` / ``ctc_cuda`` raise when it is not 0.
+in ``stft_cuda`` / ``lstm_cuda`` / ``ctc_cuda`` / ``beam_cuda`` raise when
+it is not 0.
 """
 
 from __future__ import annotations
@@ -55,6 +56,11 @@ _SIGNATURES = {
     "ctc_alpha": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # lpz, alphas, skip, lens, ends, nll, grad, T, B, S, stream
     "ctc_beta_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # log_probs, lens, table, back, out_ids, out_lens, out_scores, B, T, C,
+    # K, U, NP, n_ctx, lm_vocab, space, init_ctx, lm_weight, word_bonus,
+    # nbest, stream
+    "beam_search": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _F, _F, _I, _P],
 }
 
 _lock = threading.Lock()

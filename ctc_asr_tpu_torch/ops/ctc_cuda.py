@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from ctc_asr_tpu.text import BLANK_ID
+from ..text import BLANK_ID
 
 from . import build
 from .dispatch import check_kernel_tensor, require_kernel_device

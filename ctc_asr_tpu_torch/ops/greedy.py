@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ctc_asr_tpu.text import BLANK_ID, PAD_ID
+from ..text import BLANK_ID, PAD_ID
 
 
 def greedy_decode(logits: torch.Tensor, logit_lengths: torch.Tensor,

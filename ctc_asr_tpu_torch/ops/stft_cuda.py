@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from ctc_asr_tpu.config import FeatureConfig
+from ..config import FeatureConfig
 
 from .. import features as feat_mod
 from . import build

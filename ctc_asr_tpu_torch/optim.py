@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from ctc_asr_tpu.config import TrainConfig
+from .config import TrainConfig
 
 
 def lr_schedule(tcfg: TrainConfig):

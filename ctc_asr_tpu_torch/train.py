@@ -30,12 +30,11 @@ import time
 import numpy as np
 import torch
 
-from ctc_asr_tpu.config import Config
-from ctc_asr_tpu.data import DataLoader, read_manifest
-from ctc_asr_tpu.metrics import MetricsWriter, ThroughputMeter
-
 from . import checkpoint as ckpt_mod
+from .config import Config
+from .data import DataLoader, read_manifest
 from .features import extract_features, spec_augment
+from .metrics import MetricsWriter, ThroughputMeter
 from .models.encoder import apply_encoder, init_params
 from .ops.ctc_cuda import ctc_loss
 from .ops.dispatch import resolve_device
@@ -199,7 +198,7 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
 
     heartbeat = None
     if tcfg.heartbeat_seconds > 0:
-        from ctc_asr_tpu.utils.heartbeat import Heartbeat
+        from .utils.heartbeat import Heartbeat
         heartbeat = Heartbeat(tcfg.heartbeat_seconds).start()
 
     def save(step, batch, is_best=False):

@@ -8,11 +8,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from ctc_asr_tpu import audio as audio_mod
-from ctc_asr_tpu.config import Config
-from ctc_asr_tpu.text import decode_ids
-
+from . import audio as audio_mod
+from .config import Config
 from .evaluate import make_decoder, make_eval_step
+from .text import decode_ids
 
 
 class Transcriber:

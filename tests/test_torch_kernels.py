@@ -4,7 +4,8 @@ capability 9.0). Run them on an H100 with:
 
     python -m pytest tests/test_torch_kernels.py -m cuda -q
 
-This file imports no JAX, so it runs where only PyTorch is installed.
+This file imports no JAX and nothing of the JAX package, so it runs
+where only PyTorch is installed.
 """
 
 import dataclasses
@@ -13,9 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from ctc_asr_tpu.config import FeatureConfig, ModelConfig
+from ctc_asr_tpu_torch.config import FeatureConfig, ModelConfig
 from ctc_asr_tpu_torch.models import apply_encoder, init_shapes
-from ctc_asr_tpu_torch.ops import ctc_cuda, lstm_cuda, stft_cuda
+from ctc_asr_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda, stft_cuda
 from ctc_asr_tpu_torch.ops.dispatch import cuda_supported
 
 pytestmark = pytest.mark.cuda
@@ -54,7 +55,9 @@ def test_stft_kernel_matches_plain(dev, cfg, B, S):
 
 
 @pytest.mark.parametrize("nd,T,B,H", [(1, 12, 5, 64), (2, 30, 33, 96),
-                                      (2, 7, 3, 48)])
+                                      (2, 7, 3, 48), (2, 40, 16, 800),
+                                      (2, 399, 128, 800), (2, 175, 16, 800),
+                                      (2, 175, 1, 800)])
 def test_lstm_kernel_matches_plain(dev, nd, T, B, H):
     g = torch.Generator().manual_seed(T)
     xproj = torch.randn(nd, T, B, 4 * H, generator=g).to(torch.bfloat16)
@@ -183,3 +186,133 @@ def test_ctc_kernels_match_plain(dev, B, T, U, C):
     assert rel[feas].max().item() <= CTC_TOL
     assert torch.isfinite(grad).all()
     assert (grad - pgrad)[:, feas].abs().max().item() <= CTC_TOL
+
+
+def _beam_case(dev, B, T, C, seed, table_rows=0):
+    """Seeded logits (standard normal x 2), ragged lengths with one
+    zero-length row, and optionally a random normalized LM table."""
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy(
+        (rng.standard_normal((B, T, C)) * 2).astype(np.float32)).to(dev)
+    lens = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    lens[0] = T
+    if B > 1:
+        lens[-1] = 0
+    table = None
+    if table_rows:
+        table = torch.from_numpy(np.log(rng.dirichlet(
+            np.ones(C - 1), size=table_rows)).astype(np.float32)).to(dev)
+    return logits, torch.from_numpy(lens).to(dev), table
+
+
+_BEAM_MODES = [
+    dict(),                                                     # acoustic
+    dict(n_ctx=28 ** 3, lm_weight=0.8, word_bonus=1.0),         # order 4
+    dict(n_ctx=28 ** 4, lm_weight=0.8, word_bonus=1.0),         # order 5
+    dict(n_ctx=28 ** 3, lm_weight=0.8, word_bonus=1.0, nbest=True),
+]
+
+
+@pytest.mark.parametrize("mode", range(len(_BEAM_MODES)))
+@pytest.mark.parametrize("B,T,K", [(3, 20, 8), (128, 400, 64)])
+def test_beam_kernel_matches_plain(dev, B, T, K, mode):
+    """Held as ``chip_smoke.beam_agreement`` holds it: identical ids and
+    lengths in every row whose two best final scores differ by more than
+    1e-3, N-best scores within 1e-4 relative, no duplicate live prefix."""
+    from chip_smoke import beam_agreement
+    m = dict(_BEAM_MODES[mode])
+    nbest = m.pop("nbest", False)
+    logits, lens, table = _beam_case(dev, B, T, 29, B + mode,
+                                     m.pop("n_ctx", 0))
+    # U = T: prefixes cut at the decode buffer's end could coincide
+    kw = dict(beam_width=K, lm_table=table, max_decode_len=T, **m)
+    n0 = beam_cuda.beam_search_decode_cuda.launches
+    got = beam_cuda.beam_search_decode_cuda(logits, lens, return_nbest=True,
+                                            **kw)
+    torch.cuda.synchronize()
+    assert beam_cuda.beam_search_decode_cuda.launches == n0 + 1
+    want = beam_cuda.beam_search_decode_plain(logits, lens,
+                                              return_nbest=True, **kw)
+    assert got[0].shape == want[0].shape == (B, K, T)
+    assert got[0].dtype == torch.int32
+    assert beam_agreement(got, want)["excused"] <= B // 16
+    assert int(got[1][-1].max()) == 0                   # the empty row
+    if not nbest:
+        ids, dl = beam_cuda.beam_search_decode_cuda(logits, lens, **kw)
+        assert torch.equal(ids, got[0][:, 0]) and torch.equal(dl, got[1][:, 0])
+
+
+@pytest.mark.parametrize("K", [8, 32, 64, 512])
+def test_beam_kernel_two_classes(dev, K):
+    """C = 2 with K >= 32 gives a block exactly K threads: every thread
+    picks a beam, and the same threads must still fetch the next frame."""
+    from chip_smoke import beam_agreement
+    logits, lens, _ = _beam_case(dev, 4, 24, 2, K)
+    kw = dict(beam_width=K, blank_id=1, max_decode_len=24, return_nbest=True)
+    got = beam_cuda.beam_search_decode_cuda(logits, lens, **kw)
+    want = beam_cuda.beam_search_decode_plain(logits, lens, **kw)
+    torch.cuda.synchronize()
+    assert beam_agreement(got, want)["excused"] == 0
+
+
+@pytest.mark.parametrize("nbest", [False, True])
+def test_beam_kernel_no_frames_and_no_rows(dev, nbest):
+    """T = 0 launches the kernel (every row emits the empty prefix); a
+    batch of no rows has no block to launch and gets empty outputs."""
+    kw = dict(beam_width=4, return_nbest=nbest)
+    lens = torch.zeros(3, dtype=torch.int32, device=dev)
+    n0 = beam_cuda.beam_search_decode_cuda.launches
+    got = beam_cuda.beam_search_decode_cuda(
+        torch.zeros(3, 0, 29, device=dev), lens, **kw)
+    torch.cuda.synchronize()
+    assert beam_cuda.beam_search_decode_cuda.launches == n0 + 1
+    want = beam_cuda.beam_search_decode_plain(torch.zeros(3, 0, 29),
+                                              lens.cpu(), **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g.cpu(), w)
+    got = beam_cuda.beam_search_decode_cuda(
+        torch.zeros(0, 5, 29, device=dev), lens[:0], **kw)
+    assert beam_cuda.beam_search_decode_cuda.launches == n0 + 1
+    want = beam_cuda.beam_search_decode_plain(torch.zeros(0, 5, 29),
+                                              lens[:0].cpu(), **kw)
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype
+
+
+def test_beam_kernel_long_buffer_and_clamp(dev):
+    """U beyond the reference kernel's 1024 lanes, and a clamp that
+    drops characters."""
+    n_chars, C = 1300, 29
+    T = 2 * n_chars
+    logits = torch.full((1, T, C), -10.0)
+    text = [(i % 27) + 1 for i in range(n_chars)]
+    logits[0, 2 * torch.arange(n_chars), torch.tensor(text)] = 10.0
+    logits[0, 2 * torch.arange(n_chars) + 1, C - 1] = 10.0
+    lens = torch.tensor([T], dtype=torch.int32)
+    ids, dl = beam_cuda.beam_search_decode_cuda(
+        logits.to(dev), lens.to(dev), beam_width=4, max_decode_len=2000)
+    assert ids.shape == (1, 2000) and int(dl[0]) == n_chars
+    assert ids[0, :n_chars].tolist() == text
+    ids, dl = beam_cuda.beam_search_decode_cuda(
+        logits.to(dev), lens.to(dev), beam_width=4)
+    assert ids.shape == (1, 256) and int(dl[0]) == 256
+    assert ids[0].tolist() == text[:256]
+
+
+def test_beam_kernel_rejects_bad_input(dev):
+    logits = torch.zeros(2, 5, 6, device=dev)
+    lens = torch.tensor([5, 3], dtype=torch.int32, device=dev)
+    n0 = beam_cuda.beam_search_decode_cuda.launches
+    with pytest.raises(ValueError, match="blank"):
+        beam_cuda.beam_search_decode_cuda(logits, lens, blank_id=2)
+    with pytest.raises(ValueError, match="LM vocab"):
+        beam_cuda.beam_search_decode_cuda(
+            logits, lens, blank_id=5, lm_table=torch.zeros(7, 7, device=dev))
+    with pytest.raises(ValueError, match="init_ctx"):
+        beam_cuda.beam_search_decode_cuda(
+            logits, lens, blank_id=5, lm_table=torch.zeros(5, 5, device=dev),
+            init_ctx=9)
+    with pytest.raises(ValueError, match="beam width"):
+        beam_cuda.beam_search_decode_cuda(logits, lens, blank_id=5,
+                                          beam_width=4096)
+    assert beam_cuda.beam_search_decode_cuda.launches == n0

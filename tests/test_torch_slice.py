@@ -1,5 +1,6 @@
-"""The port's serving slice on the CPU: greedy decode, checkpoint
-reading, evaluate / Transcriber / CLI against the JAX reference, the
+"""The port's serving and decode slices on the CPU: greedy decode,
+checkpoint reading, evaluate / Transcriber / CLI against the JAX
+reference with greedy, beam, char-LM fusion and word-LM rescoring, the
 no-JAX import rule, and the refusal to fall back from CUDA to the CPU.
 """
 
@@ -127,10 +128,123 @@ def test_cli_evaluate_and_transcribe(corpus, tmp_path, capsys):
     assert cli.main(["transcribe", "--config", str(cfg_path), "--ckpt",
                      path, "--device=cpu", wav]) == 0
     assert capsys.readouterr().out.startswith(f"{wav}\t")
-    beam = ["--decode.method=beam"]
-    with pytest.raises(NotImplementedError, match="beam"):
-        cli.main(["evaluate", "--config", str(cfg_path), "--ckpt", path,
-                  "--device=cpu", *beam])
+    beam = ["--decode.method=beam", "--decode.beam_width=4"]
+    assert cli.main(["evaluate", "--config", str(cfg_path), "--ckpt", path,
+                     "--device=cpu", *beam]) == 0
+    out = capsys.readouterr().out
+    assert json.loads(out[out.index("\n{") + 1:])["utterances"] \
+        == res["utterances"]
+    assert cli.main(["transcribe", "--config", str(cfg_path), "--ckpt",
+                     path, "--device=cpu", *beam, wav]) == 0
+    assert capsys.readouterr().out.startswith(f"{wav}\t")
+
+
+def test_reads_ds3_geometry_checkpoint(tmp_path):
+    """5 x BiLSTM as in ``deepspeech_beam`` / ``lm_fusion_960h``: narrow
+    weights round-trip, and at the presets' full width (800 units) the
+    port expects exactly the reference's keys and shapes."""
+    import jax
+    from ctc_asr_tpu.config import preset
+    from ctc_asr_tpu_torch.models import init_shapes
+    base = _tiny_cfg()
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, rnn_layers=5, rnn_units=8))
+    state = init_train_state(cfg)
+    path = save_checkpoint(str(tmp_path / "ckpt"), 3, state, process_index=0)
+    params = t_ckpt.load_params(path, cfg)
+    want = _flatten(state["params"])
+    assert set(params) == set(want) and len(
+        [k for k in want if k.startswith("rnn/")]) >= 5 * 2 * 2
+    for k, v in want.items():
+        np.testing.assert_array_equal(params[k].numpy(), v)
+    for name in ("deepspeech_beam", "lm_fusion_960h"):
+        full = preset(name)
+        shapes = jax.eval_shape(lambda: init_train_state(full)["params"])
+        want_shapes = {
+            "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                     for p in kp): tuple(leaf.shape)
+            for kp, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+        assert {k: tuple(s) for k, s in init_shapes(
+            full.model, full.features.feature_dim).items()} == want_shapes
+        assert any(s[-1] == 3200 for s in want_shapes.values())
+
+
+@pytest.fixture(scope="module")
+def lms(corpus, tmp_path_factory):
+    """A char LM (order 3) and a word LM (order 2) trained by the port's
+    CLI from the corpus's manifest."""
+    from ctc_asr_tpu_torch import cli
+    cfg, _, _ = corpus
+    d = tmp_path_factory.mktemp("lms")
+    char_lm, word_lm = str(d / "char.npz"), str(d / "word.pkl")
+    assert cli.main(["train-lm", "--manifest", cfg.data.eval_manifest,
+                     "--out", char_lm, "--order", "3"]) == 0
+    assert cli.main(["train-lm", "--manifest", cfg.data.eval_manifest,
+                     "--out", word_lm, "--order", "2", "--words"]) == 0
+    return char_lm, word_lm
+
+
+def _hyps(capsys):
+    return [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("[eval] hyp:")]
+
+
+@pytest.mark.parametrize("mode", ["beam", "fusion", "rescoring",
+                                  "kernel_flag"])
+def test_beam_slice_matches_reference(corpus, lms, capsys, mode):
+    """The decode slice as a whole, conv + 2 x BiLSTM, through both
+    packages' ``evaluate``: identical transcripts, per-utterance error
+    counts and WER. The reference runs its XLA beam search on the CPU
+    whatever ``decode.use_pallas`` says; the port's flag picks the
+    wrapper, which on a CPU tensor is the plain version too."""
+    from ctc_asr_tpu.evaluate import evaluate as j_evaluate
+    from ctc_asr_tpu.transcribe import Transcriber as JTranscriber
+    from ctc_asr_tpu_torch.evaluate import evaluate
+    from ctc_asr_tpu_torch.transcribe import Transcriber
+    cfg, jparams, path = corpus
+    char_lm, word_lm = lms
+    decode = dict(method="beam", beam_width=8, nbest=4, use_pallas=False)
+    if mode != "beam":
+        decode.update(lm_path=char_lm, lm_weight=0.8, word_bonus=1.0)
+    if mode == "rescoring":
+        decode.update(word_lm_path=word_lm, rescore_alpha=0.9,
+                      rescore_beta=0.2)
+    if mode == "kernel_flag":
+        decode.update(use_pallas=True)
+    cfg = dataclasses.replace(cfg, decode=dataclasses.replace(
+        cfg.decode, **decode))
+    params = t_ckpt.load_params(path, cfg)
+    want = j_evaluate(cfg, jparams, log_samples=10)
+    want_hyps = _hyps(capsys)
+    got = evaluate(cfg, params, "cpu", log_samples=10)
+    got_hyps = _hyps(capsys)
+    assert got_hyps == want_hyps and len(got_hyps) == got["utterances"] >= 3
+    assert got["per_utt"] == want["per_utt"]
+    assert got["wer"] == want["wer"] and got["cer"] == want["cer"]
+    from ctc_asr_tpu.data import read_manifest
+    jtr, ttr = JTranscriber(cfg, jparams), Transcriber(cfg, params, "cpu")
+    for utt in read_manifest(cfg.data.eval_manifest)[:2]:
+        assert ttr.transcribe_file(utt.path) == jtr.transcribe_file(utt.path)
+
+
+def test_cli_compare_and_prepare_synth(tmp_path, capsys):
+    from ctc_asr_tpu_torch import cli
+    from ctc_asr_tpu_torch.data import read_manifest
+    assert cli.main(["prepare-synth", "--out", str(tmp_path / "s"), "--n",
+                     "3", "--seed", "5"]) == 0
+    manifest = capsys.readouterr().out.strip()
+    want = generate_corpus(str(tmp_path / "ref"), num_utterances=3, seed=5)
+    assert [u.transcript for u in read_manifest(manifest)] == \
+        [u.transcript for u in read_manifest(want)]
+    a = [(1, 4, 2, 20), (0, 3, 0, 15), (2, 5, 4, 22)] * 4
+    b = [(0, 4, 0, 20), (0, 3, 0, 15), (1, 5, 1, 22)] * 4
+    for name, recs in (("a.json", a), ("b.json", b)):
+        (tmp_path / name).write_text(json.dumps({"per_utt": recs}))
+    assert cli.main(["compare", str(tmp_path / "a.json"),
+                     str(tmp_path / "b.json"), "--resamples", "200"]) == 0
+    out = capsys.readouterr().out
+    assert json.loads(out[:out.index("\n#")])["wer_delta"] > 0
+    assert "# B better" in out
 
 
 def test_import_leaves_jax_out():
@@ -138,6 +252,7 @@ def test_import_leaves_jax_out():
             "ctc_asr_tpu_torch.evaluate, ctc_asr_tpu_torch.transcribe, "
             "ctc_asr_tpu_torch.ops.stft_cuda, ctc_asr_tpu_torch.ops.lstm_cuda,"
             "ctc_asr_tpu_torch.ops.ctc_cuda, ctc_asr_tpu_torch.train, "
+            "ctc_asr_tpu_torch.ops.beam_cuda, ctc_asr_tpu_torch.ops.lm, "
             "ctc_asr_tpu_torch.optim, ctc_asr_tpu_torch.checkpoint;"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
