@@ -56,7 +56,24 @@ Phases (any failure exits non-zero; no phase is skipped):
    model, held as in phase 4, and its logits through K8 and the plain
    beam search, which must agree.
    Prints the steady-state RTF per mode and the B=1 latencies.
-7. Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+7. GRU family: K4 (GRU forward, inference and residual mode) and K5
+   (GRU BPTT) against their plain versions at nd=2, B=128, T=399, H=512
+   with ragged lengths, one length-1 and one empty row, K4 also at
+   H=800 (B=16, T=175), beside their bounds and cuDNN ``nn.GRU``. Then
+   the GRU slice at full width: ``cli train --preset conv_bilstm3
+   --model.rnn_type=gru`` (20 steps to a checkpoint, resumed to 40: K1,
+   K4, K5, K6, K7 launch, K2 and K3 do not), ``cli evaluate`` and ``cli
+   transcribe`` on its checkpoint, the kernel path against the plain
+   path on every eval batch, and the B=128 x 8 s step held and timed as
+   in phase 5. A short ``cli train --model.rnn_type=rnn`` runs the
+   vanilla cell's plain recurrence on the card (it has no kernel in
+   either package).
+8. Data tools on the GRU model: ``cli compute-stats``, ``cli
+   prepare-features`` (f16 and int8), ``cli train`` and ``cli evaluate``
+   with ``--data.feature_cache`` (K1 must not launch, K4 must; WER from
+   the f16 cache against WER from wavs), and ``--train.profile_dir``
+   (the trace must name the GRU kernel).
+9. Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -83,6 +100,12 @@ STFT_TOL = 2e-3    # f32 log-mel / MFCC, max abs
 # shows as that ulp; allow two.
 LSTM_TOL = 8e-3
 ARGMAX_AGREEMENT = 0.995
+# The GRU model on random weights: its logits have std ~0.05 like the
+# LSTM's, and measured agreement is 0.9954, at the limit above, where the
+# cuDNN convs' choice of algorithm could tip it. The limit above holds
+# for the checkpoint the GRU slice trains; the random weights get this
+# floor, and their agreement is printed.
+ARGMAX_AGREEMENT_RANDOM_GRU = 0.99
 # CTC (f32 log space): the NLL relative, the gradient -exp(α+β-logP) in
 # [-1, 0] absolute. Kernel and plain version do the same operations per
 # state; only expf/logf's last bits and sum order differ, and α+β-logP
@@ -104,6 +127,10 @@ BPTT_RTOL = 2e-2
 STEP_LOSS_RTOL = 1e-3
 STEP_GNORM_RTOL = 2e-2
 STEP_MIN_COSINE = 0.999
+# WER from the f16 feature cache against WER from wavs on one checkpoint:
+# the cache rounds the normalized features to f16 (2**-11 relative), which
+# moves a logit by ~1e-3; a frame whose top-2 margin is smaller may flip.
+CACHE_WER_TOL = 0.02
 # Beam search, kernel against plain version on the same logits: ids and
 # lengths identical for every row whose two best final scores differ by
 # more than BEAM_TIE (a closer pair may swap on the last bit of an
@@ -256,16 +283,19 @@ def _lstm_inputs(nd, T, B, H, lens, seed):
     return [t.cuda().contiguous() for t in (xproj, b, wh, start, end)]
 
 
-def _cudnn_lstm_ms(T, B, H):
-    """The nearest PyTorch call to K2 / K3: ``torch.nn.LSTM`` (cuDNN) in
-    bf16, bidirectional, [T, B, 2H] -> [T, B, 2H], full-length rows.
-    Unlike the kernels it includes the input projection. Returns
-    (inference forward ms, backward ms = train forward + backward minus
-    train forward). Timed here only; the port never calls it."""
+def _cudnn_rnn_ms(cell: str, T, B, H):
+    """The nearest PyTorch call to K2 / K3 (``cell="LSTM"``) or K4 / K5
+    (``"GRU"``): ``torch.nn.LSTM`` / ``torch.nn.GRU`` (cuDNN) in bf16,
+    bidirectional, [T, B, 2H] -> [T, B, 2H], full-length rows. ``nn.GRU``
+    has the kernels' gate order (r, z, n) and reset-after-product form
+    ``n = tanh(x_n + r * (h @ w_n))``. Unlike the kernels the call
+    includes the input projection. Returns (inference forward ms,
+    backward ms = train forward + backward minus train forward). Timed
+    here only; the port never calls it."""
     import torch
     torch.manual_seed(0)
-    net = torch.nn.LSTM(2 * H, H, bidirectional=True, device="cuda",
-                        dtype=torch.bfloat16)
+    net = getattr(torch.nn, cell)(2 * H, H, bidirectional=True,
+                                  device="cuda", dtype=torch.bfloat16)
     x = torch.randn(T, B, 2 * H, device="cuda", dtype=torch.bfloat16)
     g = torch.randn(T, B, 2 * H, device="cuda", dtype=torch.bfloat16)
 
@@ -335,7 +365,7 @@ def phase_lstm() -> dict:
         res["max_abs_err"] = max(res["max_abs_err"], err)
         if key is None:
             continue
-        lib_fwd, lib_bwd = _cudnn_lstm_ms(T, B, H)
+        lib_fwd, lib_bwd = _cudnn_rnn_ms("LSTM", T, B, H)
         b2, b3 = _lstm_bounds(nd, T, B, H)
         log(f"[K2 lstm] {label}: bound {b2['bound_ms']:.4f} ms by "
             f"{b2['bound_by']}, chain of {T} steps; cuDNN nn.LSTM bf16 "
@@ -509,6 +539,151 @@ def phase_lstm_train() -> dict:
                          "ms": bwd_ms, "plain_ms": bwd_plain}}
 
 
+def _gru_inputs(nd, T, B, H, lens, seed):
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    G = 3 * H
+    xproj = (0.5 * torch.randn(nd, T, B, G, generator=g)).to(torch.bfloat16)
+    b = 0.1 * torch.randn(nd, G, generator=g)
+    lim = (6.0 / (H + G)) ** 0.5
+    wh = ((torch.rand(nd, H, G, generator=g) * 2 - 1) * lim).to(torch.bfloat16)
+    lens = torch.as_tensor(lens, dtype=torch.int32)
+    start = torch.stack([torch.zeros_like(lens), T - lens])[:nd]
+    end = torch.stack([lens, torch.full_like(lens, T)])[:nd]
+    return [t.cuda().contiguous() for t in (xproj, b, wh, start, end)]
+
+
+def _gru_bounds(nd, T, B, H):
+    """K4: xproj read (3 cells), h written, wh and the bias read once;
+    with residuals the (r, z, n, hn) gates are written too; 2*B*H*3H
+    FLOPs a step and direction on the tensor cores. K5: g_out, gates and
+    h read, dxproj written; the same FLOPs for dhproj @ wh^T. The dhproj
+    scratch is neither input nor output and is not counted."""
+    flops = 2.0 * nd * T * B * H * 3 * H
+    cell = 2 * nd * T * B * H                       # bytes of one bf16 [.., H]
+    wh = 2 * nd * H * 3 * H + 4 * nd * 3 * H
+    return (bound(3 * cell + cell + wh, flops, PEAK_BF16),
+            bound(3 * cell + cell + 4 * cell + wh, flops, PEAK_BF16),
+            bound(cell + 4 * cell + cell + 3 * cell + wh, flops, PEAK_BF16))
+
+
+def _gate_err(got, want):
+    """(r, z, n) lie in [-1, 1]; hn = h @ wh_n does not, and a bf16 ulp
+    grows with it, so the error is taken relative to max(1, |want|)."""
+    return ((got.float() - want).abs()
+            / want.abs().clamp_min(1.0)).max().item()
+
+
+def phase_gru() -> dict:
+    """K4 and K5 against their plain versions at the GRU train step's
+    shape, and K4 at the ds3 width."""
+    import torch
+    from ctc_asr_tpu_torch.ops import gru_cuda
+    from ctc_asr_tpu_torch.ops.lstm_cuda import dwh_from_seq
+    nd, T, B, H = 2, 399, 128, 512
+    rng = np.random.default_rng(13)
+    # full, length-1 and empty rows among ragged ones
+    lens = np.concatenate([[T, 1, 0], rng.integers(200, T + 1, B - 3)])
+    args = _gru_inputs(nd, T, B, H, lens, seed=14)
+    xproj, b, wh, start, end = args
+    g = torch.Generator().manual_seed(15)
+    gout = (0.1 * torch.randn(nd, T, B, H, generator=g)).to(
+        torch.bfloat16).cuda()
+    h_inf = gru_cuda.gru_seq(*args)
+    h, gates = gru_cuda.gru_fwd(*args, residuals=True)
+    dx, db = gru_cuda.gru_bwd(gout, gates, h, wh, start, end)
+    H2 = 2 * H
+    dhproj = torch.cat([dx[..., :H2], dx[..., H2:] * gates[..., :H]], -1)
+    dwh = dwh_from_seq(h, dhproj)
+    ph, pg = gru_cuda.gru_fwd_plain(*args)
+    # K5 and its plain version on the same inputs: the kernel's residuals
+    pdx, pdb = gru_cuda.gru_bwd_plain(gout, gates, h, wh, start, end)
+    pdxb = pdx.to(torch.bfloat16)
+    pdwh = dwh_from_seq(h, torch.cat(
+        [pdxb[..., :H2], pdxb[..., H2:] * gates[..., :H]], -1))
+    torch.cuda.synchronize()
+    t = torch.arange(T, device=h.device)[None, :, None]
+    outside = (t < start[:, None, :]) | (t >= end[:, None, :])
+    zero_ok = bool((h.float().abs().amax(-1)[outside] == 0).all()
+                   and (dx.float().abs().amax(-1)[outside] == 0).all())
+    errs = {"h": (h.float() - ph).abs().max().item(),
+            "gates": _gate_err(gates, pg)}
+    rel = {
+        "dxproj": ((dx.float() - pdx).abs().max() / pdx.abs().max()).item(),
+        "db": ((db - pdb).abs().max() / pdb.abs().max()).item(),
+        "dwh": ((dwh.float() - pdwh.float()).abs().max()
+                / pdwh.float().abs().max()).item(),
+    }
+    log(f"[K4+K5 gru] nd=2 B=128 T=399 H=512 (rows of length 399, 1, 0 and "
+        f"ragged): max abs err h / gates (r,z,n,hn) {errs} (tol {LSTM_TOL}); "
+        f"relative to the largest: {rel} (tol {BPTT_RTOL}); zero outside "
+        f"the windows={zero_ok}; inference h equals residual-mode h="
+        f"{torch.equal(h_inf, h)}")
+    if max(errs.values()) > LSTM_TOL or max(rel.values()) > BPTT_RTOL \
+            or not zero_ok or not torch.equal(h_inf, h) \
+            or not torch.isfinite(dx.float()).all():
+        raise AssertionError(f"K4 / K5: {errs} {rel} zero_ok {zero_ok}")
+
+    fwd_ms = cuda_ms(lambda: gru_cuda.gru_seq(*args), reps=10)
+    res_ms = cuda_ms(lambda: gru_cuda.gru_fwd(*args, residuals=True), reps=10)
+    fwd_plain = cuda_ms(lambda: gru_cuda.gru_fwd_plain(*args), reps=3,
+                        warmup=1)
+    bwd_ms = cuda_ms(lambda: gru_cuda.gru_bwd(gout, gates, h, wh, start,
+                                              end), reps=10)
+    bwd_plain = cuda_ms(lambda: gru_cuda.gru_bwd_plain(
+        gout, gates, h, wh, start, end), reps=3, warmup=1)
+    lib_fwd, lib_bwd = _cudnn_rnn_ms("GRU", T, B, H)
+    b4, b4r, b5 = _gru_bounds(nd, T, B, H)
+    log(f"[K4 gru] kernel {fwd_ms:.4f} ms, with residuals {res_ms:.4f} ms, "
+        f"plain {fwd_plain:.4f} ms; bound {b4['bound_ms']:.4f} ms by "
+        f"{b4['bound_by']} (with residuals {b4r['bound_ms']:.4f} ms by "
+        f"{b4r['bound_by']}), chain of {T} steps; cuDNN nn.GRU bf16 (with "
+        f"its input projection) forward {lib_fwd:.4f} ms")
+    log(f"[K5 gru bptt] kernel {bwd_ms:.4f} ms plain {bwd_plain:.4f} ms; "
+        f"bound {b5['bound_ms']:.4f} ms by {b5['bound_by']}, chain of {T} "
+        f"steps; cuDNN nn.GRU backward {lib_bwd:.4f} ms")
+    res = {"gru_fwd": {"max_abs_err": max(errs.values()), "ms": fwd_ms,
+                       "plain_ms": fwd_plain, "library_ms": lib_fwd, **b4,
+                       "residual_ms": res_ms,
+                       "residual_bound_ms": b4r["bound_ms"],
+                       "residual_bound_by": b4r["bound_by"]},
+           "gru_bwd": {"max_abs_err": (dx.float() - pdx).abs().max().item(),
+                       "max_rel_err": max(rel.values()), "ms": bwd_ms,
+                       "plain_ms": bwd_plain, "library_ms": lib_bwd, **b5}}
+
+    # the ds3 width: H = 3 * 256 + 32 (a ragged last K chunk in K4, and
+    # 3H = 9 * 256 + 96 in K5), at the decode slice's batch
+    nd, T, B, H = 2, 175, 16, 800
+    lens = np.concatenate([[T, 1, 0], rng.integers(60, T + 1, B - 3)])
+    args = _gru_inputs(nd, T, B, H, lens, seed=16)
+    gout = (0.1 * torch.randn(nd, T, B, H, generator=g)).to(
+        torch.bfloat16).cuda()
+    h, gates = gru_cuda.gru_fwd(*args, residuals=True)
+    ph, pg = gru_cuda.gru_fwd_plain(*args)
+    dx, db = gru_cuda.gru_bwd(gout, gates, h, args[2], *args[3:])
+    pdx, pdb = gru_cuda.gru_bwd_plain(gout, gates, h, args[2], *args[3:])
+    torch.cuda.synchronize()
+    e_h, e_g = (h.float() - ph).abs().max().item(), _gate_err(gates, pg)
+    e_dx = ((dx.float() - pdx).abs().max() / pdx.abs().max()).item()
+    e_db = ((db - pdb).abs().max() / pdb.abs().max()).item()
+    ms = cuda_ms(lambda: gru_cuda.gru_seq(*args), reps=10)
+    plain_ms = cuda_ms(lambda: gru_cuda.gru_seq_plain(*args), reps=3,
+                       warmup=1)
+    bwd_800 = cuda_ms(lambda: gru_cuda.gru_bwd(gout, gates, h, args[2],
+                                               *args[3:]), reps=10)
+    log(f"[K4+K5 gru] nd=2 B=16 T=175 H=800: max abs err h {e_h:.3e} gates "
+        f"{e_g:.3e} (tol {LSTM_TOL}), dxproj {e_dx:.3e} db {e_db:.3e} "
+        f"relative (tol {BPTT_RTOL}); K4 kernel {ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms; K5 kernel {bwd_800:.4f} ms")
+    if max(e_h, e_g) > LSTM_TOL or max(e_dx, e_db) > BPTT_RTOL:
+        raise AssertionError(f"K4 / K5 at H=800: {e_h} {e_g} {e_dx} {e_db}")
+    res["gru_fwd"].update(ms_h800=ms, plain_ms_h800=plain_ms)
+    res["gru_bwd"].update(ms_h800=bwd_800)
+    res["gru_fwd"]["max_abs_err"] = max(res["gru_fwd"]["max_abs_err"], e_h,
+                                        e_g)
+    return res
+
+
 def beam_agreement(got, want) -> dict:
     """K8's N-best output against the plain version's on the same
     logits. Raises unless the live entries' scores agree within
@@ -639,7 +814,7 @@ def phase_beam() -> dict:
 
 
 def random_checkpoint(cfg, path: str, seed: int = 0) -> None:
-    """Glorot-uniform weights, zero biases with LSTM forget bias 1, in
+    """Glorot-uniform weights, zero biases (an LSTM's forget bias 1), in
     the reference checkpoint's keypath format."""
     from ctc_asr_tpu_torch.models import init_shapes
     rng = np.random.default_rng(seed)
@@ -648,7 +823,7 @@ def random_checkpoint(cfg, path: str, seed: int = 0) -> None:
     for k, shape in init_shapes(cfg.model, cfg.features.feature_dim).items():
         if k.endswith("/b"):
             v = np.zeros(shape, np.float32)
-            if k.startswith("rnn/"):
+            if k.startswith("rnn/") and cfg.model.rnn_type == "lstm":
                 v[H:2 * H] = 1.0
         else:
             fan_in, fan_out = shape[-2], shape[-1]
@@ -672,11 +847,12 @@ def run_cli(argv) -> str:
     return out
 
 
-def paths_agreement(tag: str, cfg, params, manifest: str) -> None:
-    """Every eval batch of ``manifest`` through the kernel path (K1, K2)
-    and the plain path of ``cfg``'s model on the same weights. Raises
-    unless the logits are finite, of the expected shape and lengths, and
-    the per-frame argmax agrees on ARGMAX_AGREEMENT of the valid frames,
+def paths_agreement(tag: str, cfg, params, manifest: str,
+                    limit: float = ARGMAX_AGREEMENT) -> None:
+    """Every eval batch of ``manifest`` through the kernel path (K1 and
+    K2, or K4 for a GRU model) and the plain path of ``cfg``'s model on
+    the same weights. Raises unless the logits are finite, of the expected shape and lengths, and
+    the per-frame argmax agrees on ``limit`` of the valid frames,
     pooled over the batches (random weights give logits of std ~0.05,
     so a few per mille of the frames have top-2 margins under 1e-3,
     where bf16 rounding decides the argmax)."""
@@ -722,10 +898,9 @@ def paths_agreement(tag: str, cfg, params, manifest: str) -> None:
     log(f"[{tag}] kernel vs plain path over {n_utts} utterances / "
         f"{n_frames} frames of {tuple(lk.shape[1:])} logits: max logit "
         f"err={err:.3e} argmax agreement={agree:.6f} (limit "
-        f"{ARGMAX_AGREEMENT}) identical transcripts={same}/{n_utts}")
-    if agree < ARGMAX_AGREEMENT:
-        raise AssertionError(f"{tag}: argmax agreement {agree} < "
-                             f"{ARGMAX_AGREEMENT}")
+        f"{limit}) identical transcripts={same}/{n_utts}")
+    if agree < limit:
+        raise AssertionError(f"{tag}: argmax agreement {agree} < {limit}")
 
 
 def phase_slice(tmp: str) -> dict:
@@ -774,10 +949,34 @@ def phase_slice(tmp: str) -> dict:
 
 
 def _train_counters():
-    from ctc_asr_tpu_torch.ops import ctc_cuda, lstm_cuda, stft_cuda
+    from ctc_asr_tpu_torch.ops import (ctc_cuda, gru_cuda, lstm_cuda,
+                                       stft_cuda)
     return {"stft": stft_cuda.stft_features, "lstm_fwd": lstm_cuda.lstm_fwd,
-            "lstm_bwd": lstm_cuda.lstm_bwd, "ctc_alpha": ctc_cuda.ctc_alpha,
+            "lstm_bwd": lstm_cuda.lstm_bwd, "gru_fwd": gru_cuda.gru_fwd,
+            "gru_bwd": gru_cuda.gru_bwd, "ctc_alpha": ctc_cuda.ctc_alpha,
             "ctc_beta_grad": ctc_cuda.ctc_beta_grad}
+
+
+def _count_launches(run, expect_none=()):
+    """Set every train-path counter to 0, call ``run()``, and return
+    (its result, the counts). Raises if a kernel named in ``expect_none``
+    launched, or any other did not."""
+    counters = _train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = run()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    idle = [k for k in launches if k not in expect_none and launches[k] <= 0]
+    stray = [k for k in expect_none if launches[k] > 0]
+    if idle or stray:
+        raise AssertionError(f"kernels of the path that never launched: "
+                             f"{idle}; kernels off the path that did: "
+                             f"{stray}; counts {launches}")
+    return out, launches
+
+
+_LSTM_KERNELS = ("lstm_fwd", "lstm_bwd")
+_GRU_KERNELS = ("gru_fwd", "gru_bwd")
 
 
 def _read_metrics(train_dir: str) -> dict:
@@ -786,19 +985,23 @@ def _read_metrics(train_dir: str) -> dict:
     return {r["step"]: r for r in recs if "loss" in r}
 
 
-def phase_train(tmp: str, manifest: str) -> dict:
-    """``cli train`` on the card: to a checkpoint at step 20, then
-    resumed to step 40."""
+def phase_train(tmp: str, manifest: str, rnn_type: str = "lstm") -> dict:
+    """``cli train`` on the card at full ``conv_bilstm3`` width with the
+    given cell: to a checkpoint at step 20, then resumed to step 40, then
+    ``cli evaluate`` on the result. The other cell's kernels must not
+    launch."""
     from ctc_asr_tpu_torch.config import apply_overrides, preset
     from ctc_asr_tpu_torch import checkpoint as ckpt_mod
     from ctc_asr_tpu_torch import train as train_mod
-    train_dir = os.path.join(tmp, "train")
+    tag = "train" if rnn_type == "lstm" else f"{rnn_type} train"
+    train_dir = os.path.join(tmp, f"train_{rnn_type}")
     overrides = {"data.train_manifest": manifest,
                  "data.eval_manifest": manifest, "data.batch_size": "16",
                  "data.num_buckets": "1", "train.train_dir": train_dir,
                  "train.learning_rate": "3e-4", "train.log_every": "1",
                  "train.sync_every": "4", "train.checkpoint_every": "20",
-                 "train.eval_every": "0", "train.total_steps": "40"}
+                 "train.eval_every": "0", "train.total_steps": "40",
+                 "model.rnn_type": rnn_type}
     cfg = apply_overrides(preset("conv_bilstm3"), overrides)
     # a random full-width train state, written in the reference's format
     state = train_mod.init_train_state(cfg, "cuda")
@@ -806,30 +1009,31 @@ def phase_train(tmp: str, manifest: str) -> dict:
                              train_mod.state_to_flat(cfg, state))
     args = ["train", "--preset", "conv_bilstm3", "--device=cuda"] \
         + [f"--{k}={v}" for k, v in overrides.items()]
-    counters = _train_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    run_cli(args + ["--max-steps=20"])
-    t_half = time.perf_counter() - t0
-    out = run_cli(args)
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    log(f"[train] kernel launches during cli train (40 steps): {launches}")
+    times = {}
+
+    def run():
+        t0 = time.perf_counter()
+        run_cli(args + ["--max-steps=20"])
+        times["half"] = time.perf_counter() - t0
+        out = run_cli(args)
+        times["wall"] = time.perf_counter() - t0
+        return out
+
+    out, launches = _count_launches(
+        run, _GRU_KERNELS if rnn_type == "lstm" else _LSTM_KERNELS)
+    log(f"[{tag}] kernel launches during cli train (40 steps): {launches}")
     if "resumed from step 20" not in out:
         raise AssertionError("the second cli train did not resume at 20")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the train path never launched: "
-                             f"{launches}")
     recs = _read_metrics(train_dir)
     if sorted(recs) != list(range(1, 41)):
         raise AssertionError(f"metrics for steps {sorted(recs)}")
     loss = [recs[k]["loss"] for k in range(1, 41)]
     gn = [recs[k]["grad_norm"] for k in range(1, 41)]
     first, last = np.mean(loss[:5]), np.mean(loss[-5:])
-    log(f"[train] loss steps 1-5 mean {first:.4f}, 36-40 mean {last:.4f}; "
-        f"grad_norm {min(gn):.4f}..{max(gn):.4f}; wall {wall:.1f} s "
-        f"(first 20 steps incl. first calls {t_half:.1f} s); step time "
+    log(f"[{tag}] loss steps 1-5 mean {first:.4f}, 36-40 mean {last:.4f}; "
+        f"grad_norm {min(gn):.4f}..{max(gn):.4f}; wall {times['wall']:.1f} s "
+        f"(first 20 steps incl. first calls {times['half']:.1f} s); step "
+        f"time "
         f"{np.median([recs[k]['step_time_s'] for k in range(25, 41)]):.4f}"
         f" s (median, steps 25-40)")
     if not (np.all(np.isfinite(loss)) and np.all(np.isfinite(gn))
@@ -838,11 +1042,119 @@ def phase_train(tmp: str, manifest: str) -> dict:
     ev = run_cli(["evaluate", "--preset", "conv_bilstm3", "--ckpt",
                   train_dir, "--device=cuda"]
                  + [f"--{k}={v}" for k, v in overrides.items()])
-    res = json.loads(ev[ev.index("\n{") + 1:])
-    log(f"[train] evaluate on the step-40 checkpoint: wer={res['wer']:.4f} "
+    res = _eval_json(ev)
+    log(f"[{tag}] evaluate on the step-40 checkpoint: wer={res['wer']:.4f} "
         f"cer={res['cer']:.4f} over {res['utterances']} utterances")
     return {"launches": launches, "loss_first": first, "loss_last": last,
-            "train_dir": train_dir}
+            "train_dir": train_dir, "wer": res["wer"], "cfg": cfg}
+
+
+def phase_gru_slice(tmp: str, manifest: str) -> dict:
+    """The GRU family end to end on the card: training with resume and
+    evaluation (``phase_train``), ``cli transcribe``, the kernel path
+    against the plain path on the random and the trained weights, and a
+    short run of the vanilla cell."""
+    from ctc_asr_tpu_torch.checkpoint import load_params
+    from ctc_asr_tpu_torch.data import read_manifest
+    from ctc_asr_tpu_torch.ops import gru_cuda
+    tr = phase_train(tmp, manifest, "gru")
+    cfg, train_dir = tr["cfg"], tr["train_dir"]
+    wavs = [u.path for u in read_manifest(manifest)][:2]
+    n0 = gru_cuda.gru_fwd.launches
+    out = run_cli(["transcribe", "--preset", "conv_bilstm3",
+                   "--model.rnn_type=gru", "--ckpt", train_dir,
+                   "--device=cuda", *wavs])
+    if len([ln for ln in out.splitlines() if "\t" in ln]) != len(wavs) \
+            or gru_cuda.gru_fwd.launches <= n0:
+        raise AssertionError("cli transcribe on the GRU checkpoint failed")
+    paths_agreement("gru slice, random weights", cfg, load_params(
+        os.path.join(train_dir, "ckpt", "step_00000000.npz"), cfg, "cuda"),
+        manifest, limit=ARGMAX_AGREEMENT_RANDOM_GRU)
+    paths_agreement("gru slice, step 40", cfg,
+                    load_params(train_dir, cfg, "cuda"), manifest)
+
+    # the vanilla tanh cell: plain recurrence on the card, no kernel
+    rnn_dir = os.path.join(tmp, "train_rnn")
+    _, launches = _count_launches(lambda: run_cli(
+        ["train", "--preset", "conv_bilstm3", "--device=cuda",
+         "--model.rnn_type=rnn", "--model.rnn_layers=1",
+         f"--data.train_manifest={manifest}", "--data.batch_size=16",
+         "--data.num_buckets=1", f"--train.train_dir={rnn_dir}",
+         "--train.learning_rate=3e-4", "--train.log_every=1",
+         "--max-steps=5"]), _LSTM_KERNELS + _GRU_KERNELS)
+    loss = [r["loss"] for r in _read_metrics(rnn_dir).values()]
+    log(f"[rnn train] vanilla cell, 1 layer of Bi-RNN-512, 5 steps at B=16: "
+        f"loss {loss[0]:.4f} -> {loss[-1]:.4f}; launches {launches}")
+    if len(loss) != 5 or not np.all(np.isfinite(loss)):
+        raise AssertionError(f"vanilla cell: loss {loss}")
+    return tr
+
+
+def phase_datatools(tmp: str, manifest: str, gru: dict) -> dict:
+    """``compute-stats``, ``prepare-features`` (f16 and int8), then ``cli
+    train`` and ``cli evaluate`` of the GRU model from the cache, and a
+    traced run with ``train.profile_dir``."""
+    cfg, train_dir = gru["cfg"], gru["train_dir"]
+    common = ["--preset", "conv_bilstm3", "--device=cuda"]
+    data = ["--data.batch_size=16", "--data.num_buckets=1"]
+    stats = os.path.join(tmp, "stats.npz")
+    t0 = time.perf_counter()
+    run_cli(["compute-stats", *common, *data, "--manifest", manifest,
+             "--out", stats])
+    with np.load(stats) as z:
+        frames, mean, var = float(z["frames"]), z["mean"], z["var"]
+    if not (frames > 0 and mean.shape == (cfg.features.feature_dim,)
+            and np.all(np.isfinite(mean)) and np.all(var > 0)):
+        raise AssertionError(f"compute-stats: frames {frames}")
+    caches = {}
+    for dtype in ("float16", "int8"):
+        caches[dtype] = os.path.join(tmp, f"cache_{dtype}")
+        run_cli(["prepare-features", *common, *data, "--manifest", manifest,
+                 "--out", caches[dtype], "--dtype", dtype])
+    log(f"[datatools] compute-stats over {int(frames)} frames and two "
+        f"caches in {time.perf_counter() - t0:.1f} s")
+
+    gru_flags = ["--model.rnn_type=gru", f"--data.eval_manifest={manifest}",
+                 *data]
+    cached_dir = os.path.join(tmp, "train_gru_cached")
+    prof_dir = os.path.join(tmp, "profile")
+    off_path = ("stft",) + _LSTM_KERNELS
+
+    def train_and_evaluate():
+        run_cli(["train", *common, *gru_flags,
+                 f"--data.train_manifest={manifest}",
+                 f"--data.feature_cache={caches['float16']}",
+                 f"--train.train_dir={cached_dir}",
+                 f"--train.profile_dir={prof_dir}",
+                 "--train.learning_rate=3e-4", "--train.log_every=1",
+                 "--max-steps=6"])
+        return {dtype: _eval_json(run_cli(
+            ["evaluate", *common, *gru_flags, "--ckpt", train_dir,
+             f"--data.feature_cache={path}"]))
+            for dtype, path in caches.items()}
+
+    ev, launches = _count_launches(train_and_evaluate, off_path)
+    loss = [r["loss"] for r in _read_metrics(cached_dir).values()]
+    traces = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        trace = f.read()
+    log(f"[datatools] cli train (6 steps) + evaluate from the caches: "
+        f"launches {launches}; loss {loss[0]:.4f} -> {loss[-1]:.4f}; trace "
+        f"{traces[0]} of {len(trace) / 1e6:.1f} MB")
+    if len(loss) != 6 or not np.all(np.isfinite(loss)):
+        raise AssertionError(f"training from the cache: loss {loss}")
+    if len(traces) != 1 or "gru_step_kernel" not in trace \
+            or "gru_bwd_step_kernel" not in trace:
+        raise AssertionError("train.profile_dir: no trace of the GRU kernels")
+    d16 = abs(ev["float16"]["wer"] - gru["wer"])
+    log(f"[datatools] step-40 GRU checkpoint: WER from wavs "
+        f"{gru['wer']:.4f}, from the f16 cache {ev['float16']['wer']:.4f} "
+        f"(difference {d16:.4f}, limit {CACHE_WER_TOL}), from the int8 "
+        f"cache {ev['int8']['wer']:.4f}; rtf f16 "
+        f"{ev['float16']['rtf']:.6f} int8 {ev['int8']['rtf']:.6f}")
+    if d16 > CACHE_WER_TOL or not np.isfinite(ev["int8"]["wer"]):
+        raise AssertionError(f"WER from the cache: {ev}")
+    return {"launches": launches}
 
 
 def _eval_json(out: str) -> dict:
@@ -1021,6 +1333,8 @@ def _step_grads(cfg, params, arrs, mark=lambda: None):
 _KERNEL_GROUPS = (
     ("K3 lstm_bwd", ("lstm_bwd_step_kernel",)),
     ("K2 lstm_fwd", ("lstm_step_kernel",)),
+    ("K5 gru_bwd", ("gru_bwd_step_kernel",)),
+    ("K4 gru_fwd", ("gru_step_kernel",)),
     ("K1 stft", ("stft_mel_kernel",)),
     ("K6+K7 ctc", ("ctc_alpha_kernel", "ctc_beta_grad_kernel")),
     ("cuDNN convs", ("cudnn", "conv", "xmma", "Nhwc", "nhwc")),
@@ -1028,7 +1342,7 @@ _KERNEL_GROUPS = (
 )
 
 
-def _profile_step(cfg, arrs) -> dict:
+def _profile_step(cfg, arrs, tag: str = "profile") -> dict:
     """Where a kernel-path train step's time goes: CUDA events between
     its phases (median of 5 steps after one warm-up), then
     ``torch.profiler`` over 3 steps: device time per kernel group, and
@@ -1085,16 +1399,16 @@ def _profile_step(cfg, arrs) -> dict:
         busy_us += max(0.0, t - max(s, end))
         end = max(end, t)
     busy_ms = busy_us / 1e3 / reps
-    log(f"[profile] kernel-path step at B=128 x 8 s, CUDA events "
+    log(f"[{tag}] kernel-path step at B=128 x 8 s, CUDA events "
         f"(median of 5): {step_ms:.2f} ms; "
         + ", ".join(f"{n} {v:.2f}" for n, v in split.items())
         + f"; peak device memory {peak:.2f} GiB")
-    log(f"[profile] torch.profiler over {reps} steps: device busy "
+    log(f"[{tag}] torch.profiler over {reps} steps: device busy "
         f"{busy_ms:.2f} ms a step = {busy_ms / step_ms:.3f} of the "
         f"event-timed step")
     total = sum(ms for ms, _ in groups.values())
     for label, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        log(f"[profile]   {label}: {ms:.2f} ms a step, {n // reps} "
+        log(f"[{tag}]   {label}: {ms:.2f} ms a step, {n // reps} "
             f"launches a step, {ms / total:.3f} of kernel time")
     if not kernels:
         raise AssertionError("torch.profiler recorded no device kernel")
@@ -1102,18 +1416,20 @@ def _profile_step(cfg, arrs) -> dict:
             "groups": groups, "peak_gib": peak}
 
 
-def phase_step() -> dict:
-    """One step at B=128 x 8 s from one random state (dropout 0): the
-    kernel path's loss, gradient norm and per-leaf gradient cosines
-    against the plain path at f32 compute (and, for information, at
+def phase_step(rnn_type: str = "lstm") -> dict:
+    """One step at B=128 x 8 s from one random state (dropout 0) of the
+    ``conv_bilstm3`` model with the given cell: the kernel path's loss,
+    gradient norm and per-leaf gradient cosines against the plain path at f32 compute (and, for information, at
     bf16), and the step's time on the kernel and the bf16 plain path."""
     import torch
     from ctc_asr_tpu_torch.config import preset
     from ctc_asr_tpu_torch import train as train_mod
     from ctc_asr_tpu_torch.optim import global_norm
+    tag = "step" if rnn_type == "lstm" else f"{rnn_type} step"
     base = preset("conv_bilstm3")
     base = dataclasses.replace(
-        base, model=dataclasses.replace(base.model, dropout=0.0))
+        base, model=dataclasses.replace(base.model, dropout=0.0,
+                                        rnn_type=rnn_type))
     plain = dataclasses.replace(
         base, features=dataclasses.replace(base.features, use_pallas=False),
         model=dataclasses.replace(base.model, use_pallas_rnn=False),
@@ -1143,7 +1459,7 @@ def phase_step() -> dict:
             out[ref][1][k].flatten().double(), dim=0).item()
             for k in out[ref][1]}
         worst = min(cos, key=cos.get)
-        log(f"[step] B=128 x 8 s, U=96, kernel vs {ref}: loss "
+        log(f"[{tag}] B=128 x 8 s, U=96, kernel vs {ref}: loss "
             f"{out['kernel'][0]:.4f} vs {out[ref][0]:.4f} rel err "
             f"{loss_err:.3e}; grad_norm {out['kernel'][2]:.4f} vs "
             f"{out[ref][2]:.4f} rel err {gn_err:.3e}; min per-leaf cosine "
@@ -1166,16 +1482,17 @@ def phase_step() -> dict:
         times.setdefault(name, []).append(
             (time.perf_counter() - t0) / 2 * 1e3)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[step] limits against plain_f32: loss {STEP_LOSS_RTOL}, grad_norm "
+    log(f"[{tag}] limits against plain_f32: loss {STEP_LOSS_RTOL}, grad_norm "
         f"{STEP_GNORM_RTOL}, cosine >= {STEP_MIN_COSINE}")
-    log(f"[step] ms per step (kernel, plain, plain, kernel order): "
+    log(f"[{tag}] ms per step (kernel, plain, plain, kernel order): "
         f"kernel {times['kernel']} plain {times['plain']}; peak device "
         f"memory {peak:.2f} GiB")
     if not (loss_err <= STEP_LOSS_RTOL and gn_err <= STEP_GNORM_RTOL
             and min_cos >= STEP_MIN_COSINE):
         raise AssertionError(f"kernel vs plain step: loss {loss_err} "
                              f"gnorm {gn_err} cosine {min_cos}")
-    _profile_step(base, arrs)
+    _profile_step(base, arrs, "profile" if rnn_type == "lstm"
+                  else f"{rnn_type} profile")
     return {"kernel_ms": min(times["kernel"]),
             "plain_ms": min(times["plain"])}
 
@@ -1202,21 +1519,26 @@ def main() -> int:
     k67 = phase_ctc()
     k23 = phase_lstm_train()
     k8 = phase_beam()
+    k45 = phase_gru()
     with tempfile.TemporaryDirectory() as tmp:
         sl = phase_slice(tmp)
         tr = phase_train(tmp, sl["manifest"])
         dec = phase_decode(tmp, sl["manifest"], tr["train_dir"])
+        gru = phase_gru_slice(tmp, sl["manifest"])
+        phase_datatools(tmp, sl["manifest"], gru)
     step = phase_step()
-    tl, dl = tr["launches"], dec["launches"]
+    gru_step = phase_step("gru")
+    tl, dl, gl = tr["launches"], dec["launches"], gru["launches"]
     k3_yardsticks = k2.pop("bwd")
-    # launches: the train run's, the serving run's and the decode run's,
-    # each counted from 0 over its own run
+    # launches: the train run's (for K4/K5 the GRU train run's), the
+    # serving run's, the decode run's and the GRU train run's, each
+    # counted from 0 over its own run
     kernels = [
         {"name": "stft_mel", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/stft.cu",
          "replaces": "ctc_asr_tpu/ops/stft_pallas.py:102",
          "launches": tl["stft"], "serve_launches": sl["launches"]["stft"],
-         "decode_launches": dl["stft"], **k1},
+         "decode_launches": dl["stft"], "gru_launches": gl["stft"], **k1},
         {"name": "lstm_fwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/lstm_fwd.cu",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:199",
@@ -1228,21 +1550,33 @@ def main() -> int:
          "source": "ctc_asr_tpu_torch/csrc/lstm_bwd.cu",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:247",
          "launches": tl["lstm_bwd"], **k23["lstm_bwd"], **k3_yardsticks},
+        {"name": "gru_fwd", "route": "cuda",
+         "source": "ctc_asr_tpu_torch/csrc/gru_fwd.cu",
+         "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:474",
+         "launches": gl["gru_fwd"], **k45["gru_fwd"]},
+        {"name": "gru_bwd", "route": "cuda",
+         "source": "ctc_asr_tpu_torch/csrc/gru_bwd.cu",
+         "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:511",
+         "launches": gl["gru_bwd"], **k45["gru_bwd"]},
         {"name": "ctc_alpha", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/ctc.cu",
          "replaces": "ctc_asr_tpu/ops/ctc_pallas.py:97",
-         "launches": tl["ctc_alpha"], **k67["ctc_alpha"]},
+         "launches": tl["ctc_alpha"], "gru_launches": gl["ctc_alpha"],
+         **k67["ctc_alpha"]},
         {"name": "ctc_beta_grad", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/ctc.cu",
          "replaces": "ctc_asr_tpu/ops/ctc_pallas.py:149",
-         "launches": tl["ctc_beta_grad"], **k67["ctc_beta_grad"]},
+         "launches": tl["ctc_beta_grad"],
+         "gru_launches": gl["ctc_beta_grad"], **k67["ctc_beta_grad"]},
         {"name": "beam_search", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/beam.cu",
          "replaces": "ctc_asr_tpu/ops/beam_pallas.py:107",
          "launches": dl["beam"], **k8},
     ]
-    log(f"[step] train step ms at B=128 x 8 s: kernel path "
-        f"{step['kernel_ms']:.1f}, plain path {step['plain_ms']:.1f}")
+    log(f"[step] train step ms at B=128 x 8 s: LSTM kernel path "
+        f"{step['kernel_ms']:.1f}, plain path {step['plain_ms']:.1f}; GRU "
+        f"kernel path {gru_step['kernel_ms']:.1f}, plain path "
+        f"{gru_step['plain_ms']:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,19 @@
         [--order 4] [--words]
     python -m ctc_asr_tpu_torch.cli compare a.json b.json
     python -m ctc_asr_tpu_torch.cli prepare-synth --out DIR [--n 64]
+    python -m ctc_asr_tpu_torch.cli prepare-synth-hard --out DIR
+    python -m ctc_asr_tpu_torch.cli prepare-librispeech --root DIR --out DIR
+    python -m ctc_asr_tpu_torch.cli prepare-corpus \
+        {common-voice,tedlium,timit,tatoeba,merge} [--root DIR] --out OUT
+    python -m ctc_asr_tpu_torch.cli compute-stats --preset ... \
+        --manifest M.csv --out stats.npz [--device=cuda]
+    python -m ctc_asr_tpu_torch.cli prepare-features --preset ... \
+        --manifest M.csv --out DIR [--dtype float16|int8] [--device=cuda]
+
+``compute-stats`` writes the npz that ``--features.stats_path`` names
+(``--features.normalization=global``); ``prepare-features`` writes the
+feature cache that ``train`` / ``evaluate`` read with
+``--data.feature_cache=DIR``. Both files are the reference's formats.
 
 Beam decoding: ``--preset lm_fusion_960h --decode.lm_path=lm.npz`` fuses
 a char LM from ``train-lm`` into the beam; ``--decode.word_lm_path=w.pkl``
@@ -179,6 +192,88 @@ def cmd_prepare_synth(argv):
     return 0
 
 
+def cmd_prepare_synth_hard(argv):
+    p = argparse.ArgumentParser(
+        prog="prepare-synth-hard",
+        description="Discriminating synthetic corpus: speaker formant/"
+                    "speed perturbation, additive noise at SNR, tone "
+                    "babble, disjoint train/dev/test splits with "
+                    "held-out test speakers.")
+    p.add_argument("--out", required=True)
+    p.add_argument("--n-train", type=int, default=512)
+    p.add_argument("--n-dev", type=int, default=64)
+    p.add_argument("--n-test", type=int, default=96)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--vocab-size", type=int, default=384)
+    p.add_argument("--snr-low", type=float, default=5.0)
+    p.add_argument("--snr-high", type=float, default=20.0)
+    args = p.parse_args(argv)
+    from .data.synth import generate_hard_corpus
+    m = generate_hard_corpus(
+        args.out, n_train=args.n_train, n_dev=args.n_dev,
+        n_test=args.n_test, seed=args.seed, vocab_size=args.vocab_size,
+        snr_db=(args.snr_low, args.snr_high))
+    for k in ("train", "dev", "test"):
+        print(f"{k}\t{m[k]}")
+    return 0
+
+
+def cmd_prepare_librispeech(argv):
+    p = argparse.ArgumentParser(prog="prepare-librispeech")
+    p.add_argument("--root", required=True,
+                   help="extracted LibriSpeech root (contains e.g. "
+                        "train-clean-100/)")
+    p.add_argument("--out", required=True)
+    p.add_argument("--subsets", nargs="*", default=None)
+    p.add_argument("--no-convert", action="store_true",
+                   help="manifest points straight at the original "
+                        ".flac files (native decoder reads them in "
+                        "the loader; no wav copies on disk)")
+    args = p.parse_args(argv)
+    from .data.generate import prepare_librispeech
+    for path in prepare_librispeech(args.root, args.out, args.subsets,
+                                    convert=not args.no_convert):
+        print(path)
+    return 0
+
+
+def cmd_prepare_corpus(argv):
+    """Per-corpus dataset generation + merge."""
+    p = argparse.ArgumentParser(prog="prepare-corpus")
+    p.add_argument("corpus",
+                   choices=["common-voice", "tedlium", "timit", "tatoeba",
+                            "merge"])
+    p.add_argument("--root", help="extracted corpus root (not for merge)")
+    p.add_argument("--out", required=True)
+    p.add_argument("--split", default=None,
+                   help="corpus split (tedlium: train/dev/test; timit: "
+                        "TRAIN/TEST; common-voice: a .tsv name)")
+    p.add_argument("--lang", default="eng", help="tatoeba language code")
+    p.add_argument("--manifests", nargs="*", default=[],
+                   help="input manifest CSVs (merge only)")
+    args = p.parse_args(argv)
+    from .data import generate as gen
+    if args.corpus == "merge":
+        if not args.manifests:
+            p.error("merge requires --manifests")
+        print(gen.merge_manifests(args.manifests, args.out))
+        return 0
+    if not args.root:
+        p.error(f"{args.corpus} requires --root")
+    if args.corpus == "common-voice":
+        kw = {"split_tsv": args.split} if args.split else {}
+        print(gen.prepare_common_voice(args.root, args.out, **kw))
+    elif args.corpus == "tedlium":
+        kw = {"split": args.split} if args.split else {}
+        print(gen.prepare_tedlium(args.root, args.out, **kw))
+    elif args.corpus == "timit":
+        kw = {"split": args.split} if args.split else {}
+        print(gen.prepare_timit(args.root, args.out, **kw))
+    elif args.corpus == "tatoeba":
+        print(gen.prepare_tatoeba(args.root, args.out, lang=args.lang))
+    return 0
+
+
 def cmd_train_lm(argv):
     p = argparse.ArgumentParser(prog="train-lm")
     p.add_argument("--manifest", required=True, nargs="+")
@@ -206,13 +301,58 @@ def cmd_train_lm(argv):
     return 0
 
 
+def cmd_compute_stats(argv):
+    overrides, rest = _split_args(argv)
+    p = _parser("compute-stats", ckpt=False)
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--max-batches", type=int, default=None)
+    args = p.parse_args(rest)
+    cfg = _load_cfg(args, overrides)
+    from .data.manifest import read_manifest
+    from .features import compute_dataset_stats
+    res = compute_dataset_stats(read_manifest(args.manifest), cfg.data,
+                                cfg.features, args.out,
+                                max_batches=args.max_batches,
+                                device=args.device)
+    print(f"wrote {args.out} ({int(res['frames'])} frames)")
+    return 0
+
+
+def cmd_prepare_features(argv):
+    """Precompute the feature cache for a manifest (data/feature_cache.py);
+    train/evaluate consume it via --data.feature_cache=DIR."""
+    overrides, rest = _split_args(argv)
+    p = _parser("prepare-features", ckpt=False)
+    p.add_argument("--manifest", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--dtype", default="float16",
+                   choices=("float16", "int8"),
+                   help="cache wire dtype; int8 halves upload bytes "
+                        "again (fixed-scale quantization)")
+    args = p.parse_args(rest)
+    cfg = _load_cfg(args, overrides)
+    from .data.feature_cache import build_feature_cache
+    from .data.manifest import read_manifest
+    build_feature_cache(read_manifest(args.manifest), cfg.data,
+                        cfg.features, args.out, dtype=args.dtype,
+                        device=args.device)
+    print(args.out)
+    return 0
+
+
 COMMANDS = {
     "train": cmd_train,
     "evaluate": cmd_evaluate,
-    "transcribe": cmd_transcribe,
     "compare": cmd_compare,
+    "transcribe": cmd_transcribe,
     "prepare-synth": cmd_prepare_synth,
+    "prepare-synth-hard": cmd_prepare_synth_hard,
+    "prepare-librispeech": cmd_prepare_librispeech,
+    "prepare-corpus": cmd_prepare_corpus,
     "train-lm": cmd_train_lm,
+    "compute-stats": cmd_compute_stats,
+    "prepare-features": cmd_prepare_features,
 }
 
 

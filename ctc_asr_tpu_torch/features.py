@@ -231,6 +231,42 @@ def _load_stats(path: str):
                 np.asarray(z["var"], np.float32))
 
 
+def compute_dataset_stats(manifest, data_cfg, feat_cfg, out_path: str,
+                          max_batches: int | None = None,
+                          device: str | torch.device = "cuda") -> dict:
+    """Accumulate masked per-feature mean/var over a manifest (on
+    ``device``, batched via the loader) and save ``mean``, ``var`` and
+    ``frames`` to ``out_path``, the npz that ``features.stats_path``
+    names (``features.compute_dataset_stats`` of the reference)."""
+    import dataclasses
+
+    from .data.loader import DataLoader
+    from .ops.dispatch import resolve_device
+    dev = resolve_device(device)
+    fc = dataclasses.replace(feat_cfg, normalization="none")
+    loader = DataLoader(manifest, data_cfg, fc, drop_last=False)
+    s = ss = None
+    n = 0.0
+    for bi, batch in enumerate(loader.iter_epoch(0)):
+        if max_batches is not None and bi >= max_batches:
+            break
+        feats, flens = extract_features(
+            torch.from_numpy(batch.samples[:batch.valid]).to(dev),
+            torch.from_numpy(batch.sample_lengths[:batch.valid]).to(dev), fc)
+        mask = (torch.arange(feats.shape[1], device=dev)[None, :]
+                < flens[:, None]).float()[..., None]
+        fsum = torch.sum(feats * mask, dim=(0, 1)).cpu().numpy()
+        fsq = torch.sum(torch.square(feats) * mask, dim=(0, 1)).cpu().numpy()
+        s = fsum if s is None else s + fsum
+        ss = fsq if ss is None else ss + fsq
+        n += float(mask.sum())
+    mean = s / max(n, 1.0)
+    var = np.maximum(ss / max(n, 1.0) - mean * mean, 1e-8)
+    np.savez(out_path, mean=mean.astype(np.float32),
+             var=var.astype(np.float32), frames=n)
+    return {"mean": mean, "var": var, "frames": n}
+
+
 # ---------------------------------------------------------------------------
 # SpecAugment (``features.py:296-353``): train-only time/frequency masking
 # of the normalized features. Per-utterance widths and starts come from

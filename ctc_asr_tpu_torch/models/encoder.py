@@ -1,9 +1,9 @@
 """DS1/DS2-style acoustic encoders.
 
 Counterpart of ``ctc_asr_tpu/models/encoder.py``: a dense (DS1) or
-conv2d (DS2) frontend with clipped ReLU, a (bi)LSTM stack and a dense
-head to the vocabulary, returning pre-softmax logits ``[B, T', C]`` and
-their lengths. Parameters are the flat keypath dict of
+conv2d (DS2) frontend with clipped ReLU, a (bi)LSTM / GRU / vanilla-RNN
+stack (``cfg.rnn_type``) and a dense head to the vocabulary, returning
+pre-softmax logits ``[B, T', C]`` and their lengths. Parameters are the flat keypath dict of
 ``checkpoint.params_from_jax`` (``frontend/0/w``, ``rnn/0/fwd/wx``,
 ``head/b``, ...) in the reference's layouts. ``train=True`` adds
 dropout after each frontend layer and each RNN layer, and ``cfg.remat``
@@ -21,7 +21,7 @@ from ..config import ModelConfig
 
 from .layers import (clipped_relu, conv2d_apply, dense_apply, dropout,
                      dropout_mask, glorot)
-from .rnn import birnn_apply, lstm_apply
+from .rnn import birnn_apply, rnn_apply
 
 
 def _cdiv(a, b):
@@ -103,14 +103,11 @@ def apply_encoder(params: dict, feats: torch.Tensor,
                   train: bool = False,
                   generator: torch.Generator | None = None):
     """feats [B, T, F], frame_lengths [B] -> (logits [B, T', C] f32,
-    lens [B] int32). The LSTM recurrence goes through the CUDA kernel
-    wrappers when ``cfg.use_pallas_rnn`` (the reference's kernel switch).
+    lens [B] int32). The LSTM and GRU recurrences go through the CUDA
+    kernel wrappers when ``cfg.use_pallas_rnn`` (the reference's kernel
+    switch); the vanilla cell has no kernel and runs its plain recurrence.
     ``train`` applies dropout at ``cfg.dropout`` with masks drawn from
     ``generator`` (on the features' device)."""
-    if cfg.rnn_type != "lstm":
-        raise NotImplementedError(
-            f"rnn_type={cfg.rnn_type!r} is not ported yet (GRU and the "
-            "vanilla RNN come with a later slice; see ROADMAP.md)")
     cdt = getattr(torch, cfg.compute_dtype)
     rate = cfg.dropout if train else 0.0
     if cfg.frontend == "dense":
@@ -146,10 +143,11 @@ def apply_encoder(params: dict, feats: torch.Tensor,
             if cfg.bidirectional:
                 y = birnn_apply({"fwd": _layer(layer, "fwd/"),
                                  "bwd": _layer(layer, "bwd/")}, inp,
-                                out_lens, cdt, use_kernel=cfg.use_pallas_rnn)
+                                out_lens, cdt, use_kernel=cfg.use_pallas_rnn,
+                                rnn_type=cfg.rnn_type)
             else:
-                y = lstm_apply(layer, inp, out_lens, cdt,
-                               use_kernel=cfg.use_pallas_rnn)
+                y = rnn_apply(layer, inp, out_lens, cfg.rnn_type, cdt,
+                              use_kernel=cfg.use_pallas_rnn)
             return dropout(y, rate, mask=mask)
 
         mask = (dropout_mask((x.shape[0], x.shape[1], width), rate,

@@ -1,20 +1,26 @@
-"""LSTM layers, uni- and bidirectional.
+"""Recurrent layers: LSTM, GRU and the vanilla tanh RNN, uni- and
+bidirectional.
 
 Counterpart of ``ctc_asr_tpu/models/rnn.py`` (``lstm_apply``,
-``birnn_apply``) for ``rnn_type="lstm"``; GRU and the vanilla RNN come
-with a later slice. Time-major ``[T, B, F]`` in and out.
+``gru_apply``, ``vanilla_apply``, ``rnn_apply``, ``birnn_apply``).
+Time-major ``[T, B, F]`` in and out. Gate orders are the reference's:
+LSTM i, f, g, o; GRU r, z, n.
 
 - The input projections ``x @ wx`` for all steps are one batched
   ``torch.bmm`` outside the recurrence.
 - The kernel path (``use_kernel``, the reference's Pallas path) feeds
   the CUDA kernels bf16 xproj and wh, as the reference casts them for
-  its kernel (``rnn.py:290``): the inference wrapper ``lstm_seq`` when
-  no gradient is wanted, else the autograd function ``LstmSeq`` (K2
-  with residuals forward, K3 backward).
+  its kernel (``rnn.py:290``): the inference wrappers ``lstm_seq`` /
+  ``gru_seq`` when no gradient is wanted, else the autograd functions
+  ``LstmSeq`` (K2 with residuals forward, K3 backward) / ``GruSeq``
+  (K4, K5). The vanilla cell has no kernel in the reference (it stays
+  on the scan path, ``encoder.py:141-142``), so here it always takes
+  the plain recurrence.
 - The plain path is the reference's ``lax.scan`` path: xproj from the
   compute-dtype operands accumulated in f32 (``preferred_element_type
   =float32``, ``rnn.py:95-97``, ``:367-371``), the recurrence in
-  ``lstm_seq_plain``, and autograd through it when training.
+  ``lstm_seq_plain`` / ``gru_seq_plain`` / ``vanilla_seq_plain``, and
+  autograd through it when training.
 - Masking: outside a row's valid window the state carries through and
   the output is 0. Bidirectional layers keep the reference's static
   flip: the backward direction reads the time-flipped input with
@@ -25,46 +31,101 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.lstm_cuda import LstmSeq, lstm_seq, lstm_seq_plain
+from ..ops.gru_cuda import GruSeq, gru_seq, gru_seq_plain
+from ..ops.lstm_cuda import LstmSeq, _window, lstm_seq, lstm_seq_plain
+
+RNN_TYPES = ("lstm", "gru", "rnn")
+
+
+def vanilla_seq_plain(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
+                      start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
+    """The tanh recurrence ``h' = tanh(xproj + b + h @ wh)`` in plain
+    PyTorch (``rnn.py:177-186``, ``:417-430``): masked outputs f32
+    [nd, T, B, H] from xproj [nd, T, B, H], b [nd, H], wh [nd, H, H],
+    start/end [nd, B]. h is rounded to wh's dtype for the product, which
+    accumulates in f32, as in ``lstm_fwd_plain``."""
+    nd, T, B, H = xproj.shape
+    bf = b.float()[:, None, :]
+    h = torch.zeros((nd, B, H), dtype=torch.float32, device=xproj.device)
+    hs = []
+    for t in range(T):
+        h_new = torch.tanh((xproj[:, t].float() + bf)
+                           + torch.bmm(h.to(wh.dtype).float(), wh.float()))
+        m = _window(start, end, t, (nd, B, 1))
+        h = m * h_new + (1.0 - m) * h
+        hs.append(h * m)
+    return torch.stack(hs, 1) if T else h.new_zeros((nd, 0, B, H))
+
+
+_KERNEL_SEQ = {"lstm": (lstm_seq, LstmSeq), "gru": (gru_seq, GruSeq)}
+_PLAIN_SEQ = {"lstm": lstm_seq_plain, "gru": gru_seq_plain,
+              "rnn": vanilla_seq_plain}
 
 
 def _recurrence(xd: torch.Tensor, wx: torch.Tensor, b: torch.Tensor,
                 wh: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
-                compute_dtype, use_kernel: bool) -> torch.Tensor:
+                compute_dtype, use_kernel: bool,
+                rnn_type: str = "lstm") -> torch.Tensor:
     """Direction-major inputs xd [nd, T, B, F] -> h [nd, T, B, H]."""
+    if rnn_type not in RNN_TYPES:
+        raise ValueError(f"unknown rnn_type {rnn_type!r}")
     nd, T, B, F = xd.shape
     G = wx.shape[-1]
     x2 = xd.reshape(nd, T * B, F).to(compute_dtype)
-    if use_kernel:
+    if use_kernel and rnn_type in _KERNEL_SEQ:
+        seq, seq_grad = _KERNEL_SEQ[rnn_type]
         xproj = torch.bmm(x2, wx.to(compute_dtype)).reshape(nd, T, B, G)
         args = (xproj.to(torch.bfloat16).contiguous(), b.float().contiguous(),
                 wh.to(torch.bfloat16).contiguous(), start.contiguous(),
                 end.contiguous())
         if torch.is_grad_enabled() and any(a.requires_grad
                                            for a in args[:3]):
-            return LstmSeq.apply(*args)
-        return lstm_seq(*args)
+            return seq_grad.apply(*args)
+        return seq(*args)
     xproj = torch.bmm(x2.float(), wx.to(compute_dtype).float()
                       ).reshape(nd, T, B, G)
-    return lstm_seq_plain(xproj, b, wh.to(compute_dtype), start, end)
+    return _PLAIN_SEQ[rnn_type](xproj, b, wh.to(compute_dtype), start, end)
+
+
+def rnn_apply(params: dict, x: torch.Tensor, lengths: torch.Tensor,
+              rnn_type: str, compute_dtype=torch.bfloat16,
+              use_kernel: bool = False) -> torch.Tensor:
+    """One unidirectional layer of ``rnn_type``: params {"wx", "wh",
+    "b"}; x [T, B, F] -> [T, B, H]."""
+    T, B, _ = x.shape
+    lens = lengths.to(torch.int32)
+    start = torch.zeros((1, B), dtype=torch.int32, device=x.device)
+    out = _recurrence(x[None], params["wx"][None], params["b"][None],
+                      params["wh"][None], start, lens[None],
+                      compute_dtype, use_kernel, rnn_type)
+    return out[0]
 
 
 def lstm_apply(params: dict, x: torch.Tensor, lengths: torch.Tensor,
                compute_dtype=torch.bfloat16,
                use_kernel: bool = False) -> torch.Tensor:
     """params {"wx", "wh", "b"}; x [T, B, F] -> [T, B, H]."""
-    T, B, _ = x.shape
-    lens = lengths.to(torch.int32)
-    start = torch.zeros((1, B), dtype=torch.int32, device=x.device)
-    out = _recurrence(x[None], params["wx"][None], params["b"][None],
-                      params["wh"][None], start, lens[None],
-                      compute_dtype, use_kernel)
-    return out[0]
+    return rnn_apply(params, x, lengths, "lstm", compute_dtype, use_kernel)
+
+
+def gru_apply(params: dict, x: torch.Tensor, lengths: torch.Tensor,
+              compute_dtype=torch.bfloat16,
+              use_kernel: bool = False) -> torch.Tensor:
+    """params {"wx", "wh", "b"} with 3H gate columns r, z, n;
+    x [T, B, F] -> [T, B, H]."""
+    return rnn_apply(params, x, lengths, "gru", compute_dtype, use_kernel)
+
+
+def vanilla_apply(params: dict, x: torch.Tensor, lengths: torch.Tensor,
+                  compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """params {"wx", "wh", "b"} of width H; x [T, B, F] -> [T, B, H];
+    ``h' = tanh(x @ wx + h @ wh + b)``."""
+    return rnn_apply(params, x, lengths, "rnn", compute_dtype)
 
 
 def birnn_apply(params: dict, x: torch.Tensor, lengths: torch.Tensor,
-                compute_dtype=torch.bfloat16,
-                use_kernel: bool = False) -> torch.Tensor:
+                compute_dtype=torch.bfloat16, use_kernel: bool = False,
+                rnn_type: str = "lstm") -> torch.Tensor:
     """params {"fwd": {...}, "bwd": {...}}; x [T, B, F] -> [T, B, 2H]
     (forward half, then the backward half in natural time)."""
     T, B, _ = x.shape
@@ -76,5 +137,5 @@ def birnn_apply(params: dict, x: torch.Tensor, lengths: torch.Tensor,
                       torch.stack([fwd["wx"], bwd["wx"]]),
                       torch.stack([fwd["b"], bwd["b"]]),
                       torch.stack([fwd["wh"], bwd["wh"]]),
-                      start, end, compute_dtype, use_kernel)
+                      start, end, compute_dtype, use_kernel, rnn_type)
     return torch.cat([out[0], torch.flip(out[1], (0,))], dim=-1)

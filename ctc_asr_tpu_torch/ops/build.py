@@ -10,8 +10,8 @@ loads a stale library. Nothing is built or loaded at import time.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns the ``cudaError_t`` of its launches; the wrappers
-in ``stft_cuda`` / ``lstm_cuda`` / ``ctc_cuda`` / ``beam_cuda`` raise when
-it is not 0.
+in ``stft_cuda`` / ``lstm_cuda`` / ``gru_cuda`` / ``ctc_cuda`` /
+``beam_cuda`` raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -52,6 +52,13 @@ _SIGNATURES = {
     # db_part, nd, T, B, H, stream
     "lstm_bwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _P],
+    # xproj, bias, wh, start, end, hbuf, hb16, h_out, gates_out, nd, T, B,
+    # H, stream
+    "gru_fwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # g_out, gates, h_seq, wh, start, end, dh_state, dhproj, dxproj,
+    # db_part, nd, T, B, H, stream
+    "gru_bwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _I, _P],
     # lpz, skip, lens, ends, alphas, nll, T, B, S, stream
     "ctc_alpha": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # lpz, alphas, skip, lens, ends, nll, grad, T, B, S, stream

@@ -62,6 +62,9 @@ def lstm_fwd_plain(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
         hs.append(h * m)
         cs.append(c)
         gs.append(torch.cat([gi, gf, gg, go], dim=-1))
+    if T == 0:
+        return (h.new_zeros((nd, 0, B, H)), h.new_zeros((nd, 0, B, H)),
+                h.new_zeros((nd, 0, B, G)))
     return torch.stack(hs, 1), torch.stack(cs, 1), torch.stack(gs, 1)
 
 
@@ -109,6 +112,8 @@ def lstm_fwd(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
     if residuals:
         c_out = torch.empty_like(h_out)
         gates = torch.empty((nd, T, B, G), dtype=torch.bfloat16, device=dev)
+    if xproj.numel() == 0:     # no step or no row: nothing to launch
+        return (h_out, c_out, gates) if residuals else h_out
     hbuf = torch.zeros((2, nd, B, H), dtype=torch.float32, device=dev)
     hb16 = torch.zeros((2, nd, B, H), dtype=torch.bfloat16, device=dev)
     cbuf = torch.zeros((nd, B, H), dtype=torch.float32, device=dev)
@@ -202,6 +207,8 @@ def lstm_bwd(g_out: torch.Tensor, gates: torch.Tensor, c_seq: torch.Tensor,
     dxproj = torch.empty((nd, T, B, G), dtype=torch.bfloat16, device=dev)
     nbt = -(-B // _BT)
     db_part = torch.zeros((nbt, nd, G), dtype=torch.float32, device=dev)
+    if gates.numel() == 0:     # no step or no row: nothing to launch
+        return dxproj, db_part.sum(dim=0)
     dh = torch.zeros((nd, B, H), dtype=torch.float32, device=dev)
     dc = torch.zeros_like(dh)
     rc = build.load().lstm_bwd_seq(

@@ -13,9 +13,10 @@ best checkpoints in the reference's format, and resumes exactly from
 the loader cursor.
 
 Eager PyTorch compiles nothing per batch shape, so ``train.precompile``
-has nothing to do here and is ignored. The mesh, multi-process and
-sequence-parallel regimes and the ``train.profile_dir`` trace are not
-ported yet (ROADMAP.md A7/A8) and raise.
+has nothing to do here and is ignored. ``train.profile_dir`` wraps the
+loop in a ``torch.profiler`` trace (``utils.profiling``). The mesh,
+multi-process and sequence-parallel regimes are not ported yet
+(ROADMAP.md A7/A8) and raise.
 
 State: ``{"params": {k: tensor}, "opt_state": {...}, "step": int,
 "generators": {"dropout": Generator, "specaugment": Generator}}`` on
@@ -39,6 +40,7 @@ from .models.encoder import apply_encoder, init_params
 from .ops.ctc_cuda import ctc_loss
 from .ops.dispatch import resolve_device
 from .optim import Adam
+from .utils.profiling import maybe_trace
 
 _GENERATORS = ("dropout", "specaugment")
 
@@ -157,10 +159,6 @@ def _check_single_process(cfg: Config) -> None:
             "the port trains on one device in one process; the mesh, "
             "multi-process and sequence-parallel regimes are not ported "
             "yet (ROADMAP.md A7/A8)")
-    if cfg.train.profile_dir:
-        raise NotImplementedError(
-            "train.profile_dir (a torch.profiler trace) is not ported yet "
-            "(ROADMAP.md A)")
 
 
 def train(cfg: Config, device="cuda", max_steps: int | None = None,
@@ -215,44 +213,45 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
     sync_every = max(1, tcfg.sync_every)
     t_last = time.perf_counter()
     try:
-        for i in range(state["step"], total):
-            batch, arrs = next(dev_it)
-            m = step_fn(state, *arrs)
-            meter.update(batch.audio_seconds)
-            step = i + 1
-            if step % sync_every == 0 or step == total:
-                # the host fetch waits for the step: a true barrier.
-                # grad_norm is the NaN canary (the log-space CTC maps a
-                # NaN logit to a finite loss; the backward does not)
-                gn = float(m["grad_norm"])
-                if gn != gn:
-                    raise FloatingPointError(
-                        f"grad_norm is NaN at step {step} "
-                        f"(loss={float(m['loss'])})")
-            if heartbeat is not None:
-                heartbeat.beat(step)
-            if tcfg.log_every > 0 and (step % tcfg.log_every == 0
-                                       or step == total):
-                now = time.perf_counter()
-                writer.write(step, loss=float(m["loss"]),
-                             grad_norm=float(m["grad_norm"]),
-                             lr=float(m["lr"]),
-                             audio_s_per_s=meter.audio_seconds_per_second,
-                             step_time_s=(now - t_last) / tcfg.log_every,
-                             epoch=batch.epoch, bucket=batch.bucket_id)
-                t_last = now
-            if eval_fn is not None and tcfg.eval_every > 0 \
-                    and step % tcfg.eval_every == 0:
-                eval_metrics = eval_fn(state)
-                writer.write(step, **{f"eval_{k}": v
-                                      for k, v in eval_metrics.items()})
-                wer = eval_metrics.get("wer", float("inf"))
-                if wer < best_wer:
-                    best_wer = wer
-                    save(step, batch, is_best=True)
-            if (tcfg.checkpoint_every > 0
-                    and step % tcfg.checkpoint_every == 0) or step == total:
-                save(step, batch)
+        with maybe_trace(tcfg.profile_dir):
+            for i in range(state["step"], total):
+                batch, arrs = next(dev_it)
+                m = step_fn(state, *arrs)
+                meter.update(batch.audio_seconds)
+                step = i + 1
+                if step % sync_every == 0 or step == total:
+                    # the host fetch waits for the step: a true barrier.
+                    # grad_norm is the NaN canary (the log-space CTC maps a
+                    # NaN logit to a finite loss; the backward does not)
+                    gn = float(m["grad_norm"])
+                    if gn != gn:
+                        raise FloatingPointError(
+                            f"grad_norm is NaN at step {step} "
+                            f"(loss={float(m['loss'])})")
+                if heartbeat is not None:
+                    heartbeat.beat(step)
+                if tcfg.log_every > 0 and (step % tcfg.log_every == 0
+                                           or step == total):
+                    now = time.perf_counter()
+                    writer.write(step, loss=float(m["loss"]),
+                                 grad_norm=float(m["grad_norm"]),
+                                 lr=float(m["lr"]),
+                                 audio_s_per_s=meter.audio_seconds_per_second,
+                                 step_time_s=(now - t_last) / tcfg.log_every,
+                                 epoch=batch.epoch, bucket=batch.bucket_id)
+                    t_last = now
+                if eval_fn is not None and tcfg.eval_every > 0 \
+                        and step % tcfg.eval_every == 0:
+                    eval_metrics = eval_fn(state)
+                    writer.write(step, **{f"eval_{k}": v
+                                          for k, v in eval_metrics.items()})
+                    wer = eval_metrics.get("wer", float("inf"))
+                    if wer < best_wer:
+                        best_wer = wer
+                        save(step, batch, is_best=True)
+                if step == total or (tcfg.checkpoint_every > 0 and
+                                     step % tcfg.checkpoint_every == 0):
+                    save(step, batch)
     finally:
         it.close()
         if heartbeat is not None:

@@ -88,6 +88,11 @@ def _tiny_cfg(**model_kw):
     {}, {"bidirectional": False}, {"rnn_layers": 0},   # 0: flatten -> head
     {"frontend": "dense", "dense_layers": 2, "dense_units": 12,
      "bidirectional": False},
+    {"rnn_type": "gru"}, {"rnn_type": "rnn"},          # conv + Bi-cell
+    {"frontend": "dense", "dense_layers": 2, "dense_units": 12,
+     "bidirectional": False, "rnn_type": "gru"},
+    {"frontend": "dense", "dense_layers": 2, "dense_units": 12,
+     "bidirectional": False, "rnn_type": "rnn"},
 ])
 def test_encoder_matches_reference(model_kw):
     cfg = _tiny_cfg(**model_kw)
@@ -120,16 +125,60 @@ def test_init_shapes_match_init_params(model_kw, feat_dim):
     assert init_shapes(cfg, feat_dim) == want
 
 
-def test_output_lengths_and_unported_cells():
+def test_output_lengths_match_reference():
     cfg = _tiny_cfg().model
     lens = np.array([0, 1, 2, 3, 798, 799], np.int32)
     from ctc_asr_tpu.models.encoder import output_lengths as j_out
     np.testing.assert_array_equal(
         output_lengths(torch.from_numpy(lens), cfg).numpy(),
         np.asarray(j_out(jnp.asarray(lens), cfg)))
-    gru = dataclasses.replace(cfg, rnn_type="gru")
-    with pytest.raises(NotImplementedError):
-        apply_encoder({}, torch.zeros(1, 4, 24), torch.ones(1), gru)
+    dense = dataclasses.replace(cfg, frontend="dense")
+    np.testing.assert_array_equal(
+        output_lengths(torch.from_numpy(lens), dense).numpy(), lens)
+    with pytest.raises(ValueError, match="rnn_type"):
+        init_shapes(dataclasses.replace(cfg, rnn_type="elman"), 24)
+
+
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru", "rnn"])
+def test_init_params_biases(rnn_type):
+    """Zero biases for every cell but the LSTM's forget gate (1), as the
+    reference's ``lstm_init`` / ``gru_init`` / ``vanilla_init``."""
+    from ctc_asr_tpu_torch.models import init_params as t_init
+    cfg = _tiny_cfg(rnn_type=rnn_type).model
+    jparams = _flatten(init_params(jax.random.PRNGKey(0), cfg, 24))
+    params = t_init(cfg, 24, torch.Generator().manual_seed(0))
+    assert set(params) == set(jparams)
+    for k, v in params.items():
+        assert tuple(v.shape) == jparams[k].shape, k
+        if k.endswith("/b"):
+            np.testing.assert_array_equal(v.numpy(), np.asarray(jparams[k]),
+                                          err_msg=k)
+    H = cfg.rnn_units
+    assert params["rnn/0/fwd/b"].sum().item() == (H if rnn_type == "lstm"
+                                                  else 0)
+
+
+def test_kernel_switch_runs_the_gru_wrapper_and_leaves_the_vanilla_cell():
+    """use_pallas_rnn sends the GRU through ``GruSeq`` / ``gru_seq`` (bf16
+    recurrence: close to, not equal to, the plain path) and changes
+    nothing for the vanilla cell, which has no kernel."""
+    rng = np.random.default_rng(4)
+    feats = torch.from_numpy(rng.standard_normal((2, 23, 24))
+                             .astype(np.float32))
+    flens = torch.tensor([23, 9], dtype=torch.int32)
+    for rnn_type in ("gru", "rnn"):
+        cfg = _tiny_cfg(rnn_type=rnn_type).model
+        from ctc_asr_tpu_torch.models import init_params as t_init
+        params = t_init(cfg, 24, torch.Generator().manual_seed(1))
+        plain, _ = apply_encoder(params, feats, flens, cfg)
+        kern, _ = apply_encoder(params, feats, flens, dataclasses.replace(
+            cfg, use_pallas_rnn=True))
+        if rnn_type == "rnn":
+            assert torch.equal(kern, plain)
+        else:
+            assert not torch.equal(kern, plain)
+            np.testing.assert_allclose(kern.numpy(), plain.numpy(),
+                                       rtol=4e-2, atol=1e-2)
 
 
 def test_golden_tiny_model():

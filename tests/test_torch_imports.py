@@ -47,10 +47,10 @@ def test_walk_finds_the_whole_port():
     names = _port_modules()
     for expected in ("config", "text", "audio", "metrics", "cli", "train",
                      "evaluate", "transcribe", "data.loader", "data.synth",
-                     "data.native_io", "data.feature_cache",
-                     "utils.heartbeat", "utils.tb_events", "ops.lm",
-                     "ops.beam", "ops.beam_cuda", "ops.build",
-                     "models.encoder"):
+                     "data.native_io", "data.feature_cache", "data.generate",
+                     "utils.heartbeat", "utils.tb_events", "utils.profiling",
+                     "ops.lm", "ops.beam", "ops.beam_cuda", "ops.gru_cuda",
+                     "ops.build", "models.encoder", "models.rnn"):
         assert f"ctc_asr_tpu_torch.{expected}" in names
 
 

@@ -16,7 +16,8 @@ import torch
 
 from ctc_asr_tpu_torch.config import FeatureConfig, ModelConfig
 from ctc_asr_tpu_torch.models import apply_encoder, init_shapes
-from ctc_asr_tpu_torch.ops import beam_cuda, ctc_cuda, lstm_cuda, stft_cuda
+from ctc_asr_tpu_torch.ops import (beam_cuda, ctc_cuda, gru_cuda, lstm_cuda,
+                                   stft_cuda)
 from ctc_asr_tpu_torch.ops.dispatch import cuda_supported
 
 pytestmark = pytest.mark.cuda
@@ -85,6 +86,31 @@ def test_lstm_kernel_rejects_bad_input(dev):
     se = torch.zeros(1, 2, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
         lstm_cuda.lstm_seq(x, b, wh, se, se)
+
+
+def test_lstm_kernels_no_steps_and_no_rows(dev):
+    """T = 0 and B = 0 have no block to launch: empty outputs on the
+    card and no launch counted."""
+    for T, B in ((0, 3), (5, 0)):
+        xproj, b, wh, start, end, gout = _lstm_case_lens(dev, 2, T, B, 32)
+        n2, n3 = lstm_cuda.lstm_fwd.launches, lstm_cuda.lstm_bwd.launches
+        h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
+                                         residuals=True)
+        dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
+        assert h.is_cuda and h.shape == c.shape == (2, T, B, 32)
+        assert gates.shape == dx.shape == (2, T, B, 128)
+        assert db.shape == (2, 128) and not db.any()
+        assert (lstm_cuda.lstm_fwd.launches, lstm_cuda.lstm_bwd.launches) \
+            == (n2, n3)
+
+
+def _lstm_case_lens(dev, nd, T, B, H):
+    z = torch.zeros
+    lens = z(B, dtype=torch.int32)
+    return [t.to(dev) for t in (
+        z(nd, T, B, 4 * H, dtype=torch.bfloat16), z(nd, 4 * H),
+        z(nd, H, 4 * H, dtype=torch.bfloat16), torch.stack([lens, T - lens]),
+        torch.stack([lens, lens + T]), z(nd, T, B, H, dtype=torch.bfloat16))]
 
 
 def test_encoder_kernel_path_matches_plain_path(dev):
@@ -157,6 +183,171 @@ def test_lstmseq_autograd_on_card(dev):
     assert torch.isfinite(x.grad.float()).all()
     with pytest.raises(RuntimeError, match="LstmSeq"):
         lstm_cuda.lstm_seq(x, bb, w, start, end)
+
+
+def _gru_case(dev, nd, T, B, H, seed, lens=None):
+    g = torch.Generator().manual_seed(seed)
+    xproj = torch.randn(nd, T, B, 3 * H, generator=g).to(torch.bfloat16)
+    b = 0.1 * torch.randn(nd, 3 * H, generator=g)
+    wh = (0.2 * torch.rand(nd, H, 3 * H, generator=g) - 0.1
+          ).to(torch.bfloat16)
+    if lens is None:
+        lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+        if B:
+            lens[0] = T
+    lens = torch.as_tensor(lens, dtype=torch.int32)
+    start = torch.stack([torch.zeros_like(lens), T - lens])[:nd]
+    end = torch.stack([lens, torch.full_like(lens, T)])[:nd]
+    gout = torch.randn(nd, T, B, H, generator=g).to(torch.bfloat16)
+    return [t.to(dev).contiguous() for t in (xproj, b, wh, start, end, gout)]
+
+
+def _gate_err(got, want):
+    """(r, z, n) lie in [-1, 1]; hn does not, so the error is taken
+    relative to max(1, |want|)."""
+    return ((got.float() - want).abs()
+            / want.abs().clamp_min(1.0)).max().item()
+
+
+def _outside(args, T, dev):
+    t = torch.arange(T, device=dev)[None, :, None]
+    return (t < args[3][:, None]) | (t >= args[4][:, None])
+
+
+@pytest.mark.parametrize("nd,T,B,H,lens", [
+    (1, 12, 5, 64, None), (2, 30, 33, 96, None), (2, 7, 3, 48, [7, 1, 0]),
+    (2, 40, 128, 512, None), (2, 40, 16, 800, None), (2, 175, 1, 800, None)])
+def test_gru_kernel_matches_plain(dev, nd, T, B, H, lens):
+    """K4 in inference and residual mode against its plain version, with
+    ragged rows, a length-1 and an empty row."""
+    args = _gru_case(dev, nd, T, B, H, T + B, lens)[:5]
+    n0 = gru_cuda.gru_fwd.launches
+    got = gru_cuda.gru_seq(*args)
+    h, gates = gru_cuda.gru_fwd(*args, residuals=True)
+    ph, pg = gru_cuda.gru_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_fwd.launches == n0 + 2
+    assert got.dtype == h.dtype == gates.dtype == torch.bfloat16
+    assert torch.equal(got, h)
+    assert (h.float() - ph).abs().max().item() <= LSTM_TOL
+    assert _gate_err(gates, pg) <= LSTM_TOL
+    assert not h.float().abs().amax(-1)[_outside(args, T, dev)].any()
+
+
+@pytest.mark.parametrize("nd,T,B,H,lens", [
+    (1, 12, 5, 64, None), (2, 30, 33, 96, None), (2, 7, 3, 48, [7, 1, 0]),
+    (2, 40, 128, 512, None), (2, 40, 16, 800, None), (2, 60, 1, 800, None)])
+def test_gru_bptt_matches_plain(dev, nd, T, B, H, lens):
+    """K5 against its plain version on the kernel's own bf16 residuals
+    (bf16 dxproj: two ulps relative to the largest; db f32), and dgates
+    exactly 0 outside each row's window."""
+    xproj, b, wh, start, end, gout = _gru_case(dev, nd, T, B, H, T + H, lens)
+    h, gates = gru_cuda.gru_fwd(xproj, b, wh, start, end, residuals=True)
+    n0 = gru_cuda.gru_bwd.launches
+    dx, db = gru_cuda.gru_bwd(gout, gates, h, wh, start, end)
+    pdx, pdb = gru_cuda.gru_bwd_plain(gout, gates, h, wh, start, end)
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_bwd.launches == n0 + 1
+    assert dx.dtype == torch.bfloat16 and db.dtype == torch.float32
+    scale = pdx.abs().max().item()
+    assert (dx.float() - pdx).abs().max().item() <= 8e-3 * scale
+    assert (db - pdb).abs().max().item() <= 1e-3 * pdb.abs().max().item()
+    assert not dx.float().abs().amax(-1)[
+        _outside((0, 0, 0, start, end), T, dev)].any()
+
+
+def test_gruseq_autograd_on_card(dev):
+    xproj, b, wh, start, end, gout = _gru_case(dev, 2, 20, 6, 64, 0)
+    x = xproj.clone().requires_grad_(True)
+    bb = b.clone().requires_grad_(True)
+    w = wh.clone().requires_grad_(True)
+    h = gru_cuda.GruSeq.apply(x, bb, w, start, end)
+    h.backward(gout)
+    assert x.grad.dtype == torch.bfloat16 and bb.grad.dtype == torch.float32
+    assert w.grad.dtype == torch.bfloat16
+    # dwh against the plain chain on the same bf16 values
+    cx = xproj.cpu().requires_grad_(True)
+    cb = b.cpu().requires_grad_(True)
+    cw = wh.cpu().requires_grad_(True)
+    gru_cuda.GruSeq.apply(cx, cb, cw, start.cpu(), end.cpu()).backward(
+        gout.cpu())
+    scale = cw.grad.float().abs().max().item()
+    assert (w.grad.float().cpu() - cw.grad.float()).abs().max().item() \
+        <= 2e-2 * scale
+    with pytest.raises(RuntimeError, match="GruSeq"):
+        gru_cuda.gru_seq(x, bb, w, start, end)
+
+
+def test_gru_kernels_no_steps_and_no_rows(dev):
+    """T = 0 and B = 0 have no block to launch: empty outputs on the
+    card, zero db, no launch counted, and no plain version on a CUDA
+    tensor."""
+    for T, B in ((0, 3), (5, 0)):
+        xproj, b, wh, start, end, gout = _gru_case(dev, 2, T, B, 32, 1,
+                                                   lens=[0] * B)
+        n4, n5 = gru_cuda.gru_fwd.launches, gru_cuda.gru_bwd.launches
+        h, gates = gru_cuda.gru_fwd(xproj, b, wh, start, end, residuals=True)
+        dx, db = gru_cuda.gru_bwd(gout, gates, h, wh, start, end)
+        assert h.is_cuda and h.shape == (2, T, B, 32)
+        assert gates.shape == (2, T, B, 128) and dx.shape == (2, T, B, 96)
+        assert db.shape == (2, 96) and not db.any()
+        assert (gru_cuda.gru_fwd.launches, gru_cuda.gru_bwd.launches) \
+            == (n4, n5)
+
+
+def test_gru_kernels_reject_bad_input(dev):
+    xproj, b, wh, start, end, gout = _gru_case(dev, 1, 4, 2, 32, 2)
+    h, gates = gru_cuda.gru_fwd(xproj, b, wh, start, end, residuals=True)
+    n4, n5 = gru_cuda.gru_fwd.launches, gru_cuda.gru_bwd.launches
+    with pytest.raises(TypeError):                       # not bf16
+        gru_cuda.gru_seq(xproj.float(), b, wh, start, end)
+    with pytest.raises(ValueError, match="3\\*H"):       # 4H gates
+        gru_cuda.gru_seq(torch.zeros(1, 4, 2, 128, dtype=torch.bfloat16,
+                                     device=dev), b, wh, start, end)
+    with pytest.raises(ValueError, match="H % 16"):      # H = 24
+        gru_cuda.gru_seq(
+            torch.zeros(1, 4, 2, 72, dtype=torch.bfloat16, device=dev),
+            torch.zeros(1, 72, device=dev),
+            torch.zeros(1, 24, 72, dtype=torch.bfloat16, device=dev),
+            start, end)
+    with pytest.raises(ValueError, match="shape"):
+        gru_cuda.gru_seq(xproj, b, wh[:, :16], start, end)
+    with pytest.raises(ValueError, match="contiguous"):
+        gru_cuda.gru_seq(xproj, b, wh.transpose(1, 2).contiguous()
+                         .transpose(1, 2)[:, :, :96], start, end)
+    odd = torch.zeros(wh.numel() + 1, dtype=torch.bfloat16, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):     # 2-byte offset
+        gru_cuda.gru_seq(xproj, b, odd.view_as(wh), start, end)
+    with pytest.raises(ValueError, match="4H"):
+        gru_cuda.gru_bwd(gout, gates[..., :98].contiguous(), h, wh, start,
+                         end)
+    with pytest.raises(TypeError):
+        gru_cuda.gru_bwd(gout.float(), gates, h, wh, start, end)
+    assert (gru_cuda.gru_fwd.launches, gru_cuda.gru_bwd.launches) == (n4, n5)
+
+
+def test_encoder_gru_kernel_path_matches_plain_path(dev):
+    cfg = ModelConfig(frontend="conv", conv_channels=(8, 8), rnn_layers=2,
+                      rnn_units=64, bidirectional=True, dropout=0.0,
+                      compute_dtype="float32", rnn_type="gru")
+    rng = np.random.default_rng(0)
+    params = {k: torch.from_numpy(rng.uniform(-0.1, 0.1, s)
+                                  .astype(np.float32)).to(dev)
+              for k, s in init_shapes(cfg, 40).items()}
+    feats = torch.from_numpy(rng.standard_normal((4, 50, 40))
+                             .astype(np.float32)).to(dev)
+    flens = torch.tensor([50, 31, 7, 1], dtype=torch.int32, device=dev)
+    n0, n2 = gru_cuda.gru_fwd.launches, lstm_cuda.lstm_fwd.launches
+    with torch.inference_mode():
+        lk, lens_k = apply_encoder(params, feats, flens, cfg)
+        lp, lens_p = apply_encoder(
+            params, feats, flens,
+            dataclasses.replace(cfg, use_pallas_rnn=False))
+    assert gru_cuda.gru_fwd.launches == n0 + 2
+    assert lstm_cuda.lstm_fwd.launches == n2
+    assert torch.equal(lens_k, lens_p)
+    # kernel path: bf16 xproj / wh; plain path at f32 compute
+    assert (lk - lp).abs().max().item() <= 2e-2
 
 
 @pytest.mark.parametrize("B,T,U,C", [(5, 30, 6, 29), (37, 50, 20, 29),

@@ -148,3 +148,22 @@ def test_plain_bf16_matches_reference_scan(bidirectional):
                                torch.from_numpy(lens), torch.bfloat16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
+
+
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru", "rnn"])
+def test_no_frames_gives_empty_outputs(rnn_type):
+    """T = 0 (an empty bucket): every cell's plain recurrence returns
+    [0, B, 2H] instead of failing to stack nothing."""
+    F, H, B = 5, 8, 2
+    rng = np.random.default_rng(0)
+    G = {"lstm": 4, "gru": 3, "rnn": 1}[rnn_type] * H
+    layer = {"wx": rng.standard_normal((F, G)).astype(np.float32),
+             "wh": rng.standard_normal((H, G)).astype(np.float32),
+             "b": np.zeros(G, np.float32)}
+    p = _to_torch({"fwd": layer, "bwd": layer})
+    for use_kernel in (False, True):
+        out = t_rnn.birnn_apply(p, torch.zeros(0, B, F),
+                                torch.zeros(B, dtype=torch.int32),
+                                torch.float32, use_kernel=use_kernel,
+                                rnn_type=rnn_type)
+        assert out.shape == (0, B, 2 * H)

@@ -227,6 +227,59 @@ def test_beam_slice_matches_reference(corpus, lms, capsys, mode):
         assert ttr.transcribe_file(utt.path) == jtr.transcribe_file(utt.path)
 
 
+@pytest.mark.parametrize("rnn_type", ["gru", "rnn"])
+def test_gru_and_vanilla_slice_matches_reference(corpus, tmp_path, capsys,
+                                                 rnn_type):
+    """The GRU / vanilla-RNN family end to end: a checkpoint written by
+    the reference is read by the port (``params_from_jax``: same
+    keypaths, 3H or H gate columns), both packages' ``evaluate`` and
+    ``Transcriber`` give identical transcripts from it, and the port's
+    own checkpoint of that state loads back into the reference."""
+    from ctc_asr_tpu.checkpoint import load_checkpoint
+    from ctc_asr_tpu.data import read_manifest
+    from ctc_asr_tpu.evaluate import evaluate as j_evaluate
+    from ctc_asr_tpu.transcribe import Transcriber as JTranscriber
+    from ctc_asr_tpu_torch import train as t_train
+    from ctc_asr_tpu_torch.evaluate import evaluate
+    from ctc_asr_tpu_torch.transcribe import Transcriber
+    base, _, _ = corpus
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, rnn_type=rnn_type))
+    state = init_train_state(cfg)
+    path = save_checkpoint(str(tmp_path / "ckpt"), 2, state, process_index=0)
+    params = t_ckpt.load_params(path, cfg)
+    want_flat = _flatten(state["params"])
+    assert set(params) == set(want_flat)
+    G = {"gru": 3, "rnn": 1}[rnn_type] * cfg.model.rnn_units
+    assert params["rnn/1/bwd/wh"].shape == (cfg.model.rnn_units, G)
+    for k, v in want_flat.items():
+        np.testing.assert_array_equal(params[k].numpy(), v)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        t_ckpt.load_params(path, base)                  # an LSTM config
+
+    want = j_evaluate(cfg, state["params"], log_samples=10)
+    want_hyps = _hyps(capsys)
+    got = evaluate(cfg, params, "cpu", log_samples=10)
+    assert _hyps(capsys) == want_hyps and len(want_hyps) >= 3
+    assert got["per_utt"] == want["per_utt"] and got["wer"] == want["wer"]
+    jtr = JTranscriber(cfg, state["params"])
+    ttr = Transcriber(cfg, params, "cpu")
+    for utt in read_manifest(cfg.data.eval_manifest)[:2]:
+        assert ttr.transcribe_file(utt.path) == jtr.transcribe_file(utt.path)
+
+    # and back: the port's checkpoint of this state, read by the reference
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    tstate = t_train.state_from_parts(
+        cfg, *t_ckpt.state_from_flat(flat, cfg), torch.device("cpu"))
+    back = t_ckpt.save_checkpoint(str(tmp_path / "back"), 2,
+                                  t_train.state_to_flat(cfg, tstate))
+    jstate, _ = load_checkpoint(back, init_train_state(cfg))
+    for k, v in _flatten(jstate["params"]).items():
+        np.testing.assert_array_equal(v, want_flat[k], err_msg=k)
+    assert int(jstate["step"]) == int(state["step"])
+
+
 def test_cli_compare_and_prepare_synth(tmp_path, capsys):
     from ctc_asr_tpu_torch import cli
     from ctc_asr_tpu_torch.data import read_manifest
@@ -251,6 +304,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, ctc_asr_tpu_torch, ctc_asr_tpu_torch.cli, "
             "ctc_asr_tpu_torch.evaluate, ctc_asr_tpu_torch.transcribe, "
             "ctc_asr_tpu_torch.ops.stft_cuda, ctc_asr_tpu_torch.ops.lstm_cuda,"
+            "ctc_asr_tpu_torch.ops.gru_cuda, ctc_asr_tpu_torch.data.generate,"
+            "ctc_asr_tpu_torch.utils.profiling, "
             "ctc_asr_tpu_torch.ops.ctc_cuda, ctc_asr_tpu_torch.train, "
             "ctc_asr_tpu_torch.ops.beam_cuda, ctc_asr_tpu_torch.ops.lm, "
             "ctc_asr_tpu_torch.optim, ctc_asr_tpu_torch.checkpoint;"

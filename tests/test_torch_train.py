@@ -58,7 +58,8 @@ def corpus(tmp_path_factory):
     return generate_corpus(str(d), num_utterances=8, seed=5)
 
 
-def _cfg(manifest, compute_dtype="float32", train_dir="", **train) -> Config:
+def _cfg(manifest, compute_dtype="float32", train_dir="", rnn_type="lstm",
+         **train) -> Config:
     tcfg = dict(learning_rate=1e-3, log_every=1, sync_every=1,
                 checkpoint_every=0, train_dir=train_dir)
     tcfg.update(train)
@@ -68,7 +69,7 @@ def _cfg(manifest, compute_dtype="float32", train_dir="", **train) -> Config:
                           conv_kernels=((5, 11), (3, 5)), rnn_layers=2,
                           rnn_units=16, bidirectional=True, dropout=0.0,
                           compute_dtype=compute_dtype,
-                          use_pallas_rnn=False),
+                          use_pallas_rnn=False, rnn_type=rnn_type),
         data=DataConfig(train_manifest=manifest, batch_size=2,
                         num_buckets=1, num_workers=1),
         train=TrainConfig(**tcfg))
@@ -92,7 +93,20 @@ def _one_step(cfg):
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_one_step_matches_reference(corpus, compute_dtype):
-    cfg = _cfg(corpus, compute_dtype)
+    _check_one_step(_cfg(corpus, compute_dtype))
+
+
+@pytest.mark.parametrize("rnn_type,compute_dtype", [
+    ("gru", "float32"), ("gru", "bfloat16"), ("rnn", "float32")])
+def test_one_step_gru_and_vanilla_match_reference(corpus, rnn_type,
+                                                  compute_dtype):
+    """The same step with a conv + BiGRU and a conv + Bi-tanh-RNN model,
+    at the same limits."""
+    _check_one_step(_cfg(corpus, compute_dtype, rnn_type=rnn_type))
+
+
+def _check_one_step(cfg):
+    compute_dtype = cfg.model.compute_dtype
     flat0, want, jm, got, m = _one_step(cfg)
     f32 = compute_dtype == "float32"
     tol, stol = (F32_TOL, F32_TOL) if f32 else (BF16_TOL, BF16_SCALAR_TOL)
@@ -320,12 +334,43 @@ def test_nan_trap_raises(corpus, tmp_path):
 
 def test_unported_regimes_raise(corpus, tmp_path):
     cfg = _cfg(corpus, train_dir=str(tmp_path))
-    for bad in (dataclasses.replace(cfg, mesh=dataclasses.replace(
-                    cfg.mesh, seq_axis=2)),
-                dataclasses.replace(cfg, train=dataclasses.replace(
-                    cfg.train, profile_dir=str(tmp_path / "prof")))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for mesh in (dict(seq_axis=2), dict(model_axis=2), dict(num_processes=2),
+                 dict(coordinator_address="localhost:1234")):
+        bad = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, **mesh))
+        with pytest.raises(NotImplementedError, match="A7/A8"):
             t_train.train(bad, "cpu", max_steps=1)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             t_train.train(cfg, "cuda", max_steps=1)
+
+
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_profile_dir_writes_a_trace_and_keeps_the_loss(corpus, tmp_path,
+                                                       rnn_type):
+    """``train.profile_dir`` wraps the loop in a torch.profiler trace: a
+    Chrome trace file appears there, it names the step's operators, and
+    the losses are those of the untraced run."""
+    plain = _cfg(corpus, train_dir=str(tmp_path / "plain"),
+                 rnn_type=rnn_type)
+    prof_dir = tmp_path / "prof"
+    traced = _cfg(corpus, train_dir=str(tmp_path / "traced"),
+                  rnn_type=rnn_type, profile_dir=str(prof_dir))
+    t_train.train(plain, "cpu", max_steps=2)
+    t_train.train(traced, "cpu", max_steps=2)
+    assert _losses(traced.train.train_dir) == _losses(plain.train.train_dir)
+    files = os.listdir(prof_dir)
+    assert len(files) == 1 and files[0].startswith("trace_") \
+        and files[0].endswith(".json")
+    with open(prof_dir / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("bmm" in e.get("name", "") for e in events)
+
+
+def test_time_fn_and_maybe_trace():
+    from ctc_asr_tpu_torch.utils import profiling
+    calls = []
+    dt = profiling.time_fn(lambda x: calls.append(x), 1, iters=4, warmup=2)
+    assert len(calls) == 6 and dt >= 0
+    with profiling.maybe_trace("") as t:
+        assert t is None
