@@ -15,11 +15,17 @@ Phases (any failure exits non-zero; no phase is skipped):
    (LSTM forward) at the serving shapes; K6/K7 (CTC α, β + gradient) at
    the train geometry B=128, T'=399, U=96 with ragged lengths, one
    empty and one infeasible row; K2 with residuals and K3 (LSTM BPTT)
-   at nd=2, B=128, T=399, H=512; K2 also at the ds3 width H=800, and
-   K1 and K2 at the decode slice's own shapes (B=16 and B=1, 3.52 s,
-   T=175); K8 (prefix beam search) on seeded logits at B=128, T=400,
-   C=29, K=64 in four modes (acoustic, order-4 char-LM fusion, an
-   order-5 table, N-best) and at B=1. Beside each kernel's time: its
+   at nd=2, B=128, T=399, H=512 and H=800, at the serving and cli-train
+   batch B=16, T=200, H=512 (another tiling of both kernels) and at T=1;
+   K2 also at the ds3
+   width H=800, and K1 and K2 at the decode slice's own shapes (B=16 and
+   B=1, 3.52 s, T=175). K2 and K3 run on their persistent route (one
+   cooperative launch a layer; the plan, µs a step and the step barrier's
+   own cost are printed, and two runs must give equal bits) and, at the
+   B=128 shapes, on the per-step route as well; K8 (prefix beam search)
+   on seeded logits at B=128, T=400, C=29, K=64 in four modes
+   (acoustic, order-4 char-LM fusion, an order-5 table, N-best) and at
+   B=1. Beside each kernel's time: its
    bound on this card (the bytes the function must move, once, over the
    memory rate, or the operations it needs over the peak rate,
    whichever is larger) and, where one PyTorch call computes the same
@@ -28,7 +34,9 @@ Phases (any failure exits non-zero; no phase is skipped):
 4. Serving slice: a seeded random checkpoint at full ``conv_bilstm3``
    width in the reference's keypath format, a synthetic corpus, then
    the port's ``cli evaluate`` and ``cli transcribe`` on ``cuda``. The
-   kernels' launch counters must rise during that run. Every eval batch
+   kernels' launch counters must rise during that run, and K2's
+   per-step route must stay at 0 (here and in every later slice: a main
+   path takes the persistent route). Every eval batch
    then goes through the kernel path and the plain path: finite logits
    of the expected shape and lengths, and a per-frame argmax that
    agrees on at least 99.5% of the valid frames.
@@ -283,10 +291,11 @@ def _lstm_inputs(nd, T, B, H, lens, seed):
     return [t.cuda().contiguous() for t in (xproj, b, wh, start, end)]
 
 
-def _cudnn_rnn_ms(cell: str, T, B, H):
+def _cudnn_rnn_ms(cell: str, T, B, H, nd: int = 2):
     """The nearest PyTorch call to K2 / K3 (``cell="LSTM"``) or K4 / K5
     (``"GRU"``): ``torch.nn.LSTM`` / ``torch.nn.GRU`` (cuDNN) in bf16,
-    bidirectional, [T, B, 2H] -> [T, B, 2H], full-length rows. ``nn.GRU``
+    [T, B, nd*H] -> [T, B, nd*H] (bidirectional for nd = 2), full-length
+    rows. ``nn.GRU``
     has the kernels' gate order (r, z, n) and reset-after-product form
     ``n = tanh(x_n + r * (h @ w_n))``. Unlike the kernels the call
     includes the input projection. Returns (inference forward ms,
@@ -294,10 +303,10 @@ def _cudnn_rnn_ms(cell: str, T, B, H):
     here only; the port never calls it."""
     import torch
     torch.manual_seed(0)
-    net = getattr(torch.nn, cell)(2 * H, H, bidirectional=True,
+    net = getattr(torch.nn, cell)(nd * H, H, bidirectional=nd == 2,
                                   device="cuda", dtype=torch.bfloat16)
-    x = torch.randn(T, B, 2 * H, device="cuda", dtype=torch.bfloat16)
-    g = torch.randn(T, B, 2 * H, device="cuda", dtype=torch.bfloat16)
+    x = torch.randn(T, B, nd * H, device="cuda", dtype=torch.bfloat16)
+    g = torch.randn(T, B, nd * H, device="cuda", dtype=torch.bfloat16)
 
     def infer():
         with torch.no_grad():
@@ -325,58 +334,114 @@ def _lstm_bounds(nd, T, B, H):
             bound(cell + 4 * cell + cell + 4 * cell + wh, flops, PEAK_BF16))
 
 
+def _plan_text(plan) -> str:
+    return (f"{plan.route} JT={plan.jt} BT={plan.bt} grid={plan.grid} = "
+            f"{plan.blocks} blocks, {plan.smem_bytes} B shared")
+
+
+def _barrier_us(plan, T: int) -> float:
+    """µs a step of a kernel that only runs the T-1 step barriers of
+    ``plan``'s grid (its launch included)."""
+    import torch
+    from ctc_asr_tpu_torch.ops import lstm_cuda
+    dev = torch.device("cuda")
+    ms = cuda_ms(lambda: lstm_cuda.barrier_probe(dev, plan, T - 1), reps=10)
+    return ms * 1e3 / (T - 1)
+
+
+def _outside(start, end, T):
+    import torch
+    t = torch.arange(T, device=start.device)[None, :, None]
+    return (t < start[:, None, :]) | (t >= end[:, None, :])
+
+
 def phase_lstm() -> dict:
+    """K2 (inference) on the persistent route at every shape a main path
+    gives it, and on the per-step route at the two B=128 shapes, each
+    held to the plain version; two persistent runs must give equal bits."""
     import torch
     from ctc_asr_tpu_torch.ops import lstm_cuda
     rng = np.random.default_rng(1)
-    res = {"max_abs_err": 0.0}
+    dev = torch.device("cuda")
+    res = {"max_abs_err": 0.0, "design": "persistent"}
     cases = [
         ("bi nd=2 B=128 T=399 H=512", 2, 399, 128, 512,
          np.concatenate([[399], rng.integers(200, 400, 127)]), ""),
         ("uni nd=1 B=37 T=50 H=512 ragged", 1, 50, 37, 512,
          np.concatenate([[50, 1, 2], rng.integers(1, 51, 34)]), None),
-        # the ds3 width: H = 3 * 256 + 32, a ragged last K chunk
+        # the ds3 width: H = 6 * 128 + 32, a ragged last K chunk
         ("bi nd=2 B=128 T=399 H=800", 2, 399, 128, 800,
          np.concatenate([[399], rng.integers(200, 400, 127)]), "_h800"),
         # the decode slice's own shapes: evaluate's batches, one request
         ("bi nd=2 B=16 T=175 H=800", 2, 175, 16, 800,
          np.concatenate([[175], rng.integers(60, 176, 15)]), None),
         ("bi nd=2 B=1 T=175 H=800", 2, 175, 1, 800, np.array([175]), None),
+        # the serving and cli-train batch at the conv_bilstm3 width: 16
+        # units a block, where B=128 above plans 32
+        ("bi nd=2 B=16 T=200 H=512", 2, 200, 16, 512,
+         np.concatenate([[200, 1], rng.integers(60, 201, 14)]), None),
+        # one step: no barrier, no product
+        ("bi nd=2 B=128 T=1 H=512", 2, 1, 128, 512,
+         np.concatenate([[1, 0], np.ones(126, np.int64)]), None),
     ]
     for label, nd, T, B, H, lens, key in cases:
         args = _lstm_inputs(nd, T, B, H, lens, seed=nd)
-        got = lstm_cuda.lstm_seq(*args)
+        plan = lstm_cuda.plan_for(dev, nd, B, H)
+        if plan.route != "persistent":
+            raise AssertionError(f"K2 {label}: planned {plan.route}")
         want = lstm_cuda.lstm_seq_plain(*args).to(torch.bfloat16)
-        torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        # outputs past each row's window must be exactly zero
-        t = torch.arange(T, device=got.device)[None, :, None]
-        outside = (t < args[3][:, None, :]) | (t >= args[4][:, None, :])
-        zero_ok = bool((got.float().abs().amax(-1)[outside] == 0).all())
-        ms = cuda_ms(lambda: lstm_cuda.lstm_seq(*args), reps=10)
+        outside = _outside(args[3], args[4], T)
+        routes = ("persistent", "per_step") if key is not None \
+            else ("persistent",)
+        ms = {}
+        for route in routes:
+            got = lstm_cuda.lstm_seq(*args, route=route)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            # outputs past each row's window must be exactly zero
+            zero_ok = bool((got.float().abs().amax(-1)[outside] == 0).all())
+            ms[route] = cuda_ms(lambda: lstm_cuda.lstm_seq(*args, route=route),
+                                reps=10)
+            log(f"[K2 lstm] {label} {route}: max_abs_err={err:.3e} "
+                f"mean_abs_err={diff.mean().item():.3e} (tol {LSTM_TOL}) "
+                f"zero_outside={zero_ok} kernel {ms[route]:.4f} ms = "
+                f"{ms[route] * 1e3 / T:.2f} us a step")
+            if not err <= LSTM_TOL or not zero_ok:
+                raise AssertionError(f"K2 {label} {route}: err {err} zero_ok "
+                                     f"{zero_ok}")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
         plain_ms = cuda_ms(lambda: lstm_cuda.lstm_seq_plain(*args), reps=3,
                            warmup=1)
-        log(f"[K2 lstm] {label}: max_abs_err={err:.3e} mean_abs_err="
-            f"{diff.mean().item():.3e} (tol {LSTM_TOL}) zero_outside="
-            f"{zero_ok} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        if not err <= LSTM_TOL or not zero_ok:
-            raise AssertionError(f"K2 {label}: err {err} zero_ok {zero_ok}")
-        res["max_abs_err"] = max(res["max_abs_err"], err)
+        lib_fwd, lib_bwd = _cudnn_rnn_ms("LSTM", T, B, H, nd)
+        b2, b3 = _lstm_bounds(nd, T, B, H)
+        log(f"[K2 lstm] {label}: plan {_plan_text(plan)}; kernel "
+            f"{ms['persistent']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b2['bound_ms']:.4f} ms by {b2['bound_by']} (chain of {T} "
+            f"steps), cuDNN nn.LSTM bf16 (with its input projection) forward "
+            f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms"
+            + (f"; kernel / cuDNN forward = {ms['persistent'] / lib_fwd:.3f}"
+               if H in (512, 800) and T > 1 else ""))
         if key is None:
             continue
-        lib_fwd, lib_bwd = _cudnn_rnn_ms("LSTM", T, B, H)
-        b2, b3 = _lstm_bounds(nd, T, B, H)
-        log(f"[K2 lstm] {label}: bound {b2['bound_ms']:.4f} ms by "
-            f"{b2['bound_by']}, chain of {T} steps; cuDNN nn.LSTM bf16 "
-            f"(with its input projection) forward {lib_fwd:.4f} ms, "
-            f"backward {lib_bwd:.4f} ms")
-        res.update({"ms" + key: ms, "plain_ms" + key: plain_ms,
+        again = lstm_cuda.lstm_seq(*args)
+        if not torch.equal(again, lstm_cuda.lstm_seq(*args)):
+            raise AssertionError(f"K2 {label}: two runs differ in their bits")
+        bar = _barrier_us(plan, T)
+        log(f"[K2 lstm] {label}: persistent {ms['persistent']:.4f} ms against "
+            f"per-step {ms['per_step']:.4f} ms = "
+            f"{ms['per_step'] / ms['persistent']:.2f}x; two runs bit-equal; "
+            f"the step barrier alone {bar:.2f} us a step")
+        res.update({"ms" + key: ms["persistent"], "plain_ms" + key: plain_ms,
                     "library_ms" + key: lib_fwd,
                     "bound_ms" + key: b2["bound_ms"],
-                    "bound_by" + key: b2["bound_by"]})
-        if not key:
-            res["bwd"] = {"library_ms": lib_bwd, **b3}
+                    "bound_by" + key: b2["bound_by"],
+                    "prev_ms" + key: ms["per_step"],
+                    "step_us" + key: ms["persistent"] * 1e3 / T,
+                    "barrier_us" + key: bar,
+                    "plan" + key: dataclasses.asdict(plan)})
+        res.setdefault("bwd", {})["library_ms" + key] = lib_bwd
+        res["bwd"].update({k + key: v for k, v in b3.items()})
     return res
 
 
@@ -486,57 +551,122 @@ def phase_ctc() -> dict:
 
 
 def phase_lstm_train() -> dict:
+    """K2 in residual mode and K3 on the persistent route at the train
+    step's shape, at the ds3 width, at cli train's batch of 16 and at T=1,
+    and on the per-step route
+    at the B=128 shapes, each held to the plain versions; two persistent
+    runs must give equal bits."""
     import torch
     from ctc_asr_tpu_torch.ops import lstm_cuda
-    nd, T, B, H = 2, 399, 128, 512
+    dev = torch.device("cuda")
     rng = np.random.default_rng(3)
-    lens = np.concatenate([[T], rng.integers(200, T + 1, B - 1)])
-    xproj, b, wh, start, end = _lstm_inputs(nd, T, B, H, lens, seed=5)
-    g = torch.Generator().manual_seed(6)
-    gout = (0.1 * torch.randn(nd, T, B, H, generator=g)).to(
-        torch.bfloat16).cuda()
-    h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
-                                     residuals=True)
-    dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
-    dwh = lstm_cuda.dwh_from_seq(h, dx)
-    ph, pc, pg = lstm_cuda.lstm_fwd_plain(xproj, b, wh, start, end)
-    # K3 and its plain version on the same inputs: the kernel's residuals
-    pdx, pdb = lstm_cuda.lstm_bwd_plain(gout, gates, c, wh, start, end)
-    pdwh = lstm_cuda.dwh_from_seq(h, pdx.to(torch.bfloat16))
-    torch.cuda.synchronize()
-    errs = {
-        "h": (h.float() - ph).abs().max().item(),
-        "c": (c.float() - pc).abs().max().item(),
-        "gates": (gates.float() - pg).abs().max().item(),
-    }
-    rel = {
-        "dxproj": ((dx.float() - pdx).abs().max() / pdx.abs().max()).item(),
-        "db": ((db - pdb).abs().max() / pdb.abs().max()).item(),
-        "dwh": ((dwh.float() - pdwh.float()).abs().max()
-                / pdwh.float().abs().max()).item(),
-    }
-    fwd_ms = cuda_ms(lambda: lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
-                                                residuals=True), reps=10)
-    fwd_plain = cuda_ms(lambda: lstm_cuda.lstm_fwd_plain(xproj, b, wh,
-                                                         start, end),
-                        reps=3, warmup=1)
-    bwd_ms = cuda_ms(lambda: lstm_cuda.lstm_bwd(gout, gates, c, wh, start,
-                                                end), reps=10)
-    bwd_plain = cuda_ms(lambda: lstm_cuda.lstm_bwd_plain(
-        gout, gates, c, wh, start, end), reps=3, warmup=1)
-    log(f"[K2+K3 lstm train] nd=2 B=128 T=399 H=512: max abs err h/c/gates "
-        f"{errs} (tol {LSTM_TOL}); relative to the largest: {rel} (tol "
-        f"{BPTT_RTOL})")
-    log(f"[K2 residual] kernel {fwd_ms:.4f} ms plain {fwd_plain:.4f} ms; "
-        f"[K3 bptt] kernel {bwd_ms:.4f} ms plain {bwd_plain:.4f} ms")
-    if max(errs.values()) > LSTM_TOL or max(rel.values()) > BPTT_RTOL \
-            or not torch.isfinite(dx.float()).all():
-        raise AssertionError(f"K2 residuals / K3: {errs} {rel}")
-    return {"lstm_fwd_res": {"max_abs_err": max(errs.values()),
-                             "ms": fwd_ms, "plain_ms": fwd_plain},
-            "lstm_bwd": {"max_abs_err": (dx.float() - pdx).abs().max().item(),
-                         "max_rel_err": max(rel.values()),
-                         "ms": bwd_ms, "plain_ms": bwd_plain}}
+    # B=16 is cli train's batch: it plans 16 units a block for both
+    # kernels, where B=128 at H=512 plans 32 (K3's stacked product)
+    cases = [("", 2, 399, 128, 512), ("_h800", 2, 399, 128, 800),
+             (None, 2, 200, 16, 512), (None, 2, 1, 128, 512)]
+    out = {"lstm_fwd_res": {"max_abs_err": 0.0},
+           "lstm_bwd": {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                        "design": "persistent"}}
+    for key, nd, T, B, H in cases:
+        label = f"nd={nd} B={B} T={T} H={H}"
+        # a full, a length-1 and an empty row among ragged ones
+        lens = np.concatenate([[T, 1, 0],
+                               rng.integers(T // 2, T + 1, B - 3)])
+        xproj, b, wh, start, end = _lstm_inputs(nd, T, B, H, lens, seed=5)
+        g = torch.Generator().manual_seed(6)
+        gout = (0.1 * torch.randn(nd, T, B, H, generator=g)).to(
+            torch.bfloat16).cuda()
+        plans = [lstm_cuda.plan_for(dev, nd, B, H, backward=bw)
+                 for bw in (False, True)]
+        if any(p.route != "persistent" for p in plans):
+            raise AssertionError(f"K2/K3 {label}: planned {plans}")
+        ph, pc, pg = lstm_cuda.lstm_fwd_plain(xproj, b, wh, start, end)
+        outside = _outside(start, end, T)
+        fwd_ms, bwd_ms = {}, {}
+        for route in ("persistent", "per_step") if key is not None \
+                else ("persistent",):
+            h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
+                                             residuals=True, route=route)
+            dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end,
+                                        route=route)
+            dwh = lstm_cuda.dwh_from_seq(h, dx)
+            # K3 and its plain version on the same inputs: this route's
+            # own residuals
+            pdx, pdb = lstm_cuda.lstm_bwd_plain(gout, gates, c, wh, start,
+                                                end)
+            pdwh = lstm_cuda.dwh_from_seq(h, pdx.to(torch.bfloat16))
+            torch.cuda.synchronize()
+            errs = {"h": (h.float() - ph).abs().max().item(),
+                    "c": (c.float() - pc).abs().max().item(),
+                    "gates": (gates.float() - pg).abs().max().item()}
+            rel = {"dxproj": ((dx.float() - pdx).abs().max()
+                              / pdx.abs().max()).item(),
+                   "db": ((db - pdb).abs().max() / pdb.abs().max()).item()}
+            if T > 1:       # at T=1 dwh is h_{-1}^T @ dgates = 0
+                rel["dwh"] = ((dwh.float() - pdwh.float()).abs().max()
+                              / pdwh.float().abs().max()).item()
+            zero_ok = bool(
+                (h.float().abs().amax(-1)[outside] == 0).all()
+                and (dx.float().abs().amax(-1)[outside] == 0).all())
+            log(f"[K2+K3 lstm train] {label} {route}: max abs err h/c/gates "
+                f"{errs} (tol {LSTM_TOL}); relative to the largest: {rel} "
+                f"(tol {BPTT_RTOL}); zero outside the windows={zero_ok}")
+            if max(errs.values()) > LSTM_TOL or max(rel.values()) > BPTT_RTOL \
+                    or not zero_ok or not torch.isfinite(dx.float()).all():
+                raise AssertionError(f"K2 residuals / K3 {label} {route}: "
+                                     f"{errs} {rel} zero_ok {zero_ok}")
+            fwd_ms[route] = cuda_ms(lambda: lstm_cuda.lstm_fwd(
+                xproj, b, wh, start, end, residuals=True, route=route),
+                reps=10)
+            bwd_ms[route] = cuda_ms(lambda: lstm_cuda.lstm_bwd(
+                gout, gates, c, wh, start, end, route=route), reps=10)
+            if route == "persistent":
+                out["lstm_fwd_res"]["max_abs_err"] = max(
+                    out["lstm_fwd_res"]["max_abs_err"], *errs.values())
+                out["lstm_bwd"]["max_abs_err"] = max(
+                    out["lstm_bwd"]["max_abs_err"],
+                    (dx.float() - pdx).abs().max().item())
+                out["lstm_bwd"]["max_rel_err"] = max(
+                    out["lstm_bwd"]["max_rel_err"], *rel.values())
+                again = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
+                                           residuals=True)
+                dx2, db2 = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
+                if not all(torch.equal(x, y) for x, y in zip(
+                        (h, c, gates, dx, db), (*again, dx2, db2))):
+                    raise AssertionError(f"K2 residuals / K3 {label}: two "
+                                         "runs differ in their bits")
+        log(f"[K2 residual] {label}: plan {_plan_text(plans[0])}; kernel "
+            f"{fwd_ms['persistent']:.4f} ms = "
+            f"{fwd_ms['persistent'] * 1e3 / T:.2f} us a step")
+        log(f"[K3 bptt] {label}: plan {_plan_text(plans[1])}; kernel "
+            f"{bwd_ms['persistent']:.4f} ms = "
+            f"{bwd_ms['persistent'] * 1e3 / T:.2f} us a step; two runs "
+            f"bit-equal")
+        if key is None:
+            continue
+        fwd_plain = cuda_ms(lambda: lstm_cuda.lstm_fwd_plain(
+            xproj, b, wh, start, end), reps=3, warmup=1)
+        bwd_plain = cuda_ms(lambda: lstm_cuda.lstm_bwd_plain(
+            gout, gates, c, wh, start, end), reps=3, warmup=1)
+        bar = _barrier_us(plans[1], T)
+        log(f"[K2 residual] {label}: persistent {fwd_ms['persistent']:.4f} "
+            f"ms, per-step {fwd_ms['per_step']:.4f} ms = "
+            f"{fwd_ms['per_step'] / fwd_ms['persistent']:.2f}x, plain "
+            f"{fwd_plain:.4f} ms; [K3 bptt] persistent "
+            f"{bwd_ms['persistent']:.4f} ms, per-step "
+            f"{bwd_ms['per_step']:.4f} ms = "
+            f"{bwd_ms['per_step'] / bwd_ms['persistent']:.2f}x, plain "
+            f"{bwd_plain:.4f} ms; the step barrier alone {bar:.2f} us a step")
+        out["lstm_fwd_res"].update({
+            "ms" + key: fwd_ms["persistent"], "plain_ms" + key: fwd_plain,
+            "prev_ms" + key: fwd_ms["per_step"]})
+        out["lstm_bwd"].update({
+            "ms" + key: bwd_ms["persistent"], "plain_ms" + key: bwd_plain,
+            "prev_ms" + key: bwd_ms["per_step"],
+            "step_us" + key: bwd_ms["persistent"] * 1e3 / T,
+            "barrier_us" + key: bar,
+            "plan" + key: dataclasses.asdict(plans[1])})
+    return out
 
 
 def _gru_inputs(nd, T, B, H, lens, seed):
@@ -923,6 +1053,7 @@ def phase_slice(tmp: str) -> dict:
 
     stft_cuda.stft_features.launches = 0
     lstm_cuda.lstm_fwd.launches = 0
+    lstm_cuda.lstm_fwd.per_step_launches = 0
     ev = run_cli(["evaluate", "--preset", "conv_bilstm3", "--ckpt", ckpt,
                   "--device=cuda"]
                  + [f"--{k}={v}" for k, v in overrides.items()])
@@ -930,10 +1061,13 @@ def phase_slice(tmp: str) -> dict:
                   "--device=cuda", *wavs])
     launches = {"stft": stft_cuda.stft_features.launches,
                 "lstm": lstm_cuda.lstm_fwd.launches}
-    log(f"[slice] kernel launches during evaluate+transcribe: {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
+    per_step = lstm_cuda.lstm_fwd.per_step_launches
+    log(f"[slice] kernel launches during evaluate+transcribe: {launches}; "
+        f"K2 on the per-step route: {per_step}")
+    if min(launches.values()) <= 0 or per_step:
+        raise AssertionError(f"a kernel of the path never launched, or K2 "
+                             f"left the persistent route: {launches}, "
+                             f"per-step {per_step}")
     res = json.loads(ev[ev.index("\n{") + 1:])
     log(f"[slice] evaluate: wer={res['wer']:.4f} (random weights) "
         f"rtf={res['rtf']:.6f} rtf_incl_compile="
@@ -951,21 +1085,30 @@ def phase_slice(tmp: str) -> dict:
 def _train_counters():
     from ctc_asr_tpu_torch.ops import (ctc_cuda, gru_cuda, lstm_cuda,
                                        stft_cuda)
-    return {"stft": stft_cuda.stft_features, "lstm_fwd": lstm_cuda.lstm_fwd,
-            "lstm_bwd": lstm_cuda.lstm_bwd, "gru_fwd": gru_cuda.gru_fwd,
-            "gru_bwd": gru_cuda.gru_bwd, "ctc_alpha": ctc_cuda.ctc_alpha,
-            "ctc_beta_grad": ctc_cuda.ctc_beta_grad}
+    c = {k: (fn, "launches") for k, fn in (
+        ("stft", stft_cuda.stft_features), ("lstm_fwd", lstm_cuda.lstm_fwd),
+        ("lstm_bwd", lstm_cuda.lstm_bwd), ("gru_fwd", gru_cuda.gru_fwd),
+        ("gru_bwd", gru_cuda.gru_bwd), ("ctc_alpha", ctc_cuda.ctc_alpha),
+        ("ctc_beta_grad", ctc_cuda.ctc_beta_grad))}
+    # K2 / K3's second route: no main path may take it
+    c["lstm_fwd_per_step"] = (lstm_cuda.lstm_fwd, "per_step_launches")
+    c["lstm_bwd_per_step"] = (lstm_cuda.lstm_bwd, "per_step_launches")
+    return c
+
+
+_PER_STEP_ROUTE = ("lstm_fwd_per_step", "lstm_bwd_per_step")
 
 
 def _count_launches(run, expect_none=()):
     """Set every train-path counter to 0, call ``run()``, and return
     (its result, the counts). Raises if a kernel named in ``expect_none``
-    launched, or any other did not."""
+    or the per-step route of K2 / K3 launched, or any other did not."""
+    expect_none = tuple(expect_none) + _PER_STEP_ROUTE
     counters = _train_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     out = run()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     idle = [k for k in launches if k not in expect_none and launches[k] <= 0]
     stray = [k for k in expect_none if launches[k] > 0]
     if idle or stray:
@@ -1196,6 +1339,7 @@ def phase_decode(tmp: str, manifest: str, train_dir: str) -> dict:
                 "beam": beam_cuda.beam_search_decode_cuda}
     for fn in counters.values():
         fn.launches = 0
+    lstm_cuda.lstm_fwd.per_step_launches = 0
     ds3 = ["--ckpt", ckpt, "--device=cuda"]
     fusion = {"decode.lm_path": lm_path}
     runs = {
@@ -1224,10 +1368,13 @@ def phase_decode(tmp: str, manifest: str, train_dir: str) -> dict:
         if len([ln for ln in out.splitlines() if "\t" in ln]) != len(wavs):
             raise AssertionError(f"transcribe ({mode}) printed no result")
     launches = {k: fn.launches for k, fn in counters.items()}
-    log(f"[decode] kernel launches during the decode slice: {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the decode path never launched: "
-                             f"{launches}")
+    per_step = lstm_cuda.lstm_fwd.per_step_launches
+    log(f"[decode] kernel launches during the decode slice: {launches}; K2 "
+        f"on the per-step route: {per_step}")
+    if min(launches.values()) <= 0 or per_step:
+        raise AssertionError(f"a kernel of the decode path never launched, "
+                             f"or K2 left the persistent route: {launches}, "
+                             f"per-step {per_step}")
 
     # K1 and K2 at this path's shapes ([16, 56320] samples, H=800, 5
     # layers) against the plain path, then every eval batch's logits
@@ -1331,8 +1478,8 @@ def _step_grads(cfg, params, arrs, mark=lambda: None):
 
 # device kernels of a train step, by layer (the first match names it)
 _KERNEL_GROUPS = (
-    ("K3 lstm_bwd", ("lstm_bwd_step_kernel",)),
-    ("K2 lstm_fwd", ("lstm_step_kernel",)),
+    ("K3 lstm_bwd", ("lstm_bwd_persistent_kernel", "lstm_bwd_step_kernel")),
+    ("K2 lstm_fwd", ("lstm_fwd_persistent_kernel", "lstm_step_kernel")),
     ("K5 gru_bwd", ("gru_bwd_step_kernel",)),
     ("K4 gru_fwd", ("gru_step_kernel",)),
     ("K1 stft", ("stft_mel_kernel",)),
@@ -1544,8 +1691,9 @@ def main() -> int:
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:199",
          "launches": tl["lstm_fwd"], "serve_launches": sl["launches"]["lstm"],
          "decode_launches": dl["lstm_fwd"],
-         **k2, "residual_ms": k23["lstm_fwd_res"]["ms"],
-         "residual_plain_ms": k23["lstm_fwd_res"]["plain_ms"]},
+         **k2, **{"residual_" + k: v
+                  for k, v in k23["lstm_fwd_res"].items()
+                  if k != "max_abs_err"}},
         {"name": "lstm_bwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/lstm_bwd.cu",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:247",

@@ -20,28 +20,58 @@
 //
 // What bounds it on the H100: like the forward, a strict chain of T
 // steps, each a [B, 4H] x [4H, H] product (nd=2, B=128, H=512: 0.54
-// GFLOP a step, small for the tensor cores) plus the cell; the step's
-// latency (launch, L2 -> shared-memory copies, barrier) is the cost.
+// GFLOP a step, under a microsecond of tensor-core work) plus the cell;
+// step t needs every block's dgates of step t+1. The cost of a step is
+// latency: the exchange of dgates between the SMs (four times the
+// forward's h), the barrier, and whatever is fetched again although it
+// never changes.
 //
-// What the design does about it, simple first: one launch per step in
-// reverse time, the mirror of lstm_fwd.cu's mapping. A block owns 32
-// hidden units of one direction for 32 batch rows. It first forms its
-// [32 rows x 32 units] tile of dgates_{t+1} @ wh^T with K = 4H: per K
-// chunk of 256 the dgates rows (read back from dxproj[t+1], written by
-// the previous launch: the launch boundary is the grid-wide barrier) and
-// the 32 wh rows of its units are copied to shared memory with cp.async,
-// and 8 warps run bf16 tensor-core products (WMMA 16x16x16, f32
-// accumulation; two warps per output tile, each over half of the chunk).
-// Then each thread runs the cell backward for 4 (row, unit) pairs with
-// dh_direct and dc kept in place in global memory by their single owner.
-// The bias gradient goes into a per-row-block partial [nbt, nd, 4H]
-// that only this block's (row block, direction, units) ever touches, so
-// the sums are deterministic; PyTorch adds the nbt partials.
+// What the design does about it (lstm_bwd_persistent_kernel): ONE
+// cooperative launch runs all T steps in reverse time, the mirror of
+// lstm_fwd.cu.
+// - A block owns JT hidden units of one direction for BT batch rows. Its
+//   resident slice is the wh rows of its units, wh[d][j0 .. +JT, :]
+//   (JT x 4H bf16), copied to shared memory once: the K-major operand B
+//   of dgates_{t+1} @ wh^T.
+// - dgates_{t+1} [rows, 4H] is what all blocks of the (direction, row
+//   block) group wrote to dxproj[t+1] in the step before. After the
+//   group's barrier (recurrence.cuh) one producer thread reads it back by
+//   TMA (L2, never a stale L1 line) in chunks through a ring of stages
+//   that a "full" and an "empty" mbarrier per stage hand to the two
+//   consumer warpgroups and back. dxproj is written once per element, so
+//   there is no buffer to overwrite and one barrier a step suffices. The
+//   exchange is 4x the forward's (each block reads rows x 4H x 2 bytes a
+//   step, 128 KB at H = 512), and it is what bounds this kernel.
+// - The product is wgmma (sm_90a) with the slab as the 64-row operand A.
+//   The output tile is only [32 rows x 32 units] (JT = 32), and a wgmma
+//   costs ~80 cycles however small it is, so the two halves of K are
+//   stacked as rows of both operands and one m64n64k16 forms both halves'
+//   partial products (recurrence.cuh). JT = 16 takes m64n16k16 on passes of
+//   64 rows, the warpgroups on alternate k-steps. The cell adds the two
+//   partial tiles in a fixed order.
+// - dh and dc of the block's (row, unit) pairs live in shared memory for
+//   all T; db is summed in registers over all T and rows and written once
+//   per block into db_part[row block, d, :] (no atomics, the same order
+//   every run).
+// - gates[t-1], c_seq[t-1], c_seq[t-2] and g_out[t-1] for the block's
+//   tile are fetched while the block waits at the barrier.
+// - tanh(c_t) uses the special-function exp (error ~1e-7, dgates are
+//   rounded to bf16).
+//
+// The second route (lstm_bwd_step_kernel / lstm_bwd_seq): one launch per
+// step in reverse time, the launch boundary as the barrier, each block
+// staging its wh rows again every step; for widths whose slices do not
+// fit the card's shared memory, and what the persistent design is
+// measured against. There a block owns 32 units x 32 rows, two warps per
+// output tile, dh and dc in global memory, db as per-step partial sums
+// into [ceil(B/32), nd, 4H].
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "recurrence.cuh"
 
 namespace {
 
@@ -223,4 +253,437 @@ extern "C" int lstm_bwd_seq(const void* g_out, const void* gates,
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// The persistent route: one cooperative launch for all T steps.
+// ---------------------------------------------------------------------------
+
+// Internal linkage: lstm_fwd.cu and lstm_bwd.cu each have their own Params,
+// Layout and launch under these names.
+namespace {
+namespace persistent {
+
+namespace rc = recurrence;
+typedef __nv_bfloat16 bf16;
+
+
+struct Params {
+  const bf16* g_out;    // [nd,T,B,H]
+  const bf16* gates;    // [nd,T,B,4H]
+  const bf16* c_seq;    // [nd,T,B,H]
+  const bf16* wh;       // [nd,H,4H]
+  const int* start;     // [nd,B]
+  const int* end;       // [nd,B]
+  bf16* dxproj;         // [nd,T,B,4H], written and read back across blocks
+  float* db_part;       // [row blocks, nd, 4H], every element written
+  unsigned* sync;       // [nd, row blocks] barrier counters, zeroed
+  int T, B, H, BT;
+};
+
+// The product of a pass: D[rows, JT units] = dg[rows, 4H] x Wr[JT, 4H]^T,
+// the slab as the 64-row wgmma operand A, the resident slice as operand B.
+// A wgmma costs ~80 cycles of the SM's tensor cores however small N is, so
+// the tile is shaped to need few of them. JT = 32 (passes of 32 rows): the
+// two halves of K = 4H are stacked as rows of both operands (recurrence.cuh,
+// load_unit_rows_stacked), so one m64n64k16 of warpgroup 0 forms both
+// halves' partial products and a step needs 4H/32 of them. JT = 16 (passes
+// of 64 rows): m64n16k16, the two warpgroups take the even and the odd
+// k-steps. The cell adds the two partial tiles.
+template <int JT>
+struct Layout {
+  static constexpr int PR = JT == 32 ? 32 : 64;    // rows of a pass
+  static constexpr int TR = 64;                    // rows of a ring tile
+  static constexpr int KC = JT == 32 ? 256 : 128;  // K chunk of a tile row
+  static constexpr int STAGES = JT == 32 ? 2 : 3;  // ring stages
+  static constexpr int LDC = JT + 4;               // f32
+  size_t wr, ring, cs, dh, dc, gt, ct, cp, go, se, bars, total;
+  __host__ __device__ Layout(int H, int BT) {
+    size_t o = 0;
+    // JT = 32: 64 stacked rows of K/2 = 2H, in whole atoms of 64 k (a
+    // partial last atom still spans 64 rows x 128 bytes)
+    wr = o;   o += rc::align1024(
+        JT == 32 ? (size_t)64 * ((2 * H + 63) / 64 * 64) * sizeof(bf16)
+                 : (size_t)JT * 4 * H * sizeof(bf16));
+    ring = o; o += rc::align1024((size_t)STAGES * KC * TR * sizeof(bf16));
+    cs = o;   o += rc::align128((size_t)2 * PR * LDC * sizeof(float));
+    dh = o;   o += rc::align128((size_t)BT * JT * sizeof(float));
+    dc = o;   o += rc::align128((size_t)BT * JT * sizeof(float));
+    gt = o;   o += rc::align128((size_t)BT * 4 * JT * sizeof(bf16));
+    ct = o;   o += rc::align128((size_t)BT * JT * sizeof(bf16));
+    cp = o;   o += rc::align128((size_t)BT * JT * sizeof(bf16));
+    go = o;   o += rc::align128((size_t)BT * JT * sizeof(bf16));
+    se = o;   o += rc::align128((size_t)2 * BT * sizeof(int));
+    bars = o; o += rc::align128((size_t)2 * STAGES * sizeof(long long));
+    total = o;
+  }
+};
+
+// exp on the special-function unit, as in the forward kernel
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
+}
+
+template <int JT>
+__global__ void __launch_bounds__(rc::THREADS, 1)
+lstm_bwd_persistent_kernel(const Params p,
+                           const __grid_constant__ CUtensorMap dmap) {
+  constexpr int PR = Layout<JT>::PR;
+  constexpr int STAGES = Layout<JT>::STAGES;
+  constexpr int KC = Layout<JT>::KC;
+  constexpr int LDC = Layout<JT>::LDC;
+  constexpr int CONSUMERS = rc::CONSUMERS;
+  constexpr int RSTEP = CONSUMERS / JT;   // row stride of a thread's pairs
+  constexpr int RPT = PR / RSTEP;         // (row, unit) pairs per thread
+  constexpr int PPG = JT / 8;             // 16-byte pieces per [.., JT] row
+  constexpr int TR = Layout<JT>::TR;
+  constexpr int STAGE = KC * TR;          // bf16 elements of a ring stage
+  constexpr bool STACKED = JT == 32;      // K halves stacked as rows
+  static_assert(RPT == 4, "the cell keeps 4 pairs a thread");
+  static_assert((size_t)RSTEP * 4 * JT <= (size_t)2 * PR * LDC,
+                "the db reduction aliases Cs");
+
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int T = p.T, B = p.B, H = p.H, BT = p.BT, G = 4 * p.H;
+  const Layout<JT> lay(H, BT);
+  bf16* Wr = reinterpret_cast<bf16*>(smem + lay.wr);       // atoms [JT][64]
+  bf16* ring = reinterpret_cast<bf16*>(smem + lay.ring);   // [STAGES] atoms [PR][64]
+  float* Cs = reinterpret_cast<float*>(smem + lay.cs);     // [2][PR][LDC]
+  float* dh_s = reinterpret_cast<float*>(smem + lay.dh);   // [BT][JT]
+  float* dc_s = reinterpret_cast<float*>(smem + lay.dc);   // [BT][JT]
+  bf16* gt_s = reinterpret_cast<bf16*>(smem + lay.gt);     // [BT][4*JT]
+  bf16* ct_s = reinterpret_cast<bf16*>(smem + lay.ct);     // [BT][JT] c_t
+  bf16* cp_s = reinterpret_cast<bf16*>(smem + lay.cp);     // [BT][JT] c_{t-1}
+  bf16* go_s = reinterpret_cast<bf16*>(smem + lay.go);     // [BT][JT]
+  int* st_s = reinterpret_cast<int*>(smem + lay.se);       // [BT]
+  int* en_s = st_s + BT;                                   // [BT]
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(smem + lay.bars);   // [STAGES]
+  unsigned long long* empty = full + STAGES;                    // [STAGES]
+
+  const int tid = threadIdx.x;
+  const bool producer = tid >= CONSUMERS;     // warp 8 feeds the ring
+  const int lane = tid % 32;
+  const int wq = (tid / 32) % 4;              // warp within its warpgroup
+  const int wg = tid / 128;                   // warpgroup: its k-steps
+  const int nd = gridDim.z;
+  const int d = blockIdx.z;
+  const int j0 = blockIdx.x * JT;
+  const int b0 = blockIdx.y * BT;
+  const int rows = min(BT, B - b0);           // > 0: the grid covers B
+  const int npass = (rows + PR - 1) / PR;
+  const int kw = STACKED ? G / 2 : G;         // columns a tile row spans
+  const int nkc = (kw + KC - 1) / KC;
+  const int nq = npass * nkc;                 // chunks of one step
+  const int u = tid % JT;
+  const int r = tid / JT;
+  const int j = j0 + u;
+  unsigned* counter = p.sync + d * gridDim.y + blockIdx.y;
+  const unsigned group = gridDim.x;           // blocks that share the rows
+  const unsigned long long desc_b = rc::smem_desc(Wr);
+
+  // the block's tiles of gates[t], c_seq[t], c_seq[t-1] and g_out[t]
+  // (consumers)
+  auto fetch_inputs = [&](int t) {
+    const size_t base = ((size_t)d * T + t) * B + b0;
+    for (int e = tid; e < rows * 7 * PPG; e += CONSUMERS) {
+      const int rr = e / (7 * PPG), a = (e % (7 * PPG)) / PPG, q = e % PPG;
+      const int jj = j0 + q * 8;
+      if (jj >= H) continue;
+      const size_t row = base + rr;
+      if (a < 4)
+        rc::cp_async16(gt_s + rr * 4 * JT + a * JT + q * 8,
+                       p.gates + row * G + a * H + jj);
+      else if (a == 4)
+        rc::cp_async16(ct_s + rr * JT + q * 8, p.c_seq + row * H + jj);
+      else if (a == 5) {
+        if (t > 0)
+          rc::cp_async16(cp_s + rr * JT + q * 8,
+                         p.c_seq + (row - B) * H + jj);
+      } else
+        rc::cp_async16(go_s + rr * JT + q * 8, p.g_out + row * H + jj);
+    }
+  };
+
+  // once: the resident slice, the windows, zero state, step T-1's inputs,
+  // the mbarriers of the ring
+  if constexpr (STACKED)
+    rc::load_unit_rows_stacked(Wr, p.wh + (size_t)d * H * G, H, G, j0);
+  else
+    rc::load_unit_rows<JT>(Wr, p.wh + (size_t)d * H * G, H, G, j0);
+  if (!producer) fetch_inputs(T - 1);
+  rc::cp_async_commit();
+  for (int e = tid; e < BT * JT; e += rc::THREADS) {
+    dh_s[e] = 0.f;
+    dc_s[e] = 0.f;
+  }
+  for (int e = tid; e < BT; e += rc::THREADS) {
+    st_s[e] = e < rows ? p.start[d * B + b0 + e] : 0;
+    en_s[e] = e < rows ? p.end[d * B + b0 + e] : 0;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      rc::mbar_init(full + s, 1);                   // the producer + bytes
+      rc::mbar_init(empty + s, CONSUMERS / 32);     // one arrival a warp
+    }
+  }
+  rc::cp_async_wait<0>();
+  rc::fence_proxy_async();
+  __syncthreads();
+
+  float dbacc[4] = {0.f, 0.f, 0.f, 0.f};
+  // Chunks handed over so far, counted alike by producers and consumers:
+  // chunk g goes through stage g % STAGES, and is the (g / STAGES)-th use
+  // of that stage, which gives the parity its mbarriers are waited with.
+  int g_chunk = 0;
+
+  for (int s = 0; s < T; ++s) {
+    const int t = T - 1 - s;
+    const bool has_next = s > 0;
+    // dgates of step t+1, written by the group before the last barrier
+    const bf16* dg = p.dxproj + ((size_t)d * T + t + 1) * B * G;
+
+    if (producer) {
+      // the slab of dgates_{t+1}, chunk after chunk, as far ahead of the
+      // products as the ring has free stages: one thread, one TMA
+      // instruction per box of [32 or 64 rows, 64 k]
+      if (has_next && tid == CONSUMERS) {
+        rc::fence_proxy_async_global();   // after the barrier's acquire
+        const int drow = (d * T + t + 1) * B + b0;
+        for (int q = 0; q < nq; ++q, ++g_chunk) {
+          const int st = g_chunk % STAGES, use = g_chunk / STAGES;
+          const int pass = q / nkc, k0 = (q % nkc) * KC;
+          const int natoms = (min(KC, kw - k0) + 63) / 64;
+          rc::mbar_wait(empty + st, (use & 1) ^ 1);
+          rc::mbar_expect_tx(full + st, natoms * TR * 128);
+          for (int a = 0; a < natoms; ++a) {
+            bf16* atom = ring + st * STAGE + a * TR * 64;
+            if constexpr (STACKED) {
+              // tile rows 0-31: the first half of K, rows 32-63: the second
+              rc::tma_load_box(atom, &dmap, k0 + 64 * a, drow + pass * PR,
+                               full + st);
+              rc::tma_load_box(atom + 32 * 64, &dmap, G / 2 + k0 + 64 * a,
+                               drow + pass * PR, full + st);
+            } else {
+              rc::tma_load_box(atom, &dmap, k0 + 64 * a, drow + pass * PR,
+                               full + st);
+            }
+          }
+        }
+      }
+    } else {
+      for (int pass = 0; pass < npass; ++pass) {
+        if (has_next) {
+          float acc[STACKED ? 32 : JT / 2];
+          for (int kc = 0; kc < nkc; ++kc, ++g_chunk) {
+            const int st = g_chunk % STAGES, use = g_chunk / STAGES;
+            rc::mbar_wait(full + st, use & 1);
+            const unsigned long long da = rc::smem_desc(ring + st * STAGE);
+            const int nks = min(KC, kw - kc * KC) / 16;
+            if constexpr (STACKED) {
+              if (wg == 0) {
+                rc::wgmma_fence();
+                for (int ks = 0; ks < nks; ++ks)
+                  rc::wgmma_m64n64k16(
+                      acc, rc::desc_at(da, TR, ks, 0),
+                      rc::desc_at(desc_b, 64, kc * (KC / 16) + ks, 0),
+                      kc > 0 || ks > 0);
+                rc::wgmma_commit();
+              }
+            } else {
+              rc::wgmma_fence();
+              for (int ks = wg; ks < nks; ks += 2)
+                rc::wgmma_m64n16k16(
+                    acc, rc::desc_at(da, TR, ks, 0),
+                    rc::desc_at(desc_b, JT, kc * (KC / 16) + ks, 0),
+                    kc > 0 || ks > wg);
+              rc::wgmma_commit();
+            }
+            if (kc > 0) {
+              // the products of the chunk before are done: its stage
+              // goes back to the producers
+              rc::wgmma_wait<1>();
+              if (lane == 0)
+                rc::mbar_arrive(empty + (g_chunk - 1) % STAGES);
+            }
+          }
+          rc::wgmma_wait<0>();
+          if (lane == 0) rc::mbar_arrive(empty + (g_chunk - 1) % STAGES);
+          rc::consumer_sync();    // the cell of the pass before has read Cs
+          // D[m][n], m = 16*wq + lane/4 + 8*hh, n = 8*jn + 2*(lane%4) + c
+          if constexpr (STACKED) {
+            if (wg == 0) {
+              rc::acc_fence(acc);
+              // rows and units of half h = wq/2 of K: m, n in [32h, 32h+32)
+              const int half = wq >> 1;
+              float* cw = Cs + half * PR * LDC
+                          + ((16 * wq + lane / 4) & 31) * LDC + 2 * (lane % 4);
+#pragma unroll
+              for (int jn = 0; jn < 8; ++jn) {
+                if ((jn >> 2) == half) {
+#pragma unroll
+                  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                    for (int c = 0; c < 2; ++c)
+                      cw[8 * hh * LDC + 8 * (jn & 3) + c] =
+                          acc[4 * jn + 2 * hh + c];
+                }
+              }
+            }
+          } else {
+            rc::acc_fence(acc);
+            float* cw = Cs + wg * PR * LDC + (16 * wq + lane / 4) * LDC
+                        + 2 * (lane % 4);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int jn = 0; jn < JT / 8; ++jn)
+#pragma unroll
+                for (int c = 0; c < 2; ++c)
+                  cw[8 * hh * LDC + 8 * jn + c] = acc[4 * jn + 2 * hh + c];
+          }
+        }
+        rc::cp_async_wait<0>();   // this thread's share of step t's inputs
+        rc::consumer_sync();
+
+        if (j < H) {
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const int rr = r + RSTEP * i;
+            const int br = pass * PR + rr;        // row within the block
+            if (br >= rows) continue;
+            const int bb = b0 + br;
+            const float dh_rec = has_next
+                ? Cs[rr * LDC + u] + Cs[PR * LDC + rr * LDC + u] : 0.f;
+            const float dh = dh_s[br * JT + u] + dh_rec;
+            const float dc = dc_s[br * JT + u];
+            const float mf = (t >= st_s[br] && t < en_s[br]) ? 1.f : 0.f;
+            const bf16* gp = gt_s + br * 4 * JT + u;
+            const float gi = __bfloat162float(gp[0 * JT]);
+            const float gf = __bfloat162float(gp[1 * JT]);
+            const float gg = __bfloat162float(gp[2 * JT]);
+            const float go = __bfloat162float(gp[3 * JT]);
+            const float c_t = __bfloat162float(ct_s[br * JT + u]);
+            const float c_prev =
+                t > 0 ? __bfloat162float(cp_s[br * JT + u]) : 0.f;
+            const float tanh_c = tanh_fast(c_t);
+
+            const float dh_total =
+                dh + mf * __bfloat162float(go_s[br * JT + u]);
+            const float dh_new = mf * dh_total;
+            const float dh_prev_direct = (1.f - mf) * dh_total;
+            const float d_o = dh_new * tanh_c;
+            const float dc_from_h = dh_new * go * (1.f - tanh_c * tanh_c);
+            const float dc_total = mf * dc + dc_from_h;
+            const float dc_prev_direct = (1.f - mf) * dc;
+            const float df = dc_total * c_prev;
+            const float di = dc_total * gg;
+            const float dg_ = dc_total * gi;
+            const float dc_prev_from_new = dc_total * gf;
+
+            const float dpre[4] = {di * gi * (1.f - gi),
+                                   df * gf * (1.f - gf),
+                                   dg_ * (1.f - gg * gg),
+                                   d_o * go * (1.f - go)};
+            bf16* dx = p.dxproj + (((size_t)d * T + t) * B + bb) * G;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              dx[g * H + j] = __float2bfloat16(dpre[g]);
+              dbacc[g] += dpre[g];
+            }
+            dh_s[br * JT + u] = dh_prev_direct;
+            dc_s[br * JT + u] = dc_prev_direct + dc_prev_from_new;
+          }
+        }
+      }
+    }
+
+    if (t > 0) {
+      // dgates_t was stored through the generic proxy and is read by TMA
+      if (!producer) rc::fence_proxy_async_global();
+      __syncthreads();        // every thread's dgates_t is written
+      if (!producer) {
+        fetch_inputs(t - 1);  // arrives while the block waits
+        rc::cp_async_commit();
+      }
+      if (tid == 0) {
+        rc::group_arrive(counter);
+        rc::group_wait(counter, (unsigned)(s + 1) * group);
+      }
+      __syncthreads();
+    }
+  }
+
+  // db: each thread's sums over all steps and its rows, then over the
+  // threads of a unit in a fixed order; written once
+  __syncthreads();
+  float* red = Cs;                              // [RSTEP][4][JT]
+  if (!producer) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) red[(r * 4 + g) * JT + u] = dbacc[g];
+  }
+  __syncthreads();
+  if (tid < 4 * JT) {
+    const int g = tid / JT, uu = tid % JT;
+    if (j0 + uu < H) {
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < RSTEP; ++q) sum += red[(q * 4 + g) * JT + uu];
+      p.db_part[((size_t)blockIdx.y * nd + d) * G + g * H + j0 + uu] = sum;
+    }
+  }
+}
+
+template <int JT>
+cudaError_t launch(const Params& p, int nd, int smem_bytes,
+                   cudaStream_t stream) {
+  static bool ready[rc::MAX_DEVICES] = {};
+  const Layout<JT> lay(p.H, p.BT);
+  if (lay.total != (size_t)smem_bytes) return cudaErrorInvalidValue;
+  const dim3 grid((p.H + JT - 1) / JT, (p.B + p.BT - 1) / p.BT, nd);
+  Params q = p;
+  // dxproj as a matrix [nd * T * B, 4H] for the slab's boxes
+  CUtensorMap dmap;
+  const cudaError_t err = rc::make_slab_map(
+      &dmap, p.dxproj, (unsigned long long)nd * p.T * p.B, 4ull * p.H,
+      Layout<JT>::PR);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&q, &dmap};
+  return rc::launch_persistent(
+      reinterpret_cast<const void*>(&lstm_bwd_persistent_kernel<JT>), ready,
+      grid, lay.total, args, stream);
+}
+
+}  // namespace persistent
+}  // namespace
+
+// One layer's BPTT in ONE cooperative launch on `stream`, with the plan
+// the host made (plan_recurrence, backward): JT units and BT rows a block,
+// smem_bytes of dynamic shared memory (checked against the kernel's own
+// layout). Needs H % 16 == 0, BT % 32 == 0, 16-byte aligned tensors.
+// db_part is [ceil(B / BT), nd, 4H] f32, uninitialized (every element is
+// written); sync is [nd * ceil(B / BT)] uint32, zeroed by the caller.
+// Returns cudaError_t; a grid that cannot be co-resident gives
+// cudaErrorCooperativeLaunchTooLarge.
+extern "C" int lstm_bwd_persistent(const void* g_out, const void* gates,
+                                   const void* c_seq, const void* wh,
+                                   const void* start, const void* end,
+                                   void* dxproj, void* db_part, void* sync,
+                                   int nd, int T, int B, int H, int jt,
+                                   int bt, int smem_bytes, void* stream) {
+  if (nd <= 0 || T <= 0 || B <= 0 || H <= 0) return (int)cudaSuccess;
+  if (H % 16 != 0 || bt <= 0 || bt % 32 != 0 || nd > 65535)
+    return (int)cudaErrorInvalidValue;
+  const persistent::Params p = {
+      (const __nv_bfloat16*)g_out, (const __nv_bfloat16*)gates,
+      (const __nv_bfloat16*)c_seq, (const __nv_bfloat16*)wh,
+      (const int*)start, (const int*)end, (__nv_bfloat16*)dxproj,
+      (float*)db_part, (unsigned*)sync, T, B, H, bt};
+  if (jt == 32)
+    return (int)persistent::launch<32>(p, nd, smem_bytes,
+                                       (cudaStream_t)stream);
+  if (jt == 16)
+    return (int)persistent::launch<16>(p, nd, smem_bytes,
+                                       (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }

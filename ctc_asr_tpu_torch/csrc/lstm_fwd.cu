@@ -14,34 +14,76 @@
 // (lstm_bwd.cu), exactly as lstm_pallas.py:229-232. Null residual
 // pointers give the inference launch.
 //
-// What bounds it on the H100: a strict chain of T steps, each a
-// [B, H] x [H, 4H] product (nd=2, B=128, H=512: 0.54 GFLOP, 4 MB of
-// bf16 weights re-read from L2 every step) plus the cell. The product
-// is small for the tensor cores; the step's latency is the cost: the
-// launch, the L2 -> shared-memory copies of h and wh, and the barrier.
+// What bounds it on the H100: not bytes and not operations but a strict
+// chain of T steps. A step is a [B, H] x [H, 4H] product (nd=2, B=128,
+// H=512: 0.54 GFLOP, under a microsecond of tensor-core work) plus the
+// cell, and the next step needs all of this step's h. So the cost of a
+// step is latency: the exchange of h between the SMs, the barrier, and
+// whatever is fetched again although it never changes.
 //
-// What the design does about it, simple first: the host loop over t
-// runs inside this library (one ctypes call per layer), one launch per
-// step on the caller's stream. A block owns 32 hidden units j of one
-// direction for 32 batch rows and computes exactly the four gate columns
-// {i,f,g,o} of those units, so the cell update needs no exchange between
-// blocks. Per K chunk of 256, h (kept as a bf16 copy beside the f32
-// state, so it is the bf16 the reference feeds the product) and the
-// 128 wh columns are copied to shared memory with cp.async (16 bytes a
-// copy, all in flight together), and 8 warps run bf16 tensor-core
-// products (WMMA 16x16x16, f32 accumulation) into a [32, 128] f32 tile.
-// Each thread then reads the four gates of its (row, unit) pairs from
-// that tile. h ping-pongs between two buffers (step t reads one, writes
-// the other), so no block reads an h another block is writing; c is
-// updated in place by its single owner. bf16 x bf16 products are exact
-// in f32, so only the order of the f32 sums differs from the plain
-// version. Left for later: a persistent kernel with wh resident across
-// SMs and a grid-wide barrier per step, and wgmma.
+// What the design does about it (lstm_fwd_persistent_kernel): ONE
+// cooperative launch runs all T steps.
+// - A block owns JT hidden units of one direction (the 4*JT gate columns
+//   {i,f,g,o} of those units, so the cell needs no exchange) for BT batch
+//   rows, for the whole sequence. Its slice wh[d][:, g*H + j0 .. +JT] is
+//   copied to shared memory once and stays there: per step the only
+//   operand that crosses the chip is h.
+// - h_t goes as bf16 (what the reference feeds the product) through a
+//   ping-pong buffer in global memory: step t reads buffer t&1 and writes
+//   buffer (t+1)&1. The blocks of one (direction, row block) group meet at
+//   a barrier after each step (recurrence.cuh); other groups never wait
+//   for them. Two buffers and one barrier a step suffice: a block
+//   overwrites buffer t&1 only in step t+1, after barrier t, which it
+//   passes only once every block of the group has arrived there, and a
+//   block arrives only after its last read of buffer t&1 (its consumers
+//   have waited for the last chunk's "full" mbarrier before the cell, and
+//   the cell comes before the arrival).
+// - The [rows, H] slab of h is read by TMA (cp.async.bulk.tensor: L2,
+//   never a stale L1 line) in K chunks through a ring of stages, boxes of
+//   [32 or 64 rows, 64 k] with the 128-byte swizzle that wgmma reads. One
+//   thread of a ninth warp starts the copies as far ahead as the ring has
+//   free stages; a "full" and an "empty" mbarrier per stage hand them to
+//   the two consumer warpgroups and back. The copies cost the consumers
+//   no instruction, and all of a step's chunks are in flight at once
+//   where the ring holds them (H <= 768 for JT = 32). A block with more
+//   rows than a pass streams its passes through the same ring against the
+//   same resident slice.
+// - The product is wgmma (sm_90a), transposed: D^T[gate columns, rows] =
+//   Wa x h^T, so the resident slice is the 64-row operand A straight from
+//   shared memory and the batch rows are N = 32: the serving shapes
+//   (B = 16, B = 1) need no other variant, and a warpgroup whose rows are
+//   all padding skips the product. The products of a chunk run while the
+//   next chunk is awaited; a stage goes back to the producer when the
+//   products of its chunk are done (one chunk behind).
+// - c (f32) and the bf16 h of the block's own (row, unit) pairs live in
+//   shared memory for all T: no state scratch in global memory and
+//   nothing to zero but the barrier counters. (An f32 h is not needed:
+//   the reference consumes h only rounded to bf16 or carried unchanged.)
+// - xproj[t+1] for the block's tile is fetched while the block waits at
+//   the barrier; the bias and the windows are loaded once. The exchanged
+//   h is stored first and the block arrives at the barrier before it
+//   writes h_out (and c, gates in residual mode): those stores are off
+//   the chain.
+// - The cell's sigmoid and tanh use the special-function exp; the error
+//   (~1e-7) is far below the bf16 that the outputs are rounded to.
+// bf16 x bf16 products are exact in f32, so only the order of the f32
+// sums differs from the plain version. What is left of a step (~6 us at
+// H = 512) is latency that the chain cannot hide: the barrier (store
+// acknowledgement, atomic, poll: ~2.5 us), the first chunk's way from L2
+// (~1 us), the product, the cell.
+//
+// The second route (lstm_step_kernel / lstm_fwd_seq): one launch per
+// step, the launch boundary as the barrier, each block staging its wh
+// slice again every step. It serves widths whose slices do not fit the
+// card's shared memory (the host's plan_recurrence decides from shapes
+// alone) and is what the persistent design is measured against.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "recurrence.cuh"
 
 namespace {
 
@@ -223,4 +265,372 @@ extern "C" int lstm_fwd_seq(const void* xproj, const void* bias,
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// The persistent route: one cooperative launch for all T steps.
+// ---------------------------------------------------------------------------
+
+// Internal linkage: lstm_fwd.cu and lstm_bwd.cu each have their own Params,
+// Layout and launch under these names.
+namespace {
+namespace persistent {
+
+namespace rc = recurrence;
+typedef __nv_bfloat16 bf16;
+
+struct Params {
+  const bf16* xproj;    // [nd,T,B,4H]
+  const float* bias;    // [nd,4H]
+  const bf16* wh;       // [nd,H,4H]
+  const int* start;     // [nd,B]
+  const int* end;       // [nd,B]
+  bf16* hb;             // [2,nd,B,H] ping-pong, exchanged between blocks
+  unsigned* sync;       // [nd, row blocks] barrier counters, zeroed
+  bf16* h_out;          // [nd,T,B,H]
+  bf16* c_out;          // [nd,T,B,H] or null
+  bf16* gates_out;      // [nd,T,B,4H] or null
+  int T, B, H, BT;
+};
+
+// The product of a pass is transposed: D^T[4*JT gate columns, rows] =
+// Wa[4*JT, H] x h[rows, H]^T, so the resident slice is the 64-row wgmma
+// operand A and the batch rows are N = 32 per warpgroup (m64n32k16).
+// JT = 32: the two warpgroups take the two 64-column halves of the 128
+// gate columns for the same 32 rows. JT = 16: both take the 64 gate
+// columns, for rows 0-31 and 32-63 of a pass of 64.
+template <int JT>
+struct Layout {
+  static constexpr int M = 4 * JT;                 // gate columns
+  static constexpr int PR = JT == 32 ? 32 : 64;    // rows of a pass
+  static constexpr int KC = JT == 32 ? 256 : 128;  // K chunk of the h slab
+  static constexpr int STAGES = JT == 32 ? 3 : 4;  // ring stages
+  static constexpr int LDC = M + 4;                // f32
+  size_t wa, ring, cs, xs, cst, hst, bias, se, bars, total;
+  __host__ __device__ Layout(int H, int BT) {
+    size_t o = 0;
+    wa = o;   o += rc::align1024((size_t)(H + 63) / 64 * 64 * M * sizeof(bf16));
+    ring = o; o += rc::align1024((size_t)STAGES * KC * PR * sizeof(bf16));
+    cs = o;   o += rc::align128((size_t)PR * LDC * sizeof(float));
+    xs = o;   o += rc::align128((size_t)BT * M * sizeof(bf16));
+    cst = o;  o += rc::align128((size_t)BT * JT * sizeof(float));
+    hst = o;  o += rc::align128((size_t)BT * JT * sizeof(bf16));
+    bias = o; o += rc::align128((size_t)M * sizeof(float));
+    se = o;   o += rc::align128((size_t)2 * BT * sizeof(int));
+    bars = o; o += rc::align128((size_t)2 * STAGES * sizeof(long long));
+    total = o;
+  }
+};
+
+// exp on the special-function unit; the error (~1e-7 absolute in the
+// gate) is far below the bf16 the gates and h are rounded to
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * x));
+}
+
+template <int JT>
+__global__ void __launch_bounds__(rc::THREADS, 1)
+lstm_fwd_persistent_kernel(const Params p,
+                           const __grid_constant__ CUtensorMap hmap) {
+  constexpr int M = Layout<JT>::M;
+  constexpr int PR = Layout<JT>::PR;
+  constexpr int STAGES = Layout<JT>::STAGES;
+  constexpr int KC = Layout<JT>::KC;
+  constexpr int LDC = Layout<JT>::LDC;
+  constexpr int CONSUMERS = rc::CONSUMERS;
+  constexpr int RSTEP = CONSUMERS / JT;   // row stride of a thread's pairs
+  constexpr int RPT = PR / RSTEP;         // (row, unit) pairs per thread
+  constexpr int XPR = M / 8;              // 16-byte pieces per xproj row
+  constexpr int STAGE = KC * PR;          // bf16 elements of a ring stage
+  static_assert(RPT == 4, "the cell keeps 4 pairs a thread");
+
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int T = p.T, B = p.B, H = p.H, BT = p.BT, G = 4 * p.H;
+  const Layout<JT> lay(H, BT);
+  bf16* Wa = reinterpret_cast<bf16*>(smem + lay.wa);       // atoms [M][64]
+  bf16* ring = reinterpret_cast<bf16*>(smem + lay.ring);   // [STAGES] atoms [PR][64]
+  float* Cs = reinterpret_cast<float*>(smem + lay.cs);     // [PR][LDC]
+  bf16* xs = reinterpret_cast<bf16*>(smem + lay.xs);       // [BT][M]
+  float* cst = reinterpret_cast<float*>(smem + lay.cst);   // [BT][JT]
+  bf16* hst = reinterpret_cast<bf16*>(smem + lay.hst);     // [BT][JT]
+  float* bias_s = reinterpret_cast<float*>(smem + lay.bias);
+  int* st_s = reinterpret_cast<int*>(smem + lay.se);       // [BT]
+  int* en_s = st_s + BT;                                   // [BT]
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(smem + lay.bars);   // [STAGES]
+  unsigned long long* empty = full + STAGES;                    // [STAGES]
+
+  const int tid = threadIdx.x;
+  const bool producer = tid >= CONSUMERS;     // warp 8 feeds the ring
+  const int lane = tid % 32;
+  const int wq = (tid / 32) % 4;              // warp within its warpgroup
+  const int wg = tid / 128;                   // warpgroup (consumers: 0, 1)
+  const int nd = gridDim.z;
+  const int d = blockIdx.z;
+  const int j0 = blockIdx.x * JT;
+  const int b0 = blockIdx.y * BT;
+  const int rows = min(BT, B - b0);           // > 0: the grid covers B
+  const int npass = (rows + PR - 1) / PR;
+  const int nkc = (H + KC - 1) / KC;
+  const int nq = npass * nkc;                 // chunks of one step
+  const int m_base = JT == 32 ? 64 * wg : 0;  // this warpgroup's D^T rows
+  const int n_base = JT == 32 ? 0 : 32 * wg;  // and its rows of the pass
+  const int u = tid % JT;                     // unit within the block
+  const int r = tid / JT;                     // first row of its pairs
+  const int j = j0 + u;
+  const bf16* xp_d = p.xproj + (size_t)d * T * B * G;
+  unsigned* counter = p.sync + d * gridDim.y + blockIdx.y;
+  const unsigned group = gridDim.x;           // blocks that share the rows
+  const unsigned long long desc_a = rc::smem_desc(Wa);
+
+  // xproj[d, t, b0 .. b0+rows, the block's 4*JT columns] -> xs (consumers)
+  auto fetch_x = [&](int t) {
+    for (int e = tid; e < rows * XPR; e += CONSUMERS) {
+      const int rr = e / XPR, g = (e % XPR) / (JT / 8), q = e % (JT / 8);
+      if (j0 + q * 8 < H)
+        rc::cp_async16(xs + rr * M + g * JT + q * 8,
+                       xp_d + ((size_t)t * B + b0 + rr) * G + g * H + j0
+                           + q * 8);
+    }
+  };
+
+  // once: the resident slice, the bias, the windows, xproj[0], the
+  // mbarriers of the ring
+  if (!producer) {
+    fetch_x(0);
+    rc::cp_async_commit();
+  }
+  rc::load_gate_columns<4, JT>(Wa, p.wh + (size_t)d * H * G, H, j0);
+  for (int e = tid; e < M; e += rc::THREADS) {
+    const int g = e / JT, uu = e % JT;
+    bias_s[e] = j0 + uu < H ? p.bias[(size_t)d * G + g * H + j0 + uu] : 0.f;
+  }
+  for (int e = tid; e < BT; e += rc::THREADS) {
+    st_s[e] = e < rows ? p.start[d * B + b0 + e] : 0;
+    en_s[e] = e < rows ? p.end[d * B + b0 + e] : 0;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      rc::mbar_init(full + s, 1);                   // the producer + bytes
+      rc::mbar_init(empty + s, CONSUMERS / 32);     // one arrival a warp
+    }
+  }
+  rc::cp_async_wait<0>();
+  rc::fence_proxy_async();
+  __syncthreads();
+
+  // what the cell of the step's last pass leaves to be written after the
+  // block's arrival at the barrier
+  bf16 o_h[RPT], o_c[RPT], o_g[RPT][4];
+  bool o_m[RPT];
+  // Chunks handed over so far, counted alike by producers and consumers:
+  // chunk g goes through stage g % STAGES, and is the (g / STAGES)-th use
+  // of that stage, which gives the parity its mbarriers are waited with.
+  int g_chunk = 0;
+
+  for (int t = 0; t < T; ++t) {
+    // step t reads h_{t-1} from buffer t&1 and writes h_t to the other
+    const bf16* hcur = p.hb + ((size_t)(t & 1) * nd + d) * B * H;
+    bf16* hnxt = p.hb + ((size_t)((t + 1) & 1) * nd + d) * B * H;
+    const bool product = t > 0;               // h_{-1} = 0: no product
+
+    // h_out, and c and the gates in residual mode, of the pairs of `pass`
+    auto write_outputs = [&](int pass) {
+      if (j >= H) return;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int br = pass * PR + r + RSTEP * i;
+        if (br >= rows) continue;
+        const size_t ot = ((size_t)d * T + t) * B + b0 + br;
+        p.h_out[ot * H + j] = o_m[i] ? o_h[i] : __float2bfloat16(0.f);
+        if (p.c_out != nullptr) {
+          p.c_out[ot * H + j] = o_c[i];
+          bf16* gp = p.gates_out + ot * G;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) gp[g * H + j] = o_g[i][g];
+        }
+      }
+    };
+
+    if (producer) {
+      // the slab of h_{t-1}, chunk after chunk, as far ahead of the
+      // products as the ring has free stages: one thread, one TMA
+      // instruction per box of [PR rows, 64 k]
+      if (product && tid == CONSUMERS) {
+        rc::fence_proxy_async_global();   // after the barrier's acquire
+        const int hrow = ((t & 1) * nd + d) * B + b0;
+        for (int q = 0; q < nq; ++q, ++g_chunk) {
+          const int s = g_chunk % STAGES, use = g_chunk / STAGES;
+          const int pass = q / nkc, k0 = (q % nkc) * KC;
+          const int natoms = (min(KC, H - k0) + 63) / 64;
+          rc::mbar_wait(empty + s, (use & 1) ^ 1);
+          rc::mbar_expect_tx(full + s, natoms * PR * 128);
+          for (int a = 0; a < natoms; ++a)
+            rc::tma_load_box(ring + s * STAGE + a * PR * 64, &hmap,
+                             k0 + 64 * a, hrow + pass * PR, full + s);
+        }
+      }
+    } else {
+      for (int pass = 0; pass < npass; ++pass) {
+        if (product) {
+          // a warpgroup whose 32 rows are all padding needs no product
+          const bool active = pass * PR + n_base < rows;
+          float acc[16];
+          for (int kc = 0; kc < nkc; ++kc, ++g_chunk) {
+            const int s = g_chunk % STAGES, use = g_chunk / STAGES;
+            rc::mbar_wait(full + s, use & 1);
+            if (active) {
+              const unsigned long long db = rc::smem_desc(ring + s * STAGE);
+              const int nks = min(KC, H - kc * KC) / 16;
+              rc::wgmma_fence();
+              for (int ks = 0; ks < nks; ++ks)
+                rc::wgmma_m64n32k16(
+                    acc, rc::desc_at(desc_a, M, kc * (KC / 16) + ks, m_base),
+                    rc::desc_at(db, PR, ks, n_base), kc > 0 || ks > 0);
+              rc::wgmma_commit();
+            }
+            if (kc > 0) {
+              // the products of the chunk before are done: its stage
+              // goes back to the producers
+              rc::wgmma_wait<1>();
+              if (lane == 0)
+                rc::mbar_arrive(empty + (g_chunk - 1) % STAGES);
+            }
+          }
+          rc::wgmma_wait<0>();
+          if (lane == 0) rc::mbar_arrive(empty + (g_chunk - 1) % STAGES);
+          rc::consumer_sync();    // the cell of the pass before has read Cs
+          if (active) {
+            rc::acc_fence(acc);
+            float* cw = Cs + (n_base + 2 * (lane % 4)) * LDC + m_base
+                        + 16 * wq + lane / 4;
+#pragma unroll
+            for (int jn = 0; jn < 4; ++jn)
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                for (int c = 0; c < 2; ++c)
+                  cw[(8 * jn + c) * LDC + 8 * hh] = acc[4 * jn + 2 * hh + c];
+          }
+        }
+        rc::cp_async_wait<0>();   // this thread's share of xproj[t]
+        rc::consumer_sync();
+
+        // the cell: each thread owns RPT (row, unit) pairs of the pass
+        if (j < H) {
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const int rr = r + RSTEP * i;
+            const int br = pass * PR + rr;        // row within the block
+            if (br >= rows) continue;
+            float pre[4];
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              pre[g] = __bfloat162float(xs[br * M + g * JT + u])
+                       + bias_s[g * JT + u];
+              if (product) pre[g] += Cs[rr * LDC + g * JT + u];
+            }
+            const float gi = sigmoid_fast(pre[0]);
+            const float gf = sigmoid_fast(pre[1]);
+            const float gg = tanh_fast(pre[2]);
+            const float go = sigmoid_fast(pre[3]);
+            const float c_old = product ? cst[br * JT + u] : 0.f;
+            const bf16 h_old = product ? hst[br * JT + u]
+                                       : __float2bfloat16(0.f);
+            const float c_new = gf * c_old + gi * gg;
+            const float h_new = go * tanh_fast(c_new);
+            const bool m = t >= st_s[br] && t < en_s[br];
+            const float c_keep = m ? c_new : c_old;
+            const bf16 hb = m ? __float2bfloat16(h_new) : h_old;
+            cst[br * JT + u] = c_keep;
+            hst[br * JT + u] = hb;
+            // the exchanged h first: it is what the other blocks wait for
+            if (t + 1 < T) hnxt[(size_t)(b0 + br) * H + j] = hb;
+            o_m[i] = m;
+            o_h[i] = hb;
+            o_c[i] = __float2bfloat16(c_keep);
+            o_g[i][0] = __float2bfloat16(gi);
+            o_g[i][1] = __float2bfloat16(gf);
+            o_g[i][2] = __float2bfloat16(gg);
+            o_g[i][3] = __float2bfloat16(go);
+          }
+        }
+        if (pass + 1 < npass) write_outputs(pass);
+      }
+    }
+
+    if (t + 1 < T) {
+      // h_t was stored through the generic proxy and is read by TMA
+      if (!producer) rc::fence_proxy_async_global();
+      __syncthreads();        // every thread's h_t is written, xs is free
+      if (!producer) {
+        fetch_x(t + 1);       // arrives while the block waits
+        rc::cp_async_commit();
+      }
+      if (tid == 0) rc::group_arrive(counter);
+      if (!producer) write_outputs(npass - 1);   // off the chain
+      if (tid == 0) rc::group_wait(counter, (unsigned)(t + 1) * group);
+      __syncthreads();
+    } else if (!producer) {
+      write_outputs(npass - 1);
+    }
+  }
+}
+
+template <int JT>
+cudaError_t launch(const Params& p, int nd, int smem_bytes,
+                   cudaStream_t stream) {
+  static bool ready[rc::MAX_DEVICES] = {};
+  const Layout<JT> lay(p.H, p.BT);
+  if (lay.total != (size_t)smem_bytes) return cudaErrorInvalidValue;
+  const dim3 grid((p.H + JT - 1) / JT, (p.B + p.BT - 1) / p.BT, nd);
+  Params q = p;
+  // the h exchange as a matrix [2 * nd * B, H] for the slab's boxes
+  CUtensorMap hmap;
+  const cudaError_t err = rc::make_slab_map(
+      &hmap, p.hb, 2ull * nd * p.B, p.H, Layout<JT>::PR);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&q, &hmap};
+  return rc::launch_persistent(
+      reinterpret_cast<const void*>(&lstm_fwd_persistent_kernel<JT>), ready,
+      grid, lay.total, args, stream);
+}
+
+}  // namespace persistent
+}  // namespace
+
+// One layer in ONE cooperative launch on `stream`, with the plan the host
+// made (plan_recurrence): JT units and BT rows a block, smem_bytes of
+// dynamic shared memory (checked against the kernel's own layout). Needs
+// H % 16 == 0, BT % 32 == 0, 16-byte aligned xproj / wh / hb16. hb16 is
+// [2, nd, B, H] bf16, uninitialized; sync is [nd * ceil(B / BT)] uint32,
+// zeroed by the caller. c_out and gates_out are both given (training) or
+// both null (inference). Returns cudaError_t; a grid that cannot be
+// co-resident gives cudaErrorCooperativeLaunchTooLarge.
+extern "C" int lstm_fwd_persistent(const void* xproj, const void* bias,
+                                   const void* wh, const void* start,
+                                   const void* end, void* hb16, void* sync,
+                                   void* h_out, void* c_out, void* gates_out,
+                                   int nd, int T, int B, int H, int jt,
+                                   int bt, int smem_bytes, void* stream) {
+  if (nd <= 0 || T <= 0 || B <= 0 || H <= 0) return (int)cudaSuccess;
+  if (H % 16 != 0 || bt <= 0 || bt % 32 != 0 || nd > 65535
+      || (c_out == nullptr) != (gates_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const persistent::Params p = {
+      (const __nv_bfloat16*)xproj, (const float*)bias,
+      (const __nv_bfloat16*)wh, (const int*)start, (const int*)end,
+      (__nv_bfloat16*)hb16, (unsigned*)sync, (__nv_bfloat16*)h_out,
+      (__nv_bfloat16*)c_out, (__nv_bfloat16*)gates_out, T, B, H, bt};
+  if (jt == 32)
+    return (int)persistent::launch<32>(p, nd, smem_bytes,
+                                       (cudaStream_t)stream);
+  if (jt == 16)
+    return (int)persistent::launch<16>(p, nd, smem_bytes,
+                                       (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -52,6 +52,16 @@ _SIGNATURES = {
     # db_part, nd, T, B, H, stream
     "lstm_bwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _P],
+    # xproj, bias, wh, start, end, hb16, sync, h_out, c_out, gates_out, nd,
+    # T, B, H, jt, bt, smem_bytes, stream
+    "lstm_fwd_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _P],
+    # g_out, gates, c_seq, wh, start, end, dxproj, db_part, sync, nd, T, B,
+    # H, jt, bt, smem_bytes, stream
+    "lstm_bwd_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _P],
+    # sync, unit_tiles, row_blocks, nd, steps, smem_bytes, stream
+    "recurrence_barrier_probe": [_P, _I, _I, _I, _I, _I, _P],
     # xproj, bias, wh, start, end, hbuf, hb16, h_out, gates_out, nd, T, B,
     # H, stream
     "gru_fwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -10,16 +10,170 @@ The input projections ``x @ wx`` and the recurrent weight gradient
 ``dwh`` (one large matmul per direction, ``_dwh_from_seq``) stay
 outside the kernels (``torch.matmul``), as the reference leaves them to
 XLA.
+
+Each kernel has two routes on the card. ``"persistent"``: one
+cooperative launch runs all T steps, every block keeps its slice of
+``wh`` in shared memory and the blocks meet at a barrier between steps.
+``"per_step"``: one launch per step, for widths whose slices do not fit
+the card's shared memory. ``plan_recurrence`` picks the route and the
+tiling from the shapes and the device's attributes alone, before
+anything is launched; a launch that the card refuses raises. The
+wrappers count the two routes apart (``launches`` and
+``per_step_launches``).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 from . import build
 from .dispatch import check_kernel_tensor, require_kernel_device
 
-_BT = 32   # batch rows per block of the BPTT kernel (lstm_bwd.cu: BT)
+_BT = 32   # batch rows per block of the per-step BPTT kernel (lstm_bwd.cu)
+
+# One H100: SMs, and the dynamic shared memory a block may opt in to.
+SM_COUNT = 132
+SMEM_PER_BLOCK = 232448
+# The persistent kernels run one block of 288 threads on an SM
+# (``__launch_bounds__(288, 1)``), so the grid may not exceed the SMs.
+BLOCKS_PER_SM = 1
+_ROW_TILE = 32          # a block's rows come in multiples of this
+_UNIT_TILES = (32, 16)  # hidden units a block may own (template JT)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecurrencePlan:
+    """How one layer's recurrence is cut over the card. ``grid`` is
+    (unit tiles, row blocks, directions); a block owns ``jt`` hidden
+    units of one direction for ``bt`` batch rows (a multiple of 32 that
+    it walks in tiles of 32). ``smem_bytes`` is the block's dynamic
+    shared memory on the persistent route (0 on the per-step route,
+    whose kernels fix their own)."""
+    route: str
+    jt: int
+    bt: int
+    grid: tuple
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def _a128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _a1024(n: int) -> int:
+    return -(-n // 1024) * 1024
+
+
+def recurrence_smem_bytes(H: int, jt: int, bt: int, gate_mult: int = 4,
+                          backward: bool = False) -> int:
+    """Dynamic shared memory of one block of the persistent kernels: the
+    sum that ``Layout`` in ``csrc/lstm_fwd.cu`` / ``csrc/lstm_bwd.cu``
+    computes (the launch is refused if the two disagree). A block walks
+    its rows in passes of 32 (jt = 32) or 64 (jt = 16) rows. Forward: the
+    resident ``wh`` columns [gm*jt][H up to 64] bf16, the ring of the h
+    slab (3 stages of [32][256], or 4 of [64][128] bf16), the product
+    tile [pass][gm*jt + 4] f32, the xproj tile [bt][gm*jt] bf16, c f32
+    and h bf16 [bt][jt], the bias, the windows, the ring's mbarriers.
+    Backward: the resident ``wh`` rows [jt][gm*H] bf16 (jt = 32: as 64
+    rows of gm*H/2 rounded up to 64 columns), the ring of the
+    dgates slab (2 stages of [64][256], or 3 of [64][128] bf16), two
+    partial tiles [pass][jt + 4] f32, dh and dc f32 [bt][jt], the gates
+    tile [bt][gm*jt] and c_t, c_{t-1}, g_out [bt][jt] bf16, the windows,
+    the mbarriers."""
+    gm = gate_mult
+    if backward:
+        ring = 2 * 256 * 64 * 2 if jt == 32 else 3 * 128 * 64 * 2
+        pr = 32 if jt == 32 else 64
+        # jt = 32 stacks the two halves of K = gm*H as 64 rows, stored in
+        # whole atoms of 64 k
+        wr = 64 * (-(-(gm * H // 2) // 64) * 64) * 2 if jt == 32 \
+            else jt * gm * H * 2
+        return (_a1024(wr) + _a1024(ring)
+                + _a128(2 * pr * (jt + 4) * 4) + 2 * _a128(bt * jt * 4)
+                + _a128(bt * gm * jt * 2) + 3 * _a128(bt * jt * 2)
+                + _a128(2 * bt * 4) + 128)
+    pr = 32 if jt == 32 else 64
+    ring = 3 * 256 * 32 * 2 if jt == 32 else 4 * 128 * 64 * 2
+    return (_a1024(-(-H // 64) * 64 * gm * jt * 2) + _a1024(ring)
+            + _a128(pr * (gm * jt + 4) * 4) + _a128(bt * gm * jt * 2)
+            + _a128(bt * jt * 4) + _a128(bt * jt * 2) + _a128(gm * jt * 4)
+            + _a128(2 * bt * 4) + 128)
+
+
+def plan_recurrence(nd: int, B: int, H: int, gate_mult: int = 4,
+                    sm_count: int = SM_COUNT,
+                    smem_per_block: int = SMEM_PER_BLOCK,
+                    backward: bool = False) -> RecurrencePlan:
+    """The route and the tiling of one layer's recurrence (forward, or
+    the BPTT with ``backward``), from shapes and device attributes alone.
+
+    Persistent needs every block resident at once (grid <= sm_count *
+    BLOCKS_PER_SM) and its shared memory within ``smem_per_block``. Among
+    the tilings that fit, the one with the least product work per block
+    (padded rows x units: the step's latency) wins, then the larger unit
+    tile (the operand exchanged per step is read H / jt times). Where
+    none fits, the per-step route with its fixed 32 x 32 tiling.
+    ``gate_mult`` is 4 for the LSTM and 3 for the GRU."""
+    if min(nd, B, H) <= 0 or H % 16:
+        raise ValueError(f"need nd, B, H > 0 and H % 16 == 0, got nd={nd} "
+                         f"B={B} H={H}")
+    best = None
+    for jt in _UNIT_TILES:
+        unit_tiles = -(-H // jt)
+        for bt in range(_ROW_TILE, B + _ROW_TILE, _ROW_TILE):
+            row_blocks = -(-B // bt)
+            if nd * unit_tiles * row_blocks > sm_count * BLOCKS_PER_SM:
+                continue
+            smem = recurrence_smem_bytes(H, jt, bt, gate_mult, backward)
+            if smem <= smem_per_block:
+                work = jt * 16 * -(-min(bt, B) // 16)
+                if best is None or work < best[0]:
+                    best = (work, RecurrencePlan(
+                        "persistent", jt, bt, (unit_tiles, row_blocks, nd),
+                        smem))
+            break       # a larger bt only adds work to a block
+    if best is not None:
+        return best[1]
+    return _per_step_plan(nd, B, H)
+
+
+def _per_step_plan(nd: int, B: int, H: int) -> RecurrencePlan:
+    return RecurrencePlan("per_step", 32, _BT,
+                          (-(-H // 32), -(-B // _BT), nd), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index: int) -> tuple:
+    props = torch.cuda.get_device_properties(index)
+    return (props.multi_processor_count,
+            getattr(props, "shared_memory_per_block_optin", SMEM_PER_BLOCK))
+
+
+def plan_for(device: torch.device, nd: int, B: int, H: int,
+             backward: bool = False, route: str | None = None
+             ) -> RecurrencePlan:
+    """``plan_recurrence`` for the LSTM on ``device``'s SM count and
+    shared memory. ``route="per_step"`` asks for the second route;
+    ``route="persistent"`` raises where the shapes do not allow it."""
+    if route not in (None, "persistent", "per_step"):
+        raise ValueError(f"unknown route {route!r}")
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    sm_count, smem = _device_limits(index)
+    plan = plan_recurrence(nd, B, H, 4, sm_count, smem, backward)
+    if route == "per_step":
+        plan = _per_step_plan(nd, B, H)
+    if route == "persistent" and plan.route != "persistent":
+        raise ValueError(f"no persistent plan fits nd={nd} B={B} H={H} on "
+                         f"{sm_count} SMs with {smem} bytes a block")
+    return plan
 
 
 def _window(start, end, t, shape):
@@ -92,14 +246,16 @@ def _check_fwd_args(xproj, b, wh, start, end):
 
 def lstm_fwd(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
              start: torch.Tensor, end: torch.Tensor,
-             residuals: bool = False):
+             residuals: bool = False, route: str | None = None):
     """K2: masked h [nd, T, B, H] bf16, and with ``residuals`` also the
     carried c [nd, T, B, H] and activated gates [nd, T, B, 4H], bf16.
 
     xproj [nd, T, B, 4H] bf16; b [nd, 4H] f32; wh [nd, H, 4H] bf16;
     start/end [nd, B] int32. A CPU tensor gets the plain version
     (outputs rounded to bf16); a CUDA tensor launches the kernel (and
-    raises if it cannot). Returns h, or (h, c, gates)."""
+    raises if it cannot): the persistent one where ``plan_recurrence``
+    finds a plan, else the per-step one; ``route`` asks for either.
+    Returns h, or (h, c, gates)."""
     if xproj.device.type == "cpu":
         outs = [o.to(torch.bfloat16)
                 for o in lstm_fwd_plain(xproj, b, wh, start, end)]
@@ -114,25 +270,43 @@ def lstm_fwd(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
         gates = torch.empty((nd, T, B, G), dtype=torch.bfloat16, device=dev)
     if xproj.numel() == 0:     # no step or no row: nothing to launch
         return (h_out, c_out, gates) if residuals else h_out
-    hbuf = torch.zeros((2, nd, B, H), dtype=torch.float32, device=dev)
-    hb16 = torch.zeros((2, nd, B, H), dtype=torch.bfloat16, device=dev)
-    cbuf = torch.zeros((nd, B, H), dtype=torch.float32, device=dev)
-    rc = build.load().lstm_fwd_seq(
-        xproj.data_ptr(), b.data_ptr(), wh.data_ptr(), start.data_ptr(),
-        end.data_ptr(), hbuf.data_ptr(), hb16.data_ptr(), cbuf.data_ptr(),
-        h_out.data_ptr(), c_out.data_ptr() if residuals else None,
-        gates.data_ptr() if residuals else None, nd, T, B, H,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "lstm_fwd_seq")
-    lstm_fwd.launches += 1
+    plan = plan_for(dev, nd, B, H, route=route)
+    res_ptrs = (c_out.data_ptr(), gates.data_ptr()) if residuals \
+        else (None, None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan.route == "persistent":
+        # the h exchange (never read before it is written) and the
+        # barrier counters are the only scratch
+        hb16 = torch.empty((2, nd, B, H), dtype=torch.bfloat16, device=dev)
+        sync = torch.zeros(nd * plan.grid[1], dtype=torch.int32, device=dev)
+        rc = build.load().lstm_fwd_persistent(
+            xproj.data_ptr(), b.data_ptr(), wh.data_ptr(), start.data_ptr(),
+            end.data_ptr(), hb16.data_ptr(), sync.data_ptr(),
+            h_out.data_ptr(), *res_ptrs, nd, T, B, H, plan.jt, plan.bt,
+            plan.smem_bytes, stream)
+        build.check(rc, "lstm_fwd_persistent")
+        lstm_fwd.launches += 1
+    else:
+        hbuf = torch.zeros((2, nd, B, H), dtype=torch.float32, device=dev)
+        hb16 = torch.zeros((2, nd, B, H), dtype=torch.bfloat16, device=dev)
+        cbuf = torch.zeros((nd, B, H), dtype=torch.float32, device=dev)
+        rc = build.load().lstm_fwd_seq(
+            xproj.data_ptr(), b.data_ptr(), wh.data_ptr(), start.data_ptr(),
+            end.data_ptr(), hbuf.data_ptr(), hb16.data_ptr(),
+            cbuf.data_ptr(), h_out.data_ptr(), *res_ptrs, nd, T, B, H,
+            stream)
+        build.check(rc, "lstm_fwd_seq")
+        lstm_fwd.per_step_launches += 1
     return (h_out, c_out, gates) if residuals else h_out
 
 
-lstm_fwd.launches = 0
+lstm_fwd.launches = 0            # persistent route: one kernel a call
+lstm_fwd.per_step_launches = 0   # per-step route: T kernels a call
 
 
 def lstm_seq(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
-             start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
+             start: torch.Tensor, end: torch.Tensor,
+             route: str | None = None) -> torch.Tensor:
     """Inference entry of K2: masked hidden outputs [nd, T, B, H] bf16.
 
     The kernel is cut off from autograd, so inputs that want a gradient
@@ -142,7 +316,7 @@ def lstm_seq(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
             t.requires_grad for t in (xproj, b, wh)):
         raise RuntimeError("lstm_seq is forward-only; use LstmSeq.apply "
                            "when gradients are wanted")
-    return lstm_fwd(xproj, b, wh, start, end)
+    return lstm_fwd(xproj, b, wh, start, end, route=route)
 
 
 def lstm_bwd_plain(g_out: torch.Tensor, gates: torch.Tensor,
@@ -181,11 +355,13 @@ def lstm_bwd_plain(g_out: torch.Tensor, gates: torch.Tensor,
 
 
 def lstm_bwd(g_out: torch.Tensor, gates: torch.Tensor, c_seq: torch.Tensor,
-             wh: torch.Tensor, start: torch.Tensor, end: torch.Tensor):
+             wh: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
+             route: str | None = None):
     """K3: (dxproj [nd, T, B, 4H] bf16, db [nd, 4H] f32) from the bf16
     cotangent of h and the forward's bf16 residuals. A CPU tensor gets
     the plain version; a CUDA tensor launches the kernel (and raises if
-    it cannot)."""
+    it cannot), on the route that ``plan_recurrence`` gives or the one
+    asked for."""
     if g_out.device.type == "cpu":
         dx, db = lstm_bwd_plain(g_out, gates, c_seq, wh, start, end)
         return dx.to(torch.bfloat16), db
@@ -205,23 +381,55 @@ def lstm_bwd(g_out: torch.Tensor, gates: torch.Tensor, c_seq: torch.Tensor,
         raise ValueError("wh must be 16-byte aligned")
     dev = g_out.device
     dxproj = torch.empty((nd, T, B, G), dtype=torch.bfloat16, device=dev)
-    nbt = -(-B // _BT)
-    db_part = torch.zeros((nbt, nd, G), dtype=torch.float32, device=dev)
     if gates.numel() == 0:     # no step or no row: nothing to launch
-        return dxproj, db_part.sum(dim=0)
-    dh = torch.zeros((nd, B, H), dtype=torch.float32, device=dev)
-    dc = torch.zeros_like(dh)
-    rc = build.load().lstm_bwd_seq(
-        g_out.data_ptr(), gates.data_ptr(), c_seq.data_ptr(), wh.data_ptr(),
-        start.data_ptr(), end.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-        dxproj.data_ptr(), db_part.data_ptr(), nd, T, B, H,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "lstm_bwd_seq")
-    lstm_bwd.launches += 1
+        return dxproj, torch.zeros((nd, G), dtype=torch.float32, device=dev)
+    plan = plan_for(dev, nd, B, H, backward=True, route=route)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan.route == "persistent":
+        # one partial per row block, each element written once
+        db_part = torch.empty((plan.grid[1], nd, G), dtype=torch.float32,
+                              device=dev)
+        sync = torch.zeros(nd * plan.grid[1], dtype=torch.int32, device=dev)
+        rc = build.load().lstm_bwd_persistent(
+            g_out.data_ptr(), gates.data_ptr(), c_seq.data_ptr(),
+            wh.data_ptr(), start.data_ptr(), end.data_ptr(),
+            dxproj.data_ptr(), db_part.data_ptr(), sync.data_ptr(), nd, T,
+            B, H, plan.jt, plan.bt, plan.smem_bytes, stream)
+        build.check(rc, "lstm_bwd_persistent")
+        lstm_bwd.launches += 1
+    else:
+        db_part = torch.zeros((plan.grid[1], nd, G), dtype=torch.float32,
+                              device=dev)
+        dh = torch.zeros((nd, B, H), dtype=torch.float32, device=dev)
+        dc = torch.zeros_like(dh)
+        rc = build.load().lstm_bwd_seq(
+            g_out.data_ptr(), gates.data_ptr(), c_seq.data_ptr(),
+            wh.data_ptr(), start.data_ptr(), end.data_ptr(), dh.data_ptr(),
+            dc.data_ptr(), dxproj.data_ptr(), db_part.data_ptr(), nd, T, B,
+            H, stream)
+        build.check(rc, "lstm_bwd_seq")
+        lstm_bwd.per_step_launches += 1
     return dxproj, db_part.sum(dim=0)
 
 
-lstm_bwd.launches = 0
+lstm_bwd.launches = 0            # persistent route: one kernel a call
+lstm_bwd.per_step_launches = 0   # per-step route: T kernels a call
+
+
+def barrier_probe(device: torch.device, plan: RecurrencePlan,
+                  steps: int) -> None:
+    """Launch ``steps`` step barriers and nothing else on ``plan``'s grid
+    (``csrc/recurrence_probe.cu``): the floor that the barrier sets under
+    a step of the persistent kernels. For measurement only."""
+    require_kernel_device(torch.empty(0, device=device))
+    if plan.route != "persistent":
+        raise ValueError("the barrier exists on the persistent route only")
+    sync = torch.zeros(plan.grid[2] * plan.grid[1], dtype=torch.int32,
+                       device=device)
+    rc = build.load().recurrence_barrier_probe(
+        sync.data_ptr(), *plan.grid, steps, plan.smem_bytes,
+        torch.cuda.current_stream(device).cuda_stream)
+    build.check(rc, "recurrence_barrier_probe")
 
 
 def dwh_from_seq(h_seq: torch.Tensor, dxproj: torch.Tensor) -> torch.Tensor:
@@ -241,11 +449,15 @@ def dwh_from_seq(h_seq: torch.Tensor, dxproj: torch.Tensor) -> torch.Tensor:
 class LstmSeq(torch.autograd.Function):
     """Fused (bi)LSTM with BPTT: forward = K2 with residuals, backward =
     K3 plus ``dwh_from_seq``. Gradient dtypes as the reference's
-    (``lstm_pallas.py:459-460``): dxproj bf16, db f32, dwh in wh's."""
+    (``lstm_pallas.py:459-460``): dxproj bf16, db f32, dwh in wh's. An
+    optional sixth argument asks for a route of both kernels."""
 
     @staticmethod
-    def forward(ctx, xproj, b, wh, start, end):
-        h, c, gates = lstm_fwd(xproj, b, wh, start, end, residuals=True)
+    def forward(ctx, xproj, b, wh, start, end, *route):
+        ctx.route = route[0] if route else None
+        ctx.n_inputs = 5 + len(route)
+        h, c, gates = lstm_fwd(xproj, b, wh, start, end, residuals=True,
+                               route=ctx.route)
         ctx.save_for_backward(h, c, gates, wh, start, end)
         return h
 
@@ -253,6 +465,6 @@ class LstmSeq(torch.autograd.Function):
     def backward(ctx, g_out):
         h, c, gates, wh, start, end = ctx.saved_tensors
         dxproj, db = lstm_bwd(g_out.to(torch.bfloat16).contiguous(), gates,
-                              c, wh, start, end)
+                              c, wh, start, end, route=ctx.route)
         dwh = dwh_from_seq(h, dxproj)
-        return dxproj, db, dwh.to(wh.dtype), None, None
+        return (dxproj, db, dwh.to(wh.dtype)) + (None,) * (ctx.n_inputs - 3)

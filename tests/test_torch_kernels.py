@@ -55,24 +55,48 @@ def test_stft_kernel_matches_plain(dev, cfg, B, S):
     assert (got - want).abs().max().item() <= STFT_TOL
 
 
-@pytest.mark.parametrize("nd,T,B,H", [(1, 12, 5, 64), (2, 30, 33, 96),
-                                      (2, 7, 3, 48), (2, 40, 16, 800),
-                                      (2, 399, 128, 800), (2, 175, 16, 800),
-                                      (2, 175, 1, 800)])
-def test_lstm_kernel_matches_plain(dev, nd, T, B, H):
+ROUTES = ("persistent", "per_step")
+
+
+def _route_count(fn, route):
+    return fn.launches if route == "persistent" else fn.per_step_launches
+
+
+def _lens_case(T, B, g):
+    """Ragged lengths with a full row, then (where B allows) a length-1
+    and an empty row."""
+    lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    if B:
+        lens[0] = T
+    if B > 2:
+        lens[1], lens[2] = 1, 0
+    return lens
+
+
+# T = 2 and 3 come first: a step barrier that deadlocks shows there
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("nd,T,B,H", [(2, 2, 3, 48), (2, 3, 33, 96),
+                                      (1, 1, 5, 64), (1, 12, 5, 64),
+                                      (2, 30, 33, 96), (2, 7, 3, 48),
+                                      (2, 9, 1, 16), (1, 20, 70, 16),
+                                      (2, 40, 16, 800), (2, 399, 128, 800),
+                                      (2, 175, 16, 800), (2, 175, 1, 800),
+                                      (2, 60, 128, 512), (1, 25, 200, 512)])
+def test_lstm_kernel_matches_plain(dev, nd, T, B, H, route):
     g = torch.Generator().manual_seed(T)
     xproj = torch.randn(nd, T, B, 4 * H, generator=g).to(torch.bfloat16)
     b = 0.1 * torch.randn(nd, 4 * H, generator=g)
     wh = (0.2 * torch.rand(nd, H, 4 * H, generator=g) - 0.1
           ).to(torch.bfloat16)
-    lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
-    lens[0] = T
+    lens = _lens_case(T, B, g)
     start = torch.stack([torch.zeros_like(lens), T - lens])[:nd]
     end = torch.stack([lens, torch.full_like(lens, T)])[:nd]
     args = [t.to(dev).contiguous() for t in (xproj, b, wh, start, end)]
-    got = lstm_cuda.lstm_seq(*args)
+    n0 = _route_count(lstm_cuda.lstm_fwd, route)
+    got = lstm_cuda.lstm_seq(*args, route=route)
     want = lstm_cuda.lstm_seq_plain(*args).to(torch.bfloat16)
     torch.cuda.synchronize()
+    assert _route_count(lstm_cuda.lstm_fwd, route) == n0 + 1
     assert (got.float() - want.float()).abs().max().item() <= LSTM_TOL
     t = torch.arange(T, device=dev)[None, :, None]
     outside = (t < args[3][:, None]) | (t >= args[4][:, None])
@@ -142,47 +166,148 @@ def _lstm_case(dev, nd, T, B, H, seed):
     b = 0.1 * torch.randn(nd, 4 * H, generator=g)
     wh = (0.2 * torch.rand(nd, H, 4 * H, generator=g) - 0.1
           ).to(torch.bfloat16)
-    lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
-    lens[0] = T
+    lens = _lens_case(max(T, 1), B, g).clamp(max=T)
     start = torch.stack([torch.zeros_like(lens), T - lens])[:nd]
     end = torch.stack([lens, torch.full_like(lens, T)])[:nd]
     gout = torch.randn(nd, T, B, H, generator=g).to(torch.bfloat16)
     return [t.to(dev).contiguous() for t in (xproj, b, wh, start, end, gout)]
 
 
-@pytest.mark.parametrize("nd,T,B,H", [(1, 12, 5, 64), (2, 30, 33, 96),
-                                      (2, 7, 3, 48)])
-def test_lstm_residuals_and_bptt_match_plain(dev, nd, T, B, H):
+@pytest.mark.parametrize("route", ROUTES)
+@pytest.mark.parametrize("nd,T,B,H", [(2, 2, 3, 48), (2, 3, 33, 96),
+                                      (1, 1, 5, 64), (1, 12, 5, 64),
+                                      (2, 30, 33, 96), (2, 7, 3, 48),
+                                      (2, 9, 1, 16), (1, 20, 70, 16),
+                                      (2, 40, 16, 800), (2, 30, 128, 800),
+                                      (2, 60, 128, 512), (1, 25, 200, 512),
+                                      (2, 60, 16, 512)])
+def test_lstm_residuals_and_bptt_match_plain(dev, nd, T, B, H, route):
     """K2's residual mode and K3 against their plain versions on the same
-    bf16 inputs (bf16 outputs: two ulps relative; db f32)."""
+    bf16 inputs (bf16 outputs: two ulps relative; db f32), with a
+    length-1 and an empty row; dgates exactly 0 outside the windows."""
+    _check_residuals_and_bptt(dev, nd, T, B, H, route)
+
+
+@pytest.mark.parametrize("H", [272, 400, 496])
+def test_lstm_persistent_unit_tile_of_32_at_odd_widths(dev, H):
+    """H = 16 x an odd number at B = 128 plans 32 units a block, whose K3
+    stacks the two halves of K = 4H as rows: 2H is then no multiple of
+    the 64-column atom, and the last atom of the resident slice is
+    partial (and the last unit tile ragged where H % 32 == 16)."""
+    for backward in (False, True):
+        plan = lstm_cuda.plan_for(dev, 2, 128, H, backward=backward)
+        assert (plan.route, plan.jt) == ("persistent", 32)
+    _check_residuals_and_bptt(dev, 2, 24, 128, H, "persistent")
+
+
+def _check_residuals_and_bptt(dev, nd, T, B, H, route):
     xproj, b, wh, start, end, gout = _lstm_case(dev, nd, T, B, H, T + H)
-    n2, n3 = lstm_cuda.lstm_fwd.launches, lstm_cuda.lstm_bwd.launches
-    h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end, residuals=True)
+    n2 = _route_count(lstm_cuda.lstm_fwd, route)
+    n3 = _route_count(lstm_cuda.lstm_bwd, route)
+    h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
+                                     residuals=True, route=route)
     ph, pc, pg = lstm_cuda.lstm_fwd_plain(xproj, b, wh, start, end)
-    dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
+    dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end, route=route)
     pdx, pdb = lstm_cuda.lstm_bwd_plain(gout, gates, c, wh, start, end)
     torch.cuda.synchronize()
-    assert lstm_cuda.lstm_fwd.launches == n2 + 1
-    assert lstm_cuda.lstm_bwd.launches == n3 + 1
+    assert _route_count(lstm_cuda.lstm_fwd, route) == n2 + 1
+    assert _route_count(lstm_cuda.lstm_bwd, route) == n3 + 1
     for got, want in ((h, ph), (c, pc), (gates, pg)):
         assert (got.float() - want).abs().max().item() <= LSTM_TOL
     scale = pdx.abs().max().item()
     assert (dx.float() - pdx).abs().max().item() <= 8e-3 * scale
     assert (db - pdb).abs().max().item() <= 1e-3 * pdb.abs().max().item()
+    t = torch.arange(T, device=dev)[None, :, None]
+    outside = (t < start[:, None]) | (t >= end[:, None])
+    assert not dx.float().abs().amax(-1)[outside].any()
 
 
-def test_lstmseq_autograd_on_card(dev):
+@pytest.mark.parametrize("route", ROUTES)
+def test_lstmseq_autograd_on_card(dev, route):
     xproj, b, wh, start, end, gout = _lstm_case(dev, 2, 20, 6, 64, 0)
     x = xproj.clone().requires_grad_(True)
     bb = b.clone().requires_grad_(True)
     w = wh.clone().requires_grad_(True)
-    h = lstm_cuda.LstmSeq.apply(x, bb, w, start, end)
+    n2 = _route_count(lstm_cuda.lstm_fwd, route)
+    n3 = _route_count(lstm_cuda.lstm_bwd, route)
+    h = lstm_cuda.LstmSeq.apply(x, bb, w, start, end, route)
     h.backward(gout)
+    assert _route_count(lstm_cuda.lstm_fwd, route) == n2 + 1
+    assert _route_count(lstm_cuda.lstm_bwd, route) == n3 + 1
     assert x.grad.dtype == torch.bfloat16 and bb.grad.dtype == torch.float32
     assert w.grad.dtype == torch.bfloat16
     assert torch.isfinite(x.grad.float()).all()
+    # against the plain chain on the same bf16 values
+    cx = xproj.cpu().requires_grad_(True)
+    cb = b.cpu().requires_grad_(True)
+    cw = wh.cpu().requires_grad_(True)
+    lstm_cuda.LstmSeq.apply(cx, cb, cw, start.cpu(), end.cpu()).backward(
+        gout.cpu())
+    for got, want in ((x.grad, cx.grad), (bb.grad, cb.grad),
+                      (w.grad, cw.grad)):
+        scale = want.float().abs().max().item()
+        assert (got.float().cpu() - want.float()).abs().max().item() \
+            <= 2e-2 * scale
     with pytest.raises(RuntimeError, match="LstmSeq"):
         lstm_cuda.lstm_seq(x, bb, w, start, end)
+
+
+@pytest.mark.parametrize("nd,T,B,H", [(2, 399, 128, 512), (2, 60, 128, 800),
+                                      (1, 50, 37, 512)])
+def test_lstm_persistent_kernels_repeat_bit_equal(dev, nd, T, B, H):
+    """Two runs of the persistent K2 and K3 on one input give the same
+    bits: no atomics in a sum, and no read of a buffer that another
+    block has yet to write or has already overwritten."""
+    xproj, b, wh, start, end, gout = _lstm_case(dev, nd, T, B, H, 3)
+    runs = []
+    for _ in range(3):
+        h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
+                                         residuals=True, route="persistent")
+        dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end,
+                                    route="persistent")
+        runs.append((h, c, gates, dx, db))
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, o in zip(runs[0], other):
+            assert torch.equal(a, o)
+
+
+def test_lstm_cuda_tensor_never_reaches_plain(dev, monkeypatch):
+    """On a CUDA tensor both routes launch kernels: the plain versions
+    are not called, not even for an empty batch."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    monkeypatch.setattr(lstm_cuda, "lstm_fwd_plain", refuse)
+    monkeypatch.setattr(lstm_cuda, "lstm_bwd_plain", refuse)
+    for route in ROUTES:
+        for T, B in ((4, 3), (0, 3), (4, 0)):
+            xproj, b, wh, start, end, gout = _lstm_case(dev, 2, T, B, 32, 1)
+            h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
+                                             residuals=True, route=route)
+            dx, _ = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end,
+                                       route=route)
+            assert h.is_cuda and dx.is_cuda
+    torch.cuda.synchronize()
+
+
+def test_lstm_route_is_planned_from_shapes(dev):
+    """A width whose slices exceed the card's shared memory takes the
+    per-step route without trying the persistent launch; asking for the
+    persistent route there raises before anything is launched."""
+    nd, T, B, H = 2, 3, 4, 1408
+    assert lstm_cuda.plan_for(dev, nd, B, H).route == "per_step"
+    xproj, b, wh, start, end, gout = _lstm_case(dev, nd, T, B, H, 2)
+    n = (lstm_cuda.lstm_fwd.launches, lstm_cuda.lstm_fwd.per_step_launches)
+    got = lstm_cuda.lstm_seq(xproj, b, wh, start, end)
+    want = lstm_cuda.lstm_seq_plain(xproj, b, wh, start, end)
+    torch.cuda.synchronize()
+    assert (lstm_cuda.lstm_fwd.launches,
+            lstm_cuda.lstm_fwd.per_step_launches) == (n[0], n[1] + 1)
+    assert (got.float() - want).abs().max().item() <= LSTM_TOL
+    with pytest.raises(ValueError, match="persistent"):
+        lstm_cuda.lstm_seq(xproj, b, wh, start, end, route="persistent")
+    with pytest.raises(ValueError, match="route"):
+        lstm_cuda.lstm_seq(xproj, b, wh, start, end, route="graph")
 
 
 def _gru_case(dev, nd, T, B, H, seed, lens=None):
