@@ -17,26 +17,25 @@ Phases (any failure exits non-zero; no phase is skipped):
    empty and one infeasible row; K2 with residuals and K3 (LSTM BPTT)
    at nd=2, B=128, T=399, H=512 and H=800, at the serving and cli-train
    batch B=16, T=200, H=512 (another tiling of both kernels) and at T=1;
-   K2 also at the ds3
-   width H=800, and K1 and K2 at the decode slice's own shapes (B=16 and
-   B=1, 3.52 s, T=175). K2 and K3 run on their persistent route (one
-   cooperative launch a layer; the plan, µs a step and the step barrier's
-   own cost are printed, and two runs must give equal bits) and, at the
-   B=128 shapes, on the per-step route as well; K8 (prefix beam search)
-   on seeded logits at B=128, T=400, C=29, K=64 in four modes
-   (acoustic, order-4 char-LM fusion, an order-5 table, N-best) and at
-   B=1. Beside each kernel's time: its
-   bound on this card (the bytes the function must move, once, over the
-   memory rate, or the operations it needs over the peak rate,
-   whichever is larger) and, where one PyTorch call computes the same
-   function, that call's time (``ctc_loss``, cuDNN ``nn.LSTM``), which
-   the port itself never calls.
+   K2 also at the ds3 width H=800, and K1 and K2 at the decode slice's
+   own shapes (B=16 and B=1, 3.52 s, T=175). Each recurrence kernel is
+   one cooperative launch a layer on the plan ``plan_recurrence`` gives
+   (printed, with µs a step and the step barrier's own cost; two runs
+   must give equal bits); K8 (prefix beam search) on seeded logits at
+   B=128, T=400, C=29, K=64 in four modes (acoustic, order-4 char-LM
+   fusion, an order-5 table, N-best) and at B=1. Beside each kernel's
+   time: its bound on this card (the bytes the function must move,
+   once, over the memory rate, or the operations it needs over the peak
+   rate, whichever is larger) and, where one PyTorch call computes the
+   same function, that call's time (``ctc_loss``, cuDNN ``nn.LSTM`` /
+   ``nn.GRU``), which the port itself never calls.
 4. Serving slice: a seeded random checkpoint at full ``conv_bilstm3``
    width in the reference's keypath format, a synthetic corpus, then
    the port's ``cli evaluate`` and ``cli transcribe`` on ``cuda``. The
-   kernels' launch counters must rise during that run, and K2's
-   per-step route must stay at 0 (here and in every later slice: a main
-   path takes the persistent route). Every eval batch
+   kernels' launch counters must rise during that run, and the
+   encoder's count of layers sent to their plain recurrence for want of
+   a kernel plan must stay at 0 (here and in every later slice). Every
+   eval batch
    then goes through the kernel path and the plain path: finite logits
    of the expected shape and lengths, and a per-frame argmax that
    agrees on at least 99.5% of the valid frames.
@@ -65,9 +64,14 @@ Phases (any failure exits non-zero; no phase is skipped):
    beam search, which must agree.
    Prints the steady-state RTF per mode and the B=1 latencies.
 7. GRU family: K4 (GRU forward, inference and residual mode) and K5
-   (GRU BPTT) against their plain versions at nd=2, B=128, T=399, H=512
-   with ragged lengths, one length-1 and one empty row, K4 also at
-   H=800 (B=16, T=175), beside their bounds and cuDNN ``nn.GRU``. Then
+   (GRU BPTT), each one cooperative launch a layer, against their plain
+   versions at nd=2 and every shape a main path gives them: B=128,
+   T=399, H=512 (the train step), B=16, T=200, H=512 (cli train and
+   serving: 16 units a block), B=16, T=175, H=800 (the ds3 width) and
+   B=128, H=400 (16 x an odd number: 32 units a block, K5's halves of
+   K rounded up to whole atoms), with rows of length T, 1 and 0; the
+   plans, µs a step, the barrier's own cost, two runs bit-equal at
+   B=128, beside their bounds and cuDNN ``nn.GRU``. Then
    the GRU slice at full width: ``cli train --preset conv_bilstm3
    --model.rnn_type=gru`` (20 steps to a checkpoint, resumed to 40: K1,
    K4, K5, K6, K7 launch, K2 and K3 do not), ``cli evaluate`` and ``cli
@@ -335,7 +339,7 @@ def _lstm_bounds(nd, T, B, H):
 
 
 def _plan_text(plan) -> str:
-    return (f"{plan.route} JT={plan.jt} BT={plan.bt} grid={plan.grid} = "
+    return (f"JT={plan.jt} BT={plan.bt} grid={plan.grid} = "
             f"{plan.blocks} blocks, {plan.smem_bytes} B shared")
 
 
@@ -356,9 +360,8 @@ def _outside(start, end, T):
 
 
 def phase_lstm() -> dict:
-    """K2 (inference) on the persistent route at every shape a main path
-    gives it, and on the per-step route at the two B=128 shapes, each
-    held to the plain version; two persistent runs must give equal bits."""
+    """K2 (inference) at every shape a main path gives it, held to the
+    plain version; two runs must give equal bits at the timed shapes."""
     import torch
     from ctc_asr_tpu_torch.ops import lstm_cuda
     rng = np.random.default_rng(1)
@@ -387,40 +390,34 @@ def phase_lstm() -> dict:
     for label, nd, T, B, H, lens, key in cases:
         args = _lstm_inputs(nd, T, B, H, lens, seed=nd)
         plan = lstm_cuda.plan_for(dev, nd, B, H)
-        if plan.route != "persistent":
-            raise AssertionError(f"K2 {label}: planned {plan.route}")
+        if plan is None:
+            raise AssertionError(f"K2 {label}: no plan")
         want = lstm_cuda.lstm_seq_plain(*args).to(torch.bfloat16)
         outside = _outside(args[3], args[4], T)
-        routes = ("persistent", "per_step") if key is not None \
-            else ("persistent",)
-        ms = {}
-        for route in routes:
-            got = lstm_cuda.lstm_seq(*args, route=route)
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            err = diff.max().item()
-            # outputs past each row's window must be exactly zero
-            zero_ok = bool((got.float().abs().amax(-1)[outside] == 0).all())
-            ms[route] = cuda_ms(lambda: lstm_cuda.lstm_seq(*args, route=route),
-                                reps=10)
-            log(f"[K2 lstm] {label} {route}: max_abs_err={err:.3e} "
-                f"mean_abs_err={diff.mean().item():.3e} (tol {LSTM_TOL}) "
-                f"zero_outside={zero_ok} kernel {ms[route]:.4f} ms = "
-                f"{ms[route] * 1e3 / T:.2f} us a step")
-            if not err <= LSTM_TOL or not zero_ok:
-                raise AssertionError(f"K2 {label} {route}: err {err} zero_ok "
-                                     f"{zero_ok}")
-            res["max_abs_err"] = max(res["max_abs_err"], err)
+        got = lstm_cuda.lstm_seq(*args)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        # outputs past each row's window must be exactly zero
+        zero_ok = bool((got.float().abs().amax(-1)[outside] == 0).all())
+        ms = cuda_ms(lambda: lstm_cuda.lstm_seq(*args), reps=10)
+        log(f"[K2 lstm] {label}: max_abs_err={err:.3e} "
+            f"mean_abs_err={diff.mean().item():.3e} (tol {LSTM_TOL}) "
+            f"zero_outside={zero_ok} kernel {ms:.4f} ms = "
+            f"{ms * 1e3 / T:.2f} us a step")
+        if not err <= LSTM_TOL or not zero_ok:
+            raise AssertionError(f"K2 {label}: err {err} zero_ok {zero_ok}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
         plain_ms = cuda_ms(lambda: lstm_cuda.lstm_seq_plain(*args), reps=3,
                            warmup=1)
         lib_fwd, lib_bwd = _cudnn_rnn_ms("LSTM", T, B, H, nd)
         b2, b3 = _lstm_bounds(nd, T, B, H)
         log(f"[K2 lstm] {label}: plan {_plan_text(plan)}; kernel "
-            f"{ms['persistent']:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b2['bound_ms']:.4f} ms by {b2['bound_by']} (chain of {T} "
             f"steps), cuDNN nn.LSTM bf16 (with its input projection) forward "
             f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms"
-            + (f"; kernel / cuDNN forward = {ms['persistent'] / lib_fwd:.3f}"
+            + (f"; kernel / cuDNN forward = {ms / lib_fwd:.3f}"
                if H in (512, 800) and T > 1 else ""))
         if key is None:
             continue
@@ -428,16 +425,13 @@ def phase_lstm() -> dict:
         if not torch.equal(again, lstm_cuda.lstm_seq(*args)):
             raise AssertionError(f"K2 {label}: two runs differ in their bits")
         bar = _barrier_us(plan, T)
-        log(f"[K2 lstm] {label}: persistent {ms['persistent']:.4f} ms against "
-            f"per-step {ms['per_step']:.4f} ms = "
-            f"{ms['per_step'] / ms['persistent']:.2f}x; two runs bit-equal; "
-            f"the step barrier alone {bar:.2f} us a step")
-        res.update({"ms" + key: ms["persistent"], "plain_ms" + key: plain_ms,
+        log(f"[K2 lstm] {label}: two runs bit-equal; the step barrier alone "
+            f"{bar:.2f} us a step")
+        res.update({"ms" + key: ms, "plain_ms" + key: plain_ms,
                     "library_ms" + key: lib_fwd,
                     "bound_ms" + key: b2["bound_ms"],
                     "bound_by" + key: b2["bound_by"],
-                    "prev_ms" + key: ms["per_step"],
-                    "step_us" + key: ms["persistent"] * 1e3 / T,
+                    "step_us" + key: ms * 1e3 / T,
                     "barrier_us" + key: bar,
                     "plan" + key: dataclasses.asdict(plan)})
         res.setdefault("bwd", {})["library_ms" + key] = lib_bwd
@@ -551,11 +545,9 @@ def phase_ctc() -> dict:
 
 
 def phase_lstm_train() -> dict:
-    """K2 in residual mode and K3 on the persistent route at the train
-    step's shape, at the ds3 width, at cli train's batch of 16 and at T=1,
-    and on the per-step route
-    at the B=128 shapes, each held to the plain versions; two persistent
-    runs must give equal bits."""
+    """K2 in residual mode and K3 at the train step's shape, at the ds3
+    width, at cli train's batch of 16 and at T=1, each held to the plain
+    versions; two runs must give equal bits."""
     import torch
     from ctc_asr_tpu_torch.ops import lstm_cuda
     dev = torch.device("cuda")
@@ -578,69 +570,59 @@ def phase_lstm_train() -> dict:
             torch.bfloat16).cuda()
         plans = [lstm_cuda.plan_for(dev, nd, B, H, backward=bw)
                  for bw in (False, True)]
-        if any(p.route != "persistent" for p in plans):
+        if None in plans:
             raise AssertionError(f"K2/K3 {label}: planned {plans}")
         ph, pc, pg = lstm_cuda.lstm_fwd_plain(xproj, b, wh, start, end)
         outside = _outside(start, end, T)
-        fwd_ms, bwd_ms = {}, {}
-        for route in ("persistent", "per_step") if key is not None \
-                else ("persistent",):
-            h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
-                                             residuals=True, route=route)
-            dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end,
-                                        route=route)
-            dwh = lstm_cuda.dwh_from_seq(h, dx)
-            # K3 and its plain version on the same inputs: this route's
-            # own residuals
-            pdx, pdb = lstm_cuda.lstm_bwd_plain(gout, gates, c, wh, start,
-                                                end)
-            pdwh = lstm_cuda.dwh_from_seq(h, pdx.to(torch.bfloat16))
-            torch.cuda.synchronize()
-            errs = {"h": (h.float() - ph).abs().max().item(),
-                    "c": (c.float() - pc).abs().max().item(),
-                    "gates": (gates.float() - pg).abs().max().item()}
-            rel = {"dxproj": ((dx.float() - pdx).abs().max()
-                              / pdx.abs().max()).item(),
-                   "db": ((db - pdb).abs().max() / pdb.abs().max()).item()}
-            if T > 1:       # at T=1 dwh is h_{-1}^T @ dgates = 0
-                rel["dwh"] = ((dwh.float() - pdwh.float()).abs().max()
-                              / pdwh.float().abs().max()).item()
-            zero_ok = bool(
-                (h.float().abs().amax(-1)[outside] == 0).all()
-                and (dx.float().abs().amax(-1)[outside] == 0).all())
-            log(f"[K2+K3 lstm train] {label} {route}: max abs err h/c/gates "
-                f"{errs} (tol {LSTM_TOL}); relative to the largest: {rel} "
-                f"(tol {BPTT_RTOL}); zero outside the windows={zero_ok}")
-            if max(errs.values()) > LSTM_TOL or max(rel.values()) > BPTT_RTOL \
-                    or not zero_ok or not torch.isfinite(dx.float()).all():
-                raise AssertionError(f"K2 residuals / K3 {label} {route}: "
-                                     f"{errs} {rel} zero_ok {zero_ok}")
-            fwd_ms[route] = cuda_ms(lambda: lstm_cuda.lstm_fwd(
-                xproj, b, wh, start, end, residuals=True, route=route),
-                reps=10)
-            bwd_ms[route] = cuda_ms(lambda: lstm_cuda.lstm_bwd(
-                gout, gates, c, wh, start, end, route=route), reps=10)
-            if route == "persistent":
-                out["lstm_fwd_res"]["max_abs_err"] = max(
-                    out["lstm_fwd_res"]["max_abs_err"], *errs.values())
-                out["lstm_bwd"]["max_abs_err"] = max(
-                    out["lstm_bwd"]["max_abs_err"],
-                    (dx.float() - pdx).abs().max().item())
-                out["lstm_bwd"]["max_rel_err"] = max(
-                    out["lstm_bwd"]["max_rel_err"], *rel.values())
-                again = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
-                                           residuals=True)
-                dx2, db2 = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
-                if not all(torch.equal(x, y) for x, y in zip(
-                        (h, c, gates, dx, db), (*again, dx2, db2))):
-                    raise AssertionError(f"K2 residuals / K3 {label}: two "
-                                         "runs differ in their bits")
+        h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
+                                         residuals=True)
+        dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
+        dwh = lstm_cuda.dwh_from_seq(h, dx)
+        # K3 and its plain version on the same inputs: the kernel's own
+        # residuals
+        pdx, pdb = lstm_cuda.lstm_bwd_plain(gout, gates, c, wh, start, end)
+        pdwh = lstm_cuda.dwh_from_seq(h, pdx.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        errs = {"h": (h.float() - ph).abs().max().item(),
+                "c": (c.float() - pc).abs().max().item(),
+                "gates": (gates.float() - pg).abs().max().item()}
+        rel = {"dxproj": ((dx.float() - pdx).abs().max()
+                          / pdx.abs().max()).item(),
+               "db": ((db - pdb).abs().max() / pdb.abs().max()).item()}
+        if T > 1:       # at T=1 dwh is h_{-1}^T @ dgates = 0
+            rel["dwh"] = ((dwh.float() - pdwh.float()).abs().max()
+                          / pdwh.float().abs().max()).item()
+        zero_ok = bool(
+            (h.float().abs().amax(-1)[outside] == 0).all()
+            and (dx.float().abs().amax(-1)[outside] == 0).all())
+        log(f"[K2+K3 lstm train] {label}: max abs err h/c/gates "
+            f"{errs} (tol {LSTM_TOL}); relative to the largest: {rel} "
+            f"(tol {BPTT_RTOL}); zero outside the windows={zero_ok}")
+        if max(errs.values()) > LSTM_TOL or max(rel.values()) > BPTT_RTOL \
+                or not zero_ok or not torch.isfinite(dx.float()).all():
+            raise AssertionError(f"K2 residuals / K3 {label}: "
+                                 f"{errs} {rel} zero_ok {zero_ok}")
+        fwd_ms = cuda_ms(lambda: lstm_cuda.lstm_fwd(
+            xproj, b, wh, start, end, residuals=True), reps=10)
+        bwd_ms = cuda_ms(lambda: lstm_cuda.lstm_bwd(
+            gout, gates, c, wh, start, end), reps=10)
+        out["lstm_fwd_res"]["max_abs_err"] = max(
+            out["lstm_fwd_res"]["max_abs_err"], *errs.values())
+        out["lstm_bwd"]["max_abs_err"] = max(
+            out["lstm_bwd"]["max_abs_err"],
+            (dx.float() - pdx).abs().max().item())
+        out["lstm_bwd"]["max_rel_err"] = max(
+            out["lstm_bwd"]["max_rel_err"], *rel.values())
+        again = lstm_cuda.lstm_fwd(xproj, b, wh, start, end, residuals=True)
+        dx2, db2 = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
+        if not all(torch.equal(x, y) for x, y in zip(
+                (h, c, gates, dx, db), (*again, dx2, db2))):
+            raise AssertionError(f"K2 residuals / K3 {label}: two runs "
+                                 "differ in their bits")
         log(f"[K2 residual] {label}: plan {_plan_text(plans[0])}; kernel "
-            f"{fwd_ms['persistent']:.4f} ms = "
-            f"{fwd_ms['persistent'] * 1e3 / T:.2f} us a step")
+            f"{fwd_ms:.4f} ms = {fwd_ms * 1e3 / T:.2f} us a step")
         log(f"[K3 bptt] {label}: plan {_plan_text(plans[1])}; kernel "
-            f"{bwd_ms['persistent']:.4f} ms = "
-            f"{bwd_ms['persistent'] * 1e3 / T:.2f} us a step; two runs "
+            f"{bwd_ms:.4f} ms = {bwd_ms * 1e3 / T:.2f} us a step; two runs "
             f"bit-equal")
         if key is None:
             continue
@@ -649,22 +631,14 @@ def phase_lstm_train() -> dict:
         bwd_plain = cuda_ms(lambda: lstm_cuda.lstm_bwd_plain(
             gout, gates, c, wh, start, end), reps=3, warmup=1)
         bar = _barrier_us(plans[1], T)
-        log(f"[K2 residual] {label}: persistent {fwd_ms['persistent']:.4f} "
-            f"ms, per-step {fwd_ms['per_step']:.4f} ms = "
-            f"{fwd_ms['per_step'] / fwd_ms['persistent']:.2f}x, plain "
-            f"{fwd_plain:.4f} ms; [K3 bptt] persistent "
-            f"{bwd_ms['persistent']:.4f} ms, per-step "
-            f"{bwd_ms['per_step']:.4f} ms = "
-            f"{bwd_ms['per_step'] / bwd_ms['persistent']:.2f}x, plain "
+        log(f"[K2 residual] {label}: kernel {fwd_ms:.4f} ms, plain "
+            f"{fwd_plain:.4f} ms; [K3 bptt] kernel {bwd_ms:.4f} ms, plain "
             f"{bwd_plain:.4f} ms; the step barrier alone {bar:.2f} us a step")
-        out["lstm_fwd_res"].update({
-            "ms" + key: fwd_ms["persistent"], "plain_ms" + key: fwd_plain,
-            "prev_ms" + key: fwd_ms["per_step"]})
+        out["lstm_fwd_res"].update({"ms" + key: fwd_ms,
+                                    "plain_ms" + key: fwd_plain})
         out["lstm_bwd"].update({
-            "ms" + key: bwd_ms["persistent"], "plain_ms" + key: bwd_plain,
-            "prev_ms" + key: bwd_ms["per_step"],
-            "step_us" + key: bwd_ms["persistent"] * 1e3 / T,
-            "barrier_us" + key: bar,
+            "ms" + key: bwd_ms, "plain_ms" + key: bwd_plain,
+            "step_us" + key: bwd_ms * 1e3 / T, "barrier_us" + key: bar,
             "plan" + key: dataclasses.asdict(plans[1])})
     return out
 
@@ -705,113 +679,223 @@ def _gate_err(got, want):
 
 
 def phase_gru() -> dict:
-    """K4 and K5 against their plain versions at the GRU train step's
-    shape, and K4 at the ds3 width."""
+    """K4 (inference and residual mode) and K5 against their plain
+    versions at every shape a main path gives them, with rows of length
+    T, 1 and 0, each on the plan ``plan_recurrence`` gives; K4 and K5
+    must each count one launch a call, and at B=128 two runs must give
+    equal bits."""
+    import torch
+    from ctc_asr_tpu_torch.ops import gru_cuda, lstm_cuda
+    from ctc_asr_tpu_torch.ops.lstm_cuda import dwh_from_seq
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    g = torch.Generator().manual_seed(15)
+    # key "" is the train step's shape, whose times the kernels line
+    # reports without a suffix
+    cases = [("", 2, 399, 128, 512, "the train step"),
+             ("_b16", 2, 200, 16, 512, "cli train and serving: JT=16"),
+             ("_h800", 2, 175, 16, 800, "the ds3 width: a ragged last K "
+              "chunk"),
+             ("_h400", 2, 200, 128, 400, "H = 16 x odd: JT=32, K5's halves "
+              "of K = 3H rounded up to whole atoms")]
+    res = {"gru_fwd": {"max_abs_err": 0.0, "design": "persistent"},
+           "gru_bwd": {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                       "design": "persistent"}}
+    for key, nd, T, B, H, what in cases:
+        label = f"nd={nd} B={B} T={T} H={H}"
+        lens = np.concatenate([[T, 1, 0], rng.integers(T // 2, T + 1, B - 3)])
+        args = _gru_inputs(nd, T, B, H, lens, seed=14 + B + H)
+        xproj, b, wh, start, end = args
+        gout = (0.1 * torch.randn(nd, T, B, H, generator=g)).to(
+            torch.bfloat16).cuda()
+        plans = [lstm_cuda.plan_for(dev, nd, B, H, 3, bw)
+                 for bw in (False, True)]
+        if None in plans or (H == 400 and {p.jt for p in plans} != {32}):
+            raise AssertionError(f"K4/K5 {label}: plans {plans}")
+        n4, n5 = gru_cuda.gru_fwd.launches, gru_cuda.gru_bwd.launches
+        h_inf = gru_cuda.gru_seq(*args)
+        h, gates = gru_cuda.gru_fwd(*args, residuals=True)
+        dx, db = gru_cuda.gru_bwd(gout, gates, h, wh, start, end)
+        calls = (gru_cuda.gru_fwd.launches - n4,
+                 gru_cuda.gru_bwd.launches - n5)
+        H2 = 2 * H
+        dwh = dwh_from_seq(h, torch.cat(
+            [dx[..., :H2], dx[..., H2:] * gates[..., :H]], -1))
+        ph, pg = gru_cuda.gru_fwd_plain(*args)
+        # K5 and its plain version on the same inputs: the kernel's residuals
+        pdx, pdb = gru_cuda.gru_bwd_plain(gout, gates, h, wh, start, end)
+        pdxb = pdx.to(torch.bfloat16)
+        pdwh = dwh_from_seq(h, torch.cat(
+            [pdxb[..., :H2], pdxb[..., H2:] * gates[..., :H]], -1))
+        torch.cuda.synchronize()
+        outside = _outside(start, end, T)
+        zero_ok = bool((h.float().abs().amax(-1)[outside] == 0).all()
+                       and (dx.float().abs().amax(-1)[outside] == 0).all())
+        errs = {"h": (h.float() - ph).abs().max().item(),
+                "gates": _gate_err(gates, pg)}
+        rel = {
+            "dxproj": ((dx.float() - pdx).abs().max()
+                       / pdx.abs().max()).item(),
+            "db": ((db - pdb).abs().max() / pdb.abs().max()).item(),
+            "dwh": ((dwh.float() - pdwh.float()).abs().max()
+                    / pdwh.float().abs().max()).item(),
+        }
+        same = torch.equal(h_inf, h)
+        log(f"[K4+K5 gru] {label} ({what}; rows of length {T}, 1, 0 and "
+            f"ragged): max abs err h / gates (r,z,n,hn) {errs} (tol "
+            f"{LSTM_TOL}); relative to the largest: {rel} (tol "
+            f"{BPTT_RTOL}); zero outside the windows={zero_ok}; inference h "
+            f"equals residual-mode h={same}; launches a call {calls}")
+        if max(errs.values()) > LSTM_TOL or max(rel.values()) > BPTT_RTOL \
+                or not zero_ok or not same or calls != (2, 1) \
+                or not torch.isfinite(dx.float()).all():
+            raise AssertionError(f"K4 / K5 {label}: {errs} {rel} zero_ok "
+                                 f"{zero_ok} same {same} calls {calls}")
+        if B == 128:
+            h2, gates2 = gru_cuda.gru_fwd(*args, residuals=True)
+            dx2, db2 = gru_cuda.gru_bwd(gout, gates, h, wh, start, end)
+            if not all(torch.equal(x, y) for x, y in zip(
+                    (h, gates, dx, db), (h2, gates2, dx2, db2))):
+                raise AssertionError(f"K4 / K5 {label}: two runs differ in "
+                                     "their bits")
+        fwd_ms = cuda_ms(lambda: gru_cuda.gru_seq(*args), reps=10)
+        res_ms = cuda_ms(lambda: gru_cuda.gru_fwd(*args, residuals=True),
+                         reps=10)
+        bwd_ms = cuda_ms(lambda: gru_cuda.gru_bwd(gout, gates, h, wh, start,
+                                                  end), reps=10)
+        lib_fwd, lib_bwd = _cudnn_rnn_ms("GRU", T, B, H, nd)
+        b4, b4r, b5 = _gru_bounds(nd, T, B, H)
+        bars = [_barrier_us(p, T) for p in plans]
+        log(f"[K4 gru] {label}: plan {_plan_text(plans[0])}; kernel "
+            f"{fwd_ms:.4f} ms = {fwd_ms * 1e3 / T:.2f} us a step, with "
+            f"residuals {res_ms:.4f} ms; bound {b4['bound_ms']:.4f} ms by "
+            f"{b4['bound_by']} (with residuals {b4r['bound_ms']:.4f} ms by "
+            f"{b4r['bound_by']}), chain of {T} steps; cuDNN nn.GRU bf16 (with "
+            f"its input projection) forward {lib_fwd:.4f} ms; the step "
+            f"barrier alone {bars[0]:.2f} us a step")
+        log(f"[K5 gru bptt] {label}: plan {_plan_text(plans[1])}; kernel "
+            f"{bwd_ms:.4f} ms = {bwd_ms * 1e3 / T:.2f} us a step; bound "
+            f"{b5['bound_ms']:.4f} ms by {b5['bound_by']}, chain of {T} "
+            f"steps; cuDNN nn.GRU backward {lib_bwd:.4f} ms; the step "
+            f"barrier alone {bars[1]:.2f} us a step")
+        res["gru_fwd"]["max_abs_err"] = max(res["gru_fwd"]["max_abs_err"],
+                                            *errs.values())
+        res["gru_bwd"]["max_abs_err"] = max(
+            res["gru_bwd"]["max_abs_err"],
+            (dx.float() - pdx).abs().max().item())
+        res["gru_bwd"]["max_rel_err"] = max(res["gru_bwd"]["max_rel_err"],
+                                            *rel.values())
+        res["gru_fwd"].update({
+            "ms" + key: fwd_ms, "residual_ms" + key: res_ms,
+            "library_ms" + key: lib_fwd, "step_us" + key: fwd_ms * 1e3 / T,
+            "barrier_us" + key: bars[0],
+            "plan" + key: dataclasses.asdict(plans[0]),
+            **{k + key: v for k, v in b4.items()},
+            "residual_bound_ms" + key: b4r["bound_ms"],
+            "residual_bound_by" + key: b4r["bound_by"]})
+        res["gru_bwd"].update({
+            "ms" + key: bwd_ms, "library_ms" + key: lib_bwd,
+            "step_us" + key: bwd_ms * 1e3 / T, "barrier_us" + key: bars[1],
+            "plan" + key: dataclasses.asdict(plans[1]),
+            **{k + key: v for k, v in b5.items()}})
+        if key in ("", "_h800"):
+            fwd_plain = cuda_ms(lambda: gru_cuda.gru_seq_plain(*args), reps=3,
+                                warmup=1)
+            res["gru_fwd"]["plain_ms" + key] = fwd_plain
+            msg = f"[K4 gru] {label}: plain {fwd_plain:.4f} ms"
+            if key == "":
+                bwd_plain = cuda_ms(lambda: gru_cuda.gru_bwd_plain(
+                    gout, gates, h, wh, start, end), reps=3, warmup=1)
+                res["gru_bwd"]["plain_ms"] = bwd_plain
+                msg += f"; [K5 gru bptt] plain {bwd_plain:.4f} ms"
+            log(msg)
+    return res
+
+
+def _bptt_test_case(nd, T, B, H, seed):
+    """The inputs ``tests/test_torch_kernels._gru_case`` makes from
+    ``seed``: xproj N(0, 1), wh U(-0.1, 0.1) (2.3x the Glorot limit at
+    H=800), g_out N(0, 1), random row lengths with row 0 full."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    xproj = torch.randn(nd, T, B, 3 * H, generator=g).to(torch.bfloat16)
+    b = 0.1 * torch.randn(nd, 3 * H, generator=g)
+    wh = (0.2 * torch.rand(nd, H, 3 * H, generator=g) - 0.1).to(
+        torch.bfloat16)
+    lens = torch.randint(1, T + 1, (B,), generator=g, dtype=torch.int32)
+    lens[0] = T
+    start = torch.stack([torch.zeros_like(lens), T - lens])[:nd]
+    end = torch.stack([lens, torch.full_like(lens, T)])[:nd]
+    gout = torch.randn(nd, T, B, H, generator=g).to(torch.bfloat16)
+    return [t.cuda().contiguous() for t in (xproj, b, wh, start, end, gout)]
+
+
+# K5's db against the f64 BPTT: the kernel may be no further from it than
+# the plain version is, by this much of the largest f64 db. Over the
+# cases of F64_CASES on the H100 the largest excess read 2.4e-4, while
+# both were 0.6e-3 to 1.2e-3 from f64 (PERF.md §6).
+BPTT_F64_EXCESS = 5e-4
+# (nd, T, B, H) and the seeds of ``_bptt_test_case``: the failing shape
+# of the cuda tests (B=1: db is one row's sum, no averaging over rows)
+# first, at its own seed T + H, then the neighbours in B and H
+F64_CASES = (((2, 60, 1, 800), (860, 1, 2, 3, 4, 5, 6, 7, 8, 9)),
+             ((2, 40, 16, 800), (856, 1, 2, 3)),
+             ((2, 40, 128, 512), (552, 1, 2)),
+             ((2, 60, 1, 512), (572, 1, 2, 3)))
+
+
+def phase_gru_f64(cases=F64_CASES) -> dict:
+    """K5 and its plain version, both against the f64 BPTT on the same
+    bf16 residuals (``gru_bwd_plain(exact=True)``: nothing rounded), with
+    the plain version on the CPU as a second summation order. Kernel and
+    plain version both round dhproj to bf16 at every step, so each is as
+    far from f64 as that rounding carries along the chain, and two
+    summation orders differ by about as much as either is from f64. The
+    kernel must be no further from f64 than the plain version on the card
+    is, by more than BPTT_F64_EXCESS. Errors are relative to the largest
+    f64 value."""
     import torch
     from ctc_asr_tpu_torch.ops import gru_cuda
-    from ctc_asr_tpu_torch.ops.lstm_cuda import dwh_from_seq
-    nd, T, B, H = 2, 399, 128, 512
-    rng = np.random.default_rng(13)
-    # full, length-1 and empty rows among ragged ones
-    lens = np.concatenate([[T, 1, 0], rng.integers(200, T + 1, B - 3)])
-    args = _gru_inputs(nd, T, B, H, lens, seed=14)
-    xproj, b, wh, start, end = args
-    g = torch.Generator().manual_seed(15)
-    gout = (0.1 * torch.randn(nd, T, B, H, generator=g)).to(
-        torch.bfloat16).cuda()
-    h_inf = gru_cuda.gru_seq(*args)
-    h, gates = gru_cuda.gru_fwd(*args, residuals=True)
-    dx, db = gru_cuda.gru_bwd(gout, gates, h, wh, start, end)
-    H2 = 2 * H
-    dhproj = torch.cat([dx[..., :H2], dx[..., H2:] * gates[..., :H]], -1)
-    dwh = dwh_from_seq(h, dhproj)
-    ph, pg = gru_cuda.gru_fwd_plain(*args)
-    # K5 and its plain version on the same inputs: the kernel's residuals
-    pdx, pdb = gru_cuda.gru_bwd_plain(gout, gates, h, wh, start, end)
-    pdxb = pdx.to(torch.bfloat16)
-    pdwh = dwh_from_seq(h, torch.cat(
-        [pdxb[..., :H2], pdxb[..., H2:] * gates[..., :H]], -1))
-    torch.cuda.synchronize()
-    t = torch.arange(T, device=h.device)[None, :, None]
-    outside = (t < start[:, None, :]) | (t >= end[:, None, :])
-    zero_ok = bool((h.float().abs().amax(-1)[outside] == 0).all()
-                   and (dx.float().abs().amax(-1)[outside] == 0).all())
-    errs = {"h": (h.float() - ph).abs().max().item(),
-            "gates": _gate_err(gates, pg)}
-    rel = {
-        "dxproj": ((dx.float() - pdx).abs().max() / pdx.abs().max()).item(),
-        "db": ((db - pdb).abs().max() / pdb.abs().max()).item(),
-        "dwh": ((dwh.float() - pdwh.float()).abs().max()
-                / pdwh.float().abs().max()).item(),
-    }
-    log(f"[K4+K5 gru] nd=2 B=128 T=399 H=512 (rows of length 399, 1, 0 and "
-        f"ragged): max abs err h / gates (r,z,n,hn) {errs} (tol {LSTM_TOL}); "
-        f"relative to the largest: {rel} (tol {BPTT_RTOL}); zero outside "
-        f"the windows={zero_ok}; inference h equals residual-mode h="
-        f"{torch.equal(h_inf, h)}")
-    if max(errs.values()) > LSTM_TOL or max(rel.values()) > BPTT_RTOL \
-            or not zero_ok or not torch.equal(h_inf, h) \
-            or not torch.isfinite(dx.float()).all():
-        raise AssertionError(f"K4 / K5: {errs} {rel} zero_ok {zero_ok}")
 
-    fwd_ms = cuda_ms(lambda: gru_cuda.gru_seq(*args), reps=10)
-    res_ms = cuda_ms(lambda: gru_cuda.gru_fwd(*args, residuals=True), reps=10)
-    fwd_plain = cuda_ms(lambda: gru_cuda.gru_fwd_plain(*args), reps=3,
-                        warmup=1)
-    bwd_ms = cuda_ms(lambda: gru_cuda.gru_bwd(gout, gates, h, wh, start,
-                                              end), reps=10)
-    bwd_plain = cuda_ms(lambda: gru_cuda.gru_bwd_plain(
-        gout, gates, h, wh, start, end), reps=3, warmup=1)
-    lib_fwd, lib_bwd = _cudnn_rnn_ms("GRU", T, B, H)
-    b4, b4r, b5 = _gru_bounds(nd, T, B, H)
-    log(f"[K4 gru] kernel {fwd_ms:.4f} ms, with residuals {res_ms:.4f} ms, "
-        f"plain {fwd_plain:.4f} ms; bound {b4['bound_ms']:.4f} ms by "
-        f"{b4['bound_by']} (with residuals {b4r['bound_ms']:.4f} ms by "
-        f"{b4r['bound_by']}), chain of {T} steps; cuDNN nn.GRU bf16 (with "
-        f"its input projection) forward {lib_fwd:.4f} ms")
-    log(f"[K5 gru bptt] kernel {bwd_ms:.4f} ms plain {bwd_plain:.4f} ms; "
-        f"bound {b5['bound_ms']:.4f} ms by {b5['bound_by']}, chain of {T} "
-        f"steps; cuDNN nn.GRU backward {lib_bwd:.4f} ms")
-    res = {"gru_fwd": {"max_abs_err": max(errs.values()), "ms": fwd_ms,
-                       "plain_ms": fwd_plain, "library_ms": lib_fwd, **b4,
-                       "residual_ms": res_ms,
-                       "residual_bound_ms": b4r["bound_ms"],
-                       "residual_bound_by": b4r["bound_by"]},
-           "gru_bwd": {"max_abs_err": (dx.float() - pdx).abs().max().item(),
-                       "max_rel_err": max(rel.values()), "ms": bwd_ms,
-                       "plain_ms": bwd_plain, "library_ms": lib_bwd, **b5}}
+    def err(a, b_, scale):
+        return ((a.double().cuda() - b_.double().cuda()).abs().max()
+                / scale).item()
 
-    # the ds3 width: H = 3 * 256 + 32 (a ragged last K chunk in K4, and
-    # 3H = 9 * 256 + 96 in K5), at the decode slice's batch
-    nd, T, B, H = 2, 175, 16, 800
-    lens = np.concatenate([[T, 1, 0], rng.integers(60, T + 1, B - 3)])
-    args = _gru_inputs(nd, T, B, H, lens, seed=16)
-    gout = (0.1 * torch.randn(nd, T, B, H, generator=g)).to(
-        torch.bfloat16).cuda()
-    h, gates = gru_cuda.gru_fwd(*args, residuals=True)
-    ph, pg = gru_cuda.gru_fwd_plain(*args)
-    dx, db = gru_cuda.gru_bwd(gout, gates, h, args[2], *args[3:])
-    pdx, pdb = gru_cuda.gru_bwd_plain(gout, gates, h, args[2], *args[3:])
-    torch.cuda.synchronize()
-    e_h, e_g = (h.float() - ph).abs().max().item(), _gate_err(gates, pg)
-    e_dx = ((dx.float() - pdx).abs().max() / pdx.abs().max()).item()
-    e_db = ((db - pdb).abs().max() / pdb.abs().max()).item()
-    ms = cuda_ms(lambda: gru_cuda.gru_seq(*args), reps=10)
-    plain_ms = cuda_ms(lambda: gru_cuda.gru_seq_plain(*args), reps=3,
-                       warmup=1)
-    bwd_800 = cuda_ms(lambda: gru_cuda.gru_bwd(gout, gates, h, args[2],
-                                               *args[3:]), reps=10)
-    log(f"[K4+K5 gru] nd=2 B=16 T=175 H=800: max abs err h {e_h:.3e} gates "
-        f"{e_g:.3e} (tol {LSTM_TOL}), dxproj {e_dx:.3e} db {e_db:.3e} "
-        f"relative (tol {BPTT_RTOL}); K4 kernel {ms:.4f} ms plain "
-        f"{plain_ms:.4f} ms; K5 kernel {bwd_800:.4f} ms")
-    if max(e_h, e_g) > LSTM_TOL or max(e_dx, e_db) > BPTT_RTOL:
-        raise AssertionError(f"K4 / K5 at H=800: {e_h} {e_g} {e_dx} {e_db}")
-    res["gru_fwd"].update(ms_h800=ms, plain_ms_h800=plain_ms)
-    res["gru_bwd"].update(ms_h800=bwd_800)
-    res["gru_fwd"]["max_abs_err"] = max(res["gru_fwd"]["max_abs_err"], e_h,
-                                        e_g)
-    return res
+    out = {"kernel": 0.0, "plain": 0.0, "excess": -1.0}
+    for (nd, T, B, H), seeds in cases:
+        for seed in seeds:
+            xproj, b, wh, start, end, gout = _bptt_test_case(nd, T, B, H,
+                                                             seed)
+            h, gates = gru_cuda.gru_fwd(xproj, b, wh, start, end,
+                                        residuals=True)
+            args = (gout, gates, h, wh, start, end)
+            runs = {"kernel": gru_cuda.gru_bwd(*args),
+                    "plain": gru_cuda.gru_bwd_plain(*args),
+                    "plain_cpu": gru_cuda.gru_bwd_plain(
+                        *(a.cpu() for a in args))}
+            ex_dx, ex_db = gru_cuda.gru_bwd_plain(*args, exact=True)
+            dx_scale = ex_dx.abs().max().item()
+            db_scale = ex_db.abs().max().item()
+            db = {k: err(v[1], ex_db, db_scale) for k, v in runs.items()}
+            dx = {k: err(v[0], ex_dx, dx_scale) for k, v in runs.items()}
+            db["kernel_vs_plain"] = err(runs["kernel"][1], runs["plain"][1],
+                                        db_scale)
+            db["plain_vs_plain_cpu"] = err(runs["plain"][1],
+                                           runs["plain_cpu"][1], db_scale)
+            label = f"nd={nd} T={T} B={B} H={H} seed={seed}"
+            log(f"[K5 gru bptt f64] {label}: db error relative to the "
+                f"largest f64 db {db}; dxproj {dx}")
+            out["kernel"] = max(out["kernel"], db["kernel"])
+            out["plain"] = max(out["plain"], db["plain"])
+            out["excess"] = max(out["excess"], db["kernel"] - db["plain"])
+            if db["kernel"] > db["plain"] + BPTT_F64_EXCESS:
+                raise AssertionError(f"K5 {label}: further from the f64 "
+                                     f"BPTT than the plain version: {db}")
+    log(f"[K5 gru bptt f64] largest db error against f64: kernel "
+        f"{out['kernel']}, plain {out['plain']}; largest excess of the "
+        f"kernel's over the plain version's {out['excess']} (limit "
+        f"{BPTT_F64_EXCESS})")
+    return out
 
 
 def beam_agreement(got, want) -> dict:
@@ -1053,7 +1137,6 @@ def phase_slice(tmp: str) -> dict:
 
     stft_cuda.stft_features.launches = 0
     lstm_cuda.lstm_fwd.launches = 0
-    lstm_cuda.lstm_fwd.per_step_launches = 0
     ev = run_cli(["evaluate", "--preset", "conv_bilstm3", "--ckpt", ckpt,
                   "--device=cuda"]
                  + [f"--{k}={v}" for k, v in overrides.items()])
@@ -1061,13 +1144,10 @@ def phase_slice(tmp: str) -> dict:
                   "--device=cuda", *wavs])
     launches = {"stft": stft_cuda.stft_features.launches,
                 "lstm": lstm_cuda.lstm_fwd.launches}
-    per_step = lstm_cuda.lstm_fwd.per_step_launches
-    log(f"[slice] kernel launches during evaluate+transcribe: {launches}; "
-        f"K2 on the per-step route: {per_step}")
-    if min(launches.values()) <= 0 or per_step:
-        raise AssertionError(f"a kernel of the path never launched, or K2 "
-                             f"left the persistent route: {launches}, "
-                             f"per-step {per_step}")
+    log(f"[slice] kernel launches during evaluate+transcribe: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
     res = json.loads(ev[ev.index("\n{") + 1:])
     log(f"[slice] evaluate: wer={res['wer']:.4f} (random weights) "
         f"rtf={res['rtf']:.6f} rtf_incl_compile="
@@ -1090,20 +1170,13 @@ def _train_counters():
         ("lstm_bwd", lstm_cuda.lstm_bwd), ("gru_fwd", gru_cuda.gru_fwd),
         ("gru_bwd", gru_cuda.gru_bwd), ("ctc_alpha", ctc_cuda.ctc_alpha),
         ("ctc_beta_grad", ctc_cuda.ctc_beta_grad))}
-    # K2 / K3's second route: no main path may take it
-    c["lstm_fwd_per_step"] = (lstm_cuda.lstm_fwd, "per_step_launches")
-    c["lstm_bwd_per_step"] = (lstm_cuda.lstm_bwd, "per_step_launches")
     return c
-
-
-_PER_STEP_ROUTE = ("lstm_fwd_per_step", "lstm_bwd_per_step")
 
 
 def _count_launches(run, expect_none=()):
     """Set every train-path counter to 0, call ``run()``, and return
     (its result, the counts). Raises if a kernel named in ``expect_none``
-    or the per-step route of K2 / K3 launched, or any other did not."""
-    expect_none = tuple(expect_none) + _PER_STEP_ROUTE
+    launched, or if any other kernel did not."""
     counters = _train_counters()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
@@ -1286,8 +1359,8 @@ def phase_datatools(tmp: str, manifest: str, gru: dict) -> dict:
         f"{traces[0]} of {len(trace) / 1e6:.1f} MB")
     if len(loss) != 6 or not np.all(np.isfinite(loss)):
         raise AssertionError(f"training from the cache: loss {loss}")
-    if len(traces) != 1 or "gru_step_kernel" not in trace \
-            or "gru_bwd_step_kernel" not in trace:
+    if len(traces) != 1 or "gru_fwd_persistent_kernel" not in trace \
+            or "gru_bwd_persistent_kernel" not in trace:
         raise AssertionError("train.profile_dir: no trace of the GRU kernels")
     d16 = abs(ev["float16"]["wer"] - gru["wer"])
     log(f"[datatools] step-40 GRU checkpoint: WER from wavs "
@@ -1339,7 +1412,6 @@ def phase_decode(tmp: str, manifest: str, train_dir: str) -> dict:
                 "beam": beam_cuda.beam_search_decode_cuda}
     for fn in counters.values():
         fn.launches = 0
-    lstm_cuda.lstm_fwd.per_step_launches = 0
     ds3 = ["--ckpt", ckpt, "--device=cuda"]
     fusion = {"decode.lm_path": lm_path}
     runs = {
@@ -1368,13 +1440,10 @@ def phase_decode(tmp: str, manifest: str, train_dir: str) -> dict:
         if len([ln for ln in out.splitlines() if "\t" in ln]) != len(wavs):
             raise AssertionError(f"transcribe ({mode}) printed no result")
     launches = {k: fn.launches for k, fn in counters.items()}
-    per_step = lstm_cuda.lstm_fwd.per_step_launches
-    log(f"[decode] kernel launches during the decode slice: {launches}; K2 "
-        f"on the per-step route: {per_step}")
-    if min(launches.values()) <= 0 or per_step:
-        raise AssertionError(f"a kernel of the decode path never launched, "
-                             f"or K2 left the persistent route: {launches}, "
-                             f"per-step {per_step}")
+    log(f"[decode] kernel launches during the decode slice: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the decode path never launched: "
+                             f"{launches}")
 
     # K1 and K2 at this path's shapes ([16, 56320] samples, H=800, 5
     # layers) against the plain path, then every eval batch's logits
@@ -1478,10 +1547,10 @@ def _step_grads(cfg, params, arrs, mark=lambda: None):
 
 # device kernels of a train step, by layer (the first match names it)
 _KERNEL_GROUPS = (
-    ("K3 lstm_bwd", ("lstm_bwd_persistent_kernel", "lstm_bwd_step_kernel")),
-    ("K2 lstm_fwd", ("lstm_fwd_persistent_kernel", "lstm_step_kernel")),
-    ("K5 gru_bwd", ("gru_bwd_step_kernel",)),
-    ("K4 gru_fwd", ("gru_step_kernel",)),
+    ("K3 lstm_bwd", ("lstm_bwd_persistent_kernel",)),
+    ("K2 lstm_fwd", ("lstm_fwd_persistent_kernel",)),
+    ("K5 gru_bwd", ("gru_bwd_persistent_kernel",)),
+    ("K4 gru_fwd", ("gru_fwd_persistent_kernel",)),
     ("K1 stft", ("stft_mel_kernel",)),
     ("K6+K7 ctc", ("ctc_alpha_kernel", "ctc_beta_grad_kernel")),
     ("cuDNN convs", ("cudnn", "conv", "xmma", "Nhwc", "nhwc")),
@@ -1667,6 +1736,7 @@ def main() -> int:
     k23 = phase_lstm_train()
     k8 = phase_beam()
     k45 = phase_gru()
+    k5_f64 = phase_gru_f64()
     with tempfile.TemporaryDirectory() as tmp:
         sl = phase_slice(tmp)
         tr = phase_train(tmp, sl["manifest"])
@@ -1700,12 +1770,16 @@ def main() -> int:
          "launches": tl["lstm_bwd"], **k23["lstm_bwd"], **k3_yardsticks},
         {"name": "gru_fwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/gru_fwd.cu",
+         "kernel": "gru_fwd_persistent_kernel",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:474",
          "launches": gl["gru_fwd"], **k45["gru_fwd"]},
         {"name": "gru_bwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/gru_bwd.cu",
+         "kernel": "gru_bwd_persistent_kernel",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:511",
-         "launches": gl["gru_bwd"], **k45["gru_bwd"]},
+         "launches": gl["gru_bwd"], **k45["gru_bwd"],
+         "db_err_vs_f64": k5_f64["kernel"],
+         "plain_db_err_vs_f64": k5_f64["plain"]},
         {"name": "ctc_alpha", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/ctc.cu",
          "replaces": "ctc_asr_tpu/ops/ctc_pallas.py:97",

@@ -98,7 +98,7 @@ def cmd_train(argv):
 
     eval_fn = None
     if cfg.data.eval_manifest:
-        def eval_fn(state):
+        def eval_fn(state):       # evaluate() refuses a parallel regime
             params = {k: v.detach() for k, v in state["params"].items()}
             res = evaluate(cfg, params, args.device, log_samples=2)
             res.pop("per_utt", None)
@@ -121,7 +121,9 @@ def cmd_evaluate(argv):
 
     from .checkpoint import load_params, resolve_checkpoint
     from .evaluate import evaluate
+    from .train import check_single_process
 
+    check_single_process(cfg)
     params = load_params(args.ckpt, cfg, args.device)
     res = evaluate(cfg, params, args.device)
     per_utt = res.pop("per_utt")
@@ -141,8 +143,10 @@ def cmd_transcribe(argv):
     cfg = _load_cfg(args, overrides)
 
     from .checkpoint import load_params
+    from .train import check_single_process
     from .transcribe import Transcriber
 
+    check_single_process(cfg)
     tr = Transcriber(cfg, load_params(args.ckpt, cfg, args.device),
                      args.device)
     for wav in args.wavs:

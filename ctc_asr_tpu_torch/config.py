@@ -8,9 +8,10 @@ the other. CLI ``--section.key=value`` overrides apply on top.
 
 The ``use_pallas*`` flags keep their names: in the port they select the
 hand-written CUDA kernel (true) or its plain PyTorch version (false).
-Fields the port does not read yet (``mesh``, ``remat``, ``precompile``,
-``conv_as_matmul``, ``conv_blocked_fwd``) are kept so that configs
-round-trip.
+Fields the port does not read yet (``precompile``, ``conv_as_matmul``,
+``conv_blocked_fwd``) are kept so that configs round-trip; of ``mesh``
+it reads only enough to refuse the parallel regimes it does not have
+(``train.check_single_process``).
 """
 
 from __future__ import annotations

@@ -57,207 +57,11 @@
 //   tile are fetched while the block waits at the barrier.
 // - tanh(c_t) uses the special-function exp (error ~1e-7, dgates are
 //   rounded to bf16).
-//
-// The second route (lstm_bwd_step_kernel / lstm_bwd_seq): one launch per
-// step in reverse time, the launch boundary as the barrier, each block
-// staging its wh rows again every step; for widths whose slices do not
-// fit the card's shared memory, and what the persistent design is
-// measured against. There a block owns 32 units x 32 rows, two warps per
-// output tile, dh and dc in global memory, db as per-step partial sums
-// into [ceil(B/32), nd, 4H].
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "recurrence.cuh"
-
-namespace {
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-constexpr int JT = 32;        // hidden units per block
-constexpr int BT = 32;        // batch rows per block
-constexpr int KC = 256;       // K chunk (over the 4H gate columns)
-constexpr int THREADS = 256;  // 8 warps
-constexpr int RPT = BT / (THREADS / JT);  // rows per thread in the cell
-constexpr int LDA = KC + 8;   // bf16, padded rows of the dgates tile
-constexpr int LDB = KC + 8;   // bf16, padded rows (units) of the wh tile
-constexpr int LDC = JT + 4;   // f32
-static_assert(RPT == 4, "cell mapping assumes 4 rows per thread");
-static_assert((size_t)2 * BT * LDC * sizeof(float)
-              <= (size_t)BT * LDA * sizeof(bf16), "C aliases A");
-
-__global__ void __launch_bounds__(THREADS)
-lstm_bwd_step_kernel(const bf16* __restrict__ g_out,   // [nd,T,B,H]
-                     const bf16* __restrict__ gates,   // [nd,T,B,4H]
-                     const bf16* __restrict__ c_seq,   // [nd,T,B,H]
-                     const bf16* __restrict__ wh,      // [nd,H,4H]
-                     const int* __restrict__ start,    // [nd,B]
-                     const int* __restrict__ end,      // [nd,B]
-                     float* __restrict__ dh_state,     // [nd,B,H]
-                     float* __restrict__ dc_state,     // [nd,B,H]
-                     bf16* __restrict__ dxproj,        // [nd,T,B,4H]
-                     float* __restrict__ db_part,      // [nbt,nd,4H]
-                     int t, int T, int B, int H) {
-  __shared__ __align__(128) bf16 As[BT * LDA];        // dgates_{t+1} rows
-  __shared__ __align__(128) bf16 Bs[JT * LDB];        // wh rows (units)
-  __shared__ float red[THREADS / JT][4][JT];          // db row sums
-  float* Cs = reinterpret_cast<float*>(As);           // [2][BT][LDC]
-
-  const int d = blockIdx.z;
-  const int j0 = blockIdx.x * JT;
-  const int b0 = blockIdx.y * BT;
-  const int nd = gridDim.z;
-  const int G = 4 * H;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int tile = warp & 3;                // output 16x16 tile
-  const int rb = tile & 1, cb = tile >> 1;  // its row / unit tile
-  const int half = warp >> 2;               // which half of a K chunk
-  const bool has_next = t + 1 < T;
-
-  if (has_next) {
-    const bf16* dg = dxproj + (((size_t)d * T + t + 1) * B) * G;
-    const bf16* w = wh + (size_t)d * H * G;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k0 = 0; k0 < G; k0 += KC) {
-      for (int e = tid; e < BT * (KC / 8); e += THREADS) {
-        const int rr = e / (KC / 8), kk = (e % (KC / 8)) * 8;
-        bf16* dst = As + rr * LDA + kk;
-        if (b0 + rr < B && k0 + kk < G)
-          __pipeline_memcpy_async(dst, dg + (size_t)(b0 + rr) * G + k0 + kk,
-                                  16);
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      }
-      for (int e = tid; e < JT * (KC / 8); e += THREADS) {
-        const int uu = e / (KC / 8), kk = (e % (KC / 8)) * 8;
-        bf16* dst = Bs + uu * LDB + kk;
-        if (j0 + uu < H && k0 + kk < G)
-          __pipeline_memcpy_async(dst, w + (size_t)(j0 + uu) * G + k0 + kk,
-                                  16);
-        else
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      }
-      __pipeline_commit();
-      __pipeline_wait_prior(0);
-      __syncthreads();
-      const int nks = min(KC, G - k0) / 16;
-      for (int ks = half; ks < nks; ks += 2) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bm;
-        wmma::load_matrix_sync(a, As + rb * 16 * LDA + ks * 16, LDA);
-        // B[k][n] = wh[j0 + n][k]: the unit rows read as a column-major B
-        wmma::load_matrix_sync(bm, Bs + cb * 16 * LDB + ks * 16, LDB);
-        wmma::mma_sync(acc, a, bm, acc);
-      }
-      __syncthreads();   // tiles are rewritten by the next chunk / by C
-    }
-    wmma::store_matrix_sync(Cs + half * BT * LDC + rb * 16 * LDC + cb * 16,
-                            acc, LDC, wmma::mem_row_major);
-    __syncthreads();
-  }
-
-  const int u = tid % JT;
-  const int r = tid / JT;
-  const int j = j0 + u;
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-  if (j < H) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int rr = r + 8 * i, bb = b0 + rr;
-      if (bb >= B) continue;
-      const size_t so = ((size_t)d * B + bb) * H + j;
-      const size_t ot = ((size_t)d * T + t) * B + bb;
-      const float dh_rec = has_next
-          ? Cs[rr * LDC + u] + Cs[BT * LDC + rr * LDC + u] : 0.f;
-      const float dh = dh_state[so] + dh_rec;
-      const float dc = dc_state[so];
-      const float mf =
-          (t >= start[d * B + bb] && t < end[d * B + bb]) ? 1.f : 0.f;
-      const bf16* gp = gates + ot * G;
-      const float gi = __bfloat162float(gp[0 * H + j]);
-      const float gf = __bfloat162float(gp[1 * H + j]);
-      const float gg = __bfloat162float(gp[2 * H + j]);
-      const float go = __bfloat162float(gp[3 * H + j]);
-      const float c_t = __bfloat162float(c_seq[ot * H + j]);
-      const float c_prev =
-          t > 0 ? __bfloat162float(c_seq[(ot - B) * H + j]) : 0.f;
-      const float tanh_c = tanhf(c_t);
-
-      const float dh_total = dh + mf * __bfloat162float(g_out[ot * H + j]);
-      const float dh_new = mf * dh_total;
-      const float dh_prev_direct = (1.f - mf) * dh_total;
-      const float d_o = dh_new * tanh_c;
-      const float dc_from_h = dh_new * go * (1.f - tanh_c * tanh_c);
-      const float dc_total = mf * dc + dc_from_h;
-      const float dc_prev_direct = (1.f - mf) * dc;
-      const float df = dc_total * c_prev;
-      const float di = dc_total * gg;
-      const float dg = dc_total * gi;
-      const float dc_prev_from_new = dc_total * gf;
-
-      const float dpre[4] = {di * gi * (1.f - gi), df * gf * (1.f - gf),
-                             dg * (1.f - gg * gg), d_o * go * (1.f - go)};
-      bf16* dx = dxproj + ot * G;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        dx[g * H + j] = __float2bfloat16(dpre[g]);
-        part[g] += dpre[g];
-      }
-      dh_state[so] = dh_prev_direct;
-      dc_state[so] = dc_prev_direct + dc_prev_from_new;
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < 4; ++g) red[r][g][u] = part[g];
-  __syncthreads();
-  if (tid < 4 * JT) {
-    const int g = tid / JT, uu = tid % JT;
-    if (j0 + uu < H) {
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < THREADS / JT; ++q) s += red[q][g][uu];
-      db_part[((size_t)blockIdx.y * nd + d) * G + g * H + j0 + uu] += s;
-    }
-  }
-}
-
-}  // namespace
-
-// One layer's BPTT: T launches of lstm_bwd_step_kernel on `stream`, in
-// reverse time. Needs H % 16 == 0 and 16-byte aligned dxproj / wh.
-// dh_state / dc_state [nd,B,H] f32 and db_part [ceil(B/32), nd, 4H] f32
-// are zeroed by the caller. Returns cudaError_t.
-extern "C" int lstm_bwd_seq(const void* g_out, const void* gates,
-                            const void* c_seq, const void* wh,
-                            const void* start, const void* end,
-                            void* dh_state, void* dc_state, void* dxproj,
-                            void* db_part, int nd, int T, int B, int H,
-                            void* stream) {
-  if (nd <= 0 || T <= 0 || B <= 0 || H <= 0) return (int)cudaSuccess;
-  if (H % 16 != 0 || (B + BT - 1) / BT > 65535 || nd > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((H + JT - 1) / JT, (B + BT - 1) / BT, nd);
-  for (int t = T - 1; t >= 0; --t) {
-    lstm_bwd_step_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const bf16*)g_out, (const bf16*)gates, (const bf16*)c_seq,
-        (const bf16*)wh, (const int*)start, (const int*)end,
-        (float*)dh_state, (float*)dc_state, (bf16*)dxproj, (float*)db_part,
-        t, T, B, H);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
-}
-
-// ---------------------------------------------------------------------------
-// The persistent route: one cooperative launch for all T steps.
-// ---------------------------------------------------------------------------
 
 // Internal linkage: lstm_fwd.cu and lstm_bwd.cu each have their own Params,
 // Layout and launch under these names.
@@ -408,7 +212,8 @@ lstm_bwd_persistent_kernel(const Params p,
   // once: the resident slice, the windows, zero state, step T-1's inputs,
   // the mbarriers of the ring
   if constexpr (STACKED)
-    rc::load_unit_rows_stacked(Wr, p.wh + (size_t)d * H * G, H, G, j0);
+    rc::load_unit_rows_stacked(Wr, p.wh + (size_t)d * H * G, H, G, G / 2,
+                                  j0);
   else
     rc::load_unit_rows<JT>(Wr, p.wh + (size_t)d * H * G, H, G, j0);
   if (!producer) fetch_inputs(T - 1);
@@ -436,12 +241,15 @@ lstm_bwd_persistent_kernel(const Params p,
   // chunk g goes through stage g % STAGES, and is the (g / STAGES)-th use
   // of that stage, which gives the parity its mbarriers are waited with.
   int g_chunk = 0;
+  // The block's first row of dgates_{t+1} in dxproj seen as a matrix
+  // [nd * T * B, 4H], written by the group before the last barrier: no
+  // ping-pong here, each step reads its own row block of dxproj. Carried
+  // from step to step, as the exchange rows of the other kernels are.
+  int drow = (d * T + T) * B + b0;
 
   for (int s = 0; s < T; ++s) {
     const int t = T - 1 - s;
     const bool has_next = s > 0;
-    // dgates of step t+1, written by the group before the last barrier
-    const bf16* dg = p.dxproj + ((size_t)d * T + t + 1) * B * G;
 
     if (producer) {
       // the slab of dgates_{t+1}, chunk after chunk, as far ahead of the
@@ -449,7 +257,6 @@ lstm_bwd_persistent_kernel(const Params p,
       // instruction per box of [32 or 64 rows, 64 k]
       if (has_next && tid == CONSUMERS) {
         rc::fence_proxy_async_global();   // after the barrier's acquire
-        const int drow = (d * T + t + 1) * B + b0;
         for (int q = 0; q < nq; ++q, ++g_chunk) {
           const int st = g_chunk % STAGES, use = g_chunk / STAGES;
           const int pass = q / nkc, k0 = (q % nkc) * KC;
@@ -612,6 +419,7 @@ lstm_bwd_persistent_kernel(const Params p,
       }
       __syncthreads();
     }
+    drow -= B;
   }
 
   // db: each thread's sums over all steps and its rows, then over the

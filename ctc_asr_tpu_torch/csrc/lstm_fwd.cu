@@ -71,205 +71,11 @@
 // H = 512) is latency that the chain cannot hide: the barrier (store
 // acknowledgement, atomic, poll: ~2.5 us), the first chunk's way from L2
 // (~1 us), the product, the cell.
-//
-// The second route (lstm_step_kernel / lstm_fwd_seq): one launch per
-// step, the launch boundary as the barrier, each block staging its wh
-// slice again every step. It serves widths whose slices do not fit the
-// card's shared memory (the host's plan_recurrence decides from shapes
-// alone) and is what the persistent design is measured against.
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "recurrence.cuh"
-
-namespace {
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-constexpr int JT = 32;        // hidden units per block (128 gate columns)
-constexpr int BT = 32;        // batch rows per block
-constexpr int KC = 256;       // K chunk staged in shared memory
-constexpr int THREADS = 256;  // 8 warps
-constexpr int RPT = BT / (THREADS / JT);  // rows per thread in the cell
-constexpr int LDA = KC + 8;               // bf16, padded rows
-constexpr int LDB = 4 * JT + 8;           // bf16
-constexpr int LDC = 4 * JT + 4;           // f32
-constexpr size_t A_BYTES = (size_t)BT * LDA * sizeof(bf16);
-constexpr size_t B_BYTES = (size_t)KC * LDB * sizeof(bf16);
-constexpr size_t SMEM_BYTES = A_BYTES + B_BYTES;
-static_assert(A_BYTES % 128 == 0, "B tile alignment");
-static_assert((size_t)BT * LDC * sizeof(float) <= B_BYTES, "C aliases B");
-static_assert(RPT == 4, "cell mapping assumes 4 rows per thread");
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-__global__ void __launch_bounds__(THREADS)
-lstm_step_kernel(const bf16* __restrict__ xproj,   // [nd,T,B,4H]
-                 const float* __restrict__ bias,   // [nd,4H]
-                 const bf16* __restrict__ wh,      // [nd,H,4H]
-                 const int* __restrict__ start,    // [nd,B]
-                 const int* __restrict__ end,      // [nd,B]
-                 const float* __restrict__ h_prev,     // [nd,B,H] f32
-                 const bf16* __restrict__ hb_prev,     // [nd,B,H] bf16 copy
-                 float* __restrict__ h_next,
-                 bf16* __restrict__ hb_next,
-                 float* __restrict__ c_state,          // [nd,B,H]
-                 bf16* __restrict__ h_out,             // [nd,T,B,H]
-                 bf16* __restrict__ c_out,             // [nd,T,B,H] or null
-                 bf16* __restrict__ gates_out,         // [nd,T,B,4H] or null
-                 int t, int T, int B, int H) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);             // [BT][LDA]
-  bf16* Bs = reinterpret_cast<bf16*>(smem + A_BYTES);   // [KC][LDB]
-  float* Cs = reinterpret_cast<float*>(smem + A_BYTES); // [BT][LDC], after K
-
-  const int d = blockIdx.z;
-  const int j0 = blockIdx.x * JT;
-  const int b0 = blockIdx.y * BT;
-  const int G = 4 * H;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int rb = warp & 1;            // 16-row tile of this warp
-  const int cb = (warp >> 1) * 2;     // its two 16-column tiles
-  const bf16* hb = hb_prev + (size_t)d * B * H;
-  const bf16* w = wh + (size_t)d * H * G;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  for (int k0 = 0; k0 < H; k0 += KC) {
-    // A: rows b0.. of bf16 h, columns k0..k0+KC (8 bf16 per copy)
-    for (int e = tid; e < BT * (KC / 8); e += THREADS) {
-      const int rr = e / (KC / 8), k = k0 + (e % (KC / 8)) * 8;
-      bf16* dst = As + rr * LDA + (e % (KC / 8)) * 8;
-      if (b0 + rr < B && k < H)
-        __pipeline_memcpy_async(dst, hb + (size_t)(b0 + rr) * H + k, 16);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    }
-    // B: rows k0..k0+KC of wh, the columns g*H + j0 .. +32 of each gate
-    for (int e = tid; e < KC * 16; e += THREADS) {
-      const int kk = e / 16, g = (e % 16) / 4, q = e % 4;
-      const int k = k0 + kk, j = j0 + q * 8;
-      bf16* dst = Bs + kk * LDB + g * JT + q * 8;
-      if (k < H && j < H)
-        __pipeline_memcpy_async(dst, w + (size_t)k * G + g * H + j, 16);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    }
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    const int nks = min(KC, H - k0) / 16;
-    for (int ks = 0; ks < nks; ++ks) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, As + rb * 16 * LDA + ks * 16, LDA);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bm;
-        wmma::load_matrix_sync(bm, Bs + ks * 16 * LDB + (cb + i) * 16, LDB);
-        wmma::mma_sync(acc[i], a, bm, acc[i]);
-      }
-    }
-    __syncthreads();   // tiles are rewritten by the next chunk / by C
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    wmma::store_matrix_sync(Cs + rb * 16 * LDC + (cb + i) * 16, acc[i], LDC,
-                            wmma::mem_row_major);
-  __syncthreads();
-
-  const int u = tid % JT;             // unit within the block
-  const int r = tid / JT;             // rows r, r+8, r+16, r+24
-  const int j = j0 + u;
-  if (j >= H) return;
-  const float* bd = bias + (size_t)d * G;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int rr = r + 8 * i, bb = b0 + rr;
-    if (bb >= B) continue;
-    const bf16* xp = xproj + (((size_t)d * T + t) * B + bb) * G;
-    float pre[4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-      pre[g] = (__bfloat162float(xp[g * H + j]) + bd[g * H + j])
-               + Cs[rr * LDC + g * JT + u];
-    const float gi = sigmoidf(pre[0]);
-    const float gf = sigmoidf(pre[1]);
-    const float gg = tanhf(pre[2]);
-    const float go = sigmoidf(pre[3]);
-    const size_t so = ((size_t)d * B + bb) * H + j;
-    const float c_old = c_state[so];
-    const float h_old = h_prev[so];
-    const float c_new = gf * c_old + gi * gg;
-    const float h_new = go * tanhf(c_new);
-    const bool m = t >= start[d * B + bb] && t < end[d * B + bb];
-    const float h = m ? h_new : h_old;
-    c_state[so] = m ? c_new : c_old;
-    h_next[so] = h;
-    hb_next[so] = __float2bfloat16(h);
-    const size_t ot = ((size_t)d * T + t) * B + bb;
-    h_out[ot * H + j] = __float2bfloat16(m ? h : 0.f);
-    if (c_out != nullptr) {
-      c_out[ot * H + j] = __float2bfloat16(m ? c_new : c_old);
-      bf16* gp = gates_out + ot * G;
-      gp[0 * H + j] = __float2bfloat16(gi);
-      gp[1 * H + j] = __float2bfloat16(gf);
-      gp[2 * H + j] = __float2bfloat16(gg);
-      gp[3 * H + j] = __float2bfloat16(go);
-    }
-  }
-}
-
-}  // namespace
-
-// One layer: T launches of lstm_step_kernel on `stream`. Needs H % 16 == 0
-// and 16-byte aligned xproj/wh/hb16. hbuf is [2, nd, B, H] f32 and hb16
-// [2, nd, B, H] bf16, each with index 0 zeroed by the caller; cbuf
-// [nd, B, H] f32 zeroed by the caller. c_out [nd,T,B,H] and gates_out
-// [nd,T,B,4H] (bf16) are both given for training or both null for
-// inference. Returns cudaError_t.
-extern "C" int lstm_fwd_seq(const void* xproj, const void* bias,
-                            const void* wh, const void* start,
-                            const void* end, void* hbuf, void* hb16,
-                            void* cbuf, void* h_out, void* c_out,
-                            void* gates_out, int nd, int T, int B,
-                            int H, void* stream) {
-  if (nd <= 0 || T <= 0 || B <= 0 || H <= 0) return (int)cudaSuccess;
-  if (H % 16 != 0 || (B + BT - 1) / BT > 65535 || nd > 65535
-      || (c_out == nullptr) != (gates_out == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + JT - 1) / JT, (B + BT - 1) / BT, nd);
-  const size_t state = (size_t)nd * B * H;
-  float* hf = (float*)hbuf;
-  bf16* hb = (bf16*)hb16;
-  for (int t = 0; t < T; ++t) {
-    const size_t cur = (t & 1) * state, nxt = ((t + 1) & 1) * state;
-    lstm_step_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-        (const bf16*)xproj, (const float*)bias, (const bf16*)wh,
-        (const int*)start, (const int*)end, hf + cur, hb + cur, hf + nxt,
-        hb + nxt, (float*)cbuf, (bf16*)h_out, (bf16*)c_out,
-        (bf16*)gates_out, t, T, B, H);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
-}
-
-// ---------------------------------------------------------------------------
-// The persistent route: one cooperative launch for all T steps.
-// ---------------------------------------------------------------------------
 
 // Internal linkage: lstm_fwd.cu and lstm_bwd.cu each have their own Params,
 // Layout and launch under these names.
@@ -431,11 +237,11 @@ lstm_fwd_persistent_kernel(const Params p,
   // chunk g goes through stage g % STAGES, and is the (g / STAGES)-th use
   // of that stage, which gives the parity its mbarriers are waited with.
   int g_chunk = 0;
+  // the h exchange [2 * nd * B, H]: step t reads h_{t-1} from half t&1
+  // and writes h_t to the other
+  rc::PingPong hx(0, nd, d, B, b0);
 
   for (int t = 0; t < T; ++t) {
-    // step t reads h_{t-1} from buffer t&1 and writes h_t to the other
-    const bf16* hcur = p.hb + ((size_t)(t & 1) * nd + d) * B * H;
-    bf16* hnxt = p.hb + ((size_t)((t + 1) & 1) * nd + d) * B * H;
     const bool product = t > 0;               // h_{-1} = 0: no product
 
     // h_out, and c and the gates in residual mode, of the pairs of `pass`
@@ -462,7 +268,6 @@ lstm_fwd_persistent_kernel(const Params p,
       // instruction per box of [PR rows, 64 k]
       if (product && tid == CONSUMERS) {
         rc::fence_proxy_async_global();   // after the barrier's acquire
-        const int hrow = ((t & 1) * nd + d) * B + b0;
         for (int q = 0; q < nq; ++q, ++g_chunk) {
           const int s = g_chunk % STAGES, use = g_chunk / STAGES;
           const int pass = q / nkc, k0 = (q % nkc) * KC;
@@ -471,7 +276,7 @@ lstm_fwd_persistent_kernel(const Params p,
           rc::mbar_expect_tx(full + s, natoms * PR * 128);
           for (int a = 0; a < natoms; ++a)
             rc::tma_load_box(ring + s * STAGE + a * PR * 64, &hmap,
-                             k0 + 64 * a, hrow + pass * PR, full + s);
+                             k0 + 64 * a, hx.read + pass * PR, full + s);
         }
       }
     } else {
@@ -549,7 +354,7 @@ lstm_fwd_persistent_kernel(const Params p,
             cst[br * JT + u] = c_keep;
             hst[br * JT + u] = hb;
             // the exchanged h first: it is what the other blocks wait for
-            if (t + 1 < T) hnxt[(size_t)(b0 + br) * H + j] = hb;
+            if (t + 1 < T) p.hb[(size_t)(hx.write + br) * H + j] = hb;
             o_m[i] = m;
             o_h[i] = hb;
             o_c[i] = __float2bfloat16(c_keep);
@@ -578,6 +383,7 @@ lstm_fwd_persistent_kernel(const Params p,
     } else if (!producer) {
       write_outputs(npass - 1);
     }
+    hx.swap();
   }
 }
 

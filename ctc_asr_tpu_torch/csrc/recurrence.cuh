@@ -1,24 +1,27 @@
 // Shared pieces of the persistent recurrence kernels (lstm_fwd.cu,
-// lstm_bwd.cu): one cooperative launch runs all T steps of a layer, each
-// block keeps its slice of the recurrent weights in shared memory for the
-// whole sequence, and the blocks that depend on each other meet at a
-// barrier in global memory between steps.
+// lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu): one cooperative launch runs all T
+// steps of a layer, each block keeps its slice of the recurrent weights
+// in shared memory for the whole sequence, and the blocks that depend on
+// each other meet at a barrier in global memory between steps.
 //
 // - cp.async helpers (16-byte copies for the block's own tiles). What
-//   another block wrote during the kernel (the h ping-pong buffer,
-//   dxproj) is read by TMA, which goes to L2 and never to the
-//   non-coherent L1 / read-only path.
+//   another block wrote during the kernel (the h ping-pong buffer, the
+//   LSTM's dxproj, the GRU's dhproj ping-pong buffer) is read by TMA,
+//   which goes to L2 and never to the non-coherent L1 / read-only path.
 // - group_arrive / group_wait: the step barrier. A counter in global
 //   memory that only grows; after its k-th step a block adds one and
 //   waits for k * (blocks in the group). The wrapper zeroes it; it is
 //   never reset inside the kernel, so there is no reset race.
+// - PingPong: the rows a block reads and writes in a two-half exchange
+//   buffer, carried from step to step.
 // - the wgmma helpers: descriptors of K-major operand tiles in shared
 //   memory, the fences, m64nNk16 for N = 16, 32, 64.
 // - the mbarrier and TMA helpers: one producer thread copies the slab
 //   into a ring of stages (cp.async.bulk.tensor) and two consumer
 //   warpgroups multiply from it; a "full" and an "empty" mbarrier per
 //   stage hand the stages over.
-// - load_gate_columns / load_unit_rows: the resident weight slices.
+// - load_gate_columns / load_unit_rows / load_unit_rows_stacked: the
+//   resident weight slices.
 // - launch_persistent: cudaFuncSetAttribute once per device, the
 //   occupancy check that the grid is co-resident, the cooperative launch.
 
@@ -104,6 +107,24 @@ __device__ __forceinline__ void group_wait(const unsigned* counter,
       __trap();
   }
 }
+
+// The first rows of the block's tile in the two halves of a ping-pong
+// exchange, a matrix [2 * nd * B, width]: a step reads the half the step
+// before wrote and writes the other. Both rows are carried and swapped
+// after every step, never computed from the step index, so that every
+// kernel names the halves in one way.
+struct PingPong {
+  int read, write;
+  // `first_read` is the half the first step reads
+  __device__ PingPong(int first_read, int nd, int d, int B, int b0)
+      : read((first_read * nd + d) * B + b0),
+        write(((first_read ^ 1) * nd + d) * B + b0) {}
+  __device__ void swap() {
+    const int w = write;
+    write = read;
+    read = w;
+  }
+};
 
 // --- wgmma (sm_90a): D[64, N] (+)= A[64, 16] x B[N, 16]^T, both operands
 // bf16 in shared memory, K-major, 128-byte swizzle. An operand tile of R
@@ -219,19 +240,23 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
 
 // Wa (a tile of GM*JT rows): row m = g*JT + u, piece kg holds
 // w[kg*8 .. +8][g*H + j0 + u]: the gate columns of the block's JT units,
-// resident for the whole sequence. Units past H (a ragged last tile) are
-// zero. w is [H, GM*H] row-major, so a piece gathers 8 rows; once a launch.
+// resident for the whole sequence. w is [H, GW*H] row-major (GW gate
+// groups, GW <= GM); the rows of groups past GW (padding) and of units
+// past H (a ragged last tile) are zero. A piece gathers 8 rows; once a
+// launch.
 template <int GM, int JT>
 __device__ __forceinline__ void load_gate_columns(bf16* Wa, const bf16* w,
-                                                  int H, int j0) {
+                                                  int H, int j0,
+                                                  int GW = GM) {
   constexpr int M = GM * JT;
   for (int e = threadIdx.x; e < (H / 8) * M; e += THREADS) {
-    const int kg = e / M, m = e % M, j = j0 + m % JT;
+    const int kg = e / M, m = e % M, g = m / JT, j = j0 + m % JT;
     __align__(16) bf16 piece[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      piece[i] = j < H ? w[(size_t)(kg * 8 + i) * GM * H + (m / JT) * H + j]
-                       : __float2bfloat16(0.f);
+      piece[i] = j < H && g < GW
+                     ? w[(size_t)(kg * 8 + i) * GW * H + g * H + j]
+                     : __float2bfloat16(0.f);
     *reinterpret_cast<uint4*>(Wa + swizzled(M, m, kg)) =
         *reinterpret_cast<const uint4*>(piece);
   }
@@ -255,24 +280,29 @@ __device__ __forceinline__ void load_unit_rows(bf16* Wr, const bf16* w,
 
 // The two halves of K stacked as rows, so that one wgmma with M = 64 and
 // N = 64 forms both halves' partial products of a [32, 32] tile: tile row
-// r < 32 holds columns [0, K/2) of source row r, tile row 32 + r holds
-// columns [K/2, K) of the same source row. With A and B stacked alike,
+// r < 32 holds columns [0, KH) of source row r, tile row 32 + r holds
+// columns [KH, K) of the same source row. With A and B stacked alike,
 // D[m][n] is a partial product where m and n lie in the same half, and is
-// not used elsewhere.
+// not used elsewhere. KH >= K - KH is a multiple of 8: K / 2 for the
+// LSTM; the GRU's K = 3H halves into no whole k-step of 16 where H / 16
+// is odd, so it takes KH = K / 2 rounded up to whole atoms of 64.
 
-// Wr (64 rows of K/2, in whole atoms of 64 k: 64 * ceil(K/128) * 64
-// elements): row 32*h + u, piece kg holds w[j0 + u][h*K/2 + kg*8 .. +8].
-// Rows past H and the pieces past K/2 of a partial last atom are zero.
+// Wr (64 rows of KH, in whole atoms of 64 k: 64 * ceil(KH/64) * 64
+// elements): row 32*h + u, piece kg holds w[j0 + u][h*KH + kg*8 .. +8].
+// Rows past H, the pieces past KH of a partial last atom and those past
+// K of the second half are zero.
 __device__ __forceinline__ void load_unit_rows_stacked(bf16* Wr,
                                                        const bf16* w, int H,
-                                                       int K, int j0) {
-  const int nkg = K / 16;                       // pieces of half a row
+                                                       int K, int KH,
+                                                       int j0) {
+  const int nkg = KH / 8;                       // pieces of half a row
   const int nkgp = (nkg + 7) / 8 * 8;           // ... in whole atoms
   for (int e = threadIdx.x; e < 64 * nkgp; e += THREADS) {
     const int n = e / nkgp, kg = e % nkgp, u = n & 31;
+    const int k = (n >> 5) * KH + kg * 8;
     bf16* dst = Wr + swizzled(64, n, kg);
-    if (j0 + u < H && kg < nkg)
-      cp_async16(dst, w + (size_t)(j0 + u) * K + (n >> 5) * (K / 2) + kg * 8);
+    if (j0 + u < H && kg < nkg && k < K)
+      cp_async16(dst, w + (size_t)(j0 + u) * K + k);
     else
       zero16(dst);
   }

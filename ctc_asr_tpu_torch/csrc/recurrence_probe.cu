@@ -1,7 +1,8 @@
 // The step barrier of the persistent recurrence kernels, alone: a
 // cooperative launch of the same grid shape that does nothing but `steps`
 // group barriers (recurrence.cuh). Its time over the step count is the
-// floor that the barrier sets under a step of lstm_fwd.cu / lstm_bwd.cu.
+// floor that the barrier sets under a step of the recurrence kernels
+// (lstm_fwd.cu, lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu).
 
 #include <cuda_runtime.h>
 

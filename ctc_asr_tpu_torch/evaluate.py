@@ -21,6 +21,7 @@ from .metrics import ErrorRateAccumulator
 from .models.encoder import apply_encoder
 from .ops.dispatch import resolve_device
 from .text import decode_ids
+from .train import check_single_process
 
 
 def make_eval_step(cfg: Config, device: str | torch.device = "cuda"):
@@ -119,7 +120,9 @@ def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
 
     ``rtf`` is wall time per second of audio over every batch except
     the first of each length bucket (which pays first-call costs);
-    ``rtf_incl_compile`` includes them."""
+    ``rtf_incl_compile`` includes them. Raises for a parallel regime the
+    port does not have (``train.check_single_process``)."""
+    check_single_process(cfg)
     if loader is None:
         loader = DataLoader(read_manifest(cfg.data.eval_manifest), cfg.data,
                             cfg.features, drop_last=False)

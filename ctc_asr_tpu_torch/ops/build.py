@@ -44,14 +44,6 @@ _SIGNATURES = {
     # use_dct, log_floor, stream
     "stft_mel_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _P],
-    # xproj, bias, wh, start, end, hbuf, hb16, cbuf, h_out, c_out,
-    # gates_out, nd, T, B, H, stream
-    "lstm_fwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                     _I, _I, _P],
-    # g_out, gates, c_seq, wh, start, end, dh_state, dc_state, dxproj,
-    # db_part, nd, T, B, H, stream
-    "lstm_bwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                     _I, _P],
     # xproj, bias, wh, start, end, hb16, sync, h_out, c_out, gates_out, nd,
     # T, B, H, jt, bt, smem_bytes, stream
     "lstm_fwd_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -62,13 +54,14 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _P],
     # sync, unit_tiles, row_blocks, nd, steps, smem_bytes, stream
     "recurrence_barrier_probe": [_P, _I, _I, _I, _I, _I, _P],
-    # xproj, bias, wh, start, end, hbuf, hb16, h_out, gates_out, nd, T, B,
-    # H, stream
-    "gru_fwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # g_out, gates, h_seq, wh, start, end, dh_state, dhproj, dxproj,
-    # db_part, nd, T, B, H, stream
-    "gru_bwd_seq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                    _I, _P],
+    # xproj, bias, wh, start, end, hb16, sync, h_out, gates_out, nd, T, B,
+    # H, jt, bt, smem_bytes, stream
+    "gru_fwd_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _I, _I, _I, _P],
+    # g_out, gates, h_seq, wh, start, end, dhproj, dxproj, db_part, sync,
+    # nd, T, B, H, jt, bt, smem_bytes, stream
+    "gru_bwd_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                           _I, _I, _I, _I, _I, _P],
     # lpz, skip, lens, ends, alphas, nll, T, B, S, stream
     "ctc_alpha": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # lpz, alphas, skip, lens, ends, nll, grad, T, B, S, stream

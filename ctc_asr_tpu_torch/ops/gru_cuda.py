@@ -12,6 +12,10 @@ n-third ``hn`` apart from the input's, and BPTT needs it. The input
 projections ``x @ wx`` and the recurrent weight gradient ``dwh`` (one
 large matmul per direction, ``lstm_cuda.dwh_from_seq``) stay outside
 the kernels (``torch.bmm``), as the reference leaves them to XLA.
+
+On the card each kernel is one cooperative launch a layer on the plan
+``lstm_cuda.plan_recurrence(..., gate_mult=3)`` gives (see
+``ops/lstm_cuda.py``); a shape with no plan raises before any launch.
 """
 
 from __future__ import annotations
@@ -20,9 +24,7 @@ import torch
 
 from . import build
 from .dispatch import check_kernel_tensor, require_kernel_device
-from .lstm_cuda import _window, dwh_from_seq
-
-_BT = 32   # batch rows per block of the BPTT kernel (gru_bwd.cu: BT)
+from .lstm_cuda import _window, dwh_from_seq, require_plan
 
 
 def gru_fwd_plain(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
@@ -81,8 +83,9 @@ def gru_fwd(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
 
     xproj [nd, T, B, 3H] bf16; b [nd, 3H] f32; wh [nd, H, 3H] bf16;
     start/end [nd, B] int32. A CPU tensor gets the plain version
-    (outputs rounded to bf16); a CUDA tensor launches the kernel (and
-    raises if it cannot). Returns h, or (h, gates)."""
+    (outputs rounded to bf16); a CUDA tensor launches the kernel on the
+    plan ``plan_recurrence`` gives, and raises where there is none or
+    the launch fails. Returns h, or (h, gates)."""
     if xproj.device.type == "cpu":
         h, gates = (o.to(torch.bfloat16)
                     for o in gru_fwd_plain(xproj, b, wh, start, end))
@@ -104,19 +107,22 @@ def gru_fwd(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
              if residuals else None)
     if xproj.numel() == 0:     # no step or no row: nothing to launch
         return (h_out, gates) if residuals else h_out
-    hbuf = torch.zeros((2, nd, B, H), dtype=torch.float32, device=dev)
-    hb16 = torch.zeros((2, nd, B, H), dtype=torch.bfloat16, device=dev)
-    rc = build.load().gru_fwd_seq(
+    plan = require_plan(dev, nd, B, H, gate_mult=3)
+    # the h exchange (never read before it is written) and the barrier
+    # counters are the only scratch
+    hb16 = torch.empty((2, nd, B, H), dtype=torch.bfloat16, device=dev)
+    sync = torch.zeros(nd * plan.grid[1], dtype=torch.int32, device=dev)
+    rc = build.load().gru_fwd_persistent(
         xproj.data_ptr(), b.data_ptr(), wh.data_ptr(), start.data_ptr(),
-        end.data_ptr(), hbuf.data_ptr(), hb16.data_ptr(), h_out.data_ptr(),
-        gates.data_ptr() if residuals else None, nd, T, B, H,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "gru_fwd_seq")
+        end.data_ptr(), hb16.data_ptr(), sync.data_ptr(), h_out.data_ptr(),
+        gates.data_ptr() if residuals else None, nd, T, B, H, plan.jt,
+        plan.bt, plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "gru_fwd_persistent")
     gru_fwd.launches += 1
     return (h_out, gates) if residuals else h_out
 
 
-gru_fwd.launches = 0
+gru_fwd.launches = 0            # one kernel a call
 
 
 def gru_seq(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
@@ -135,7 +141,8 @@ def gru_seq(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
 
 def gru_bwd_plain(g_out: torch.Tensor, gates: torch.Tensor,
                   h_seq: torch.Tensor, wh: torch.Tensor,
-                  start: torch.Tensor, end: torch.Tensor):
+                  start: torch.Tensor, end: torch.Tensor,
+                  exact: bool = False):
     """K5's plain version: BPTT of ``lstm_pallas.py:525-563`` in f32 on
     the bf16 residuals. Returns (dxproj [nd, T, B, 3H] f32 with values
     rounded to bf16, db [nd, 3H] f32).
@@ -143,29 +150,37 @@ def gru_bwd_plain(g_out: torch.Tensor, gates: torch.Tensor,
     h[t-1] is the masked bf16 output (0 at t = 0), not the f32 state:
     right because outside a row's window either ``dh_new`` is 0 or the
     carried h is 0. The recurrent product takes d(hproj) = (dr_pre,
-    dz_pre, dn_pre * r), formed in f32 and rounded to bf16 once."""
+    dz_pre, dn_pre * r), formed in f32 and rounded to bf16 once.
+
+    ``exact`` gives the same BPTT in f64 with nothing rounded (f64
+    outputs): the oracle that the kernel and this version are both held
+    against where their difference is the rounding of dhproj alone."""
     nd, T, B, G4 = gates.shape
     H = G4 // 4
-    whb = wh.to(torch.bfloat16).float()
+    ft = torch.float64 if exact else torch.float32
+
+    def rnd(v):
+        return v if exact else v.to(torch.bfloat16).to(ft)
+
+    whb = wh.to(torch.bfloat16).to(ft)
     dev = gates.device
-    dh = torch.zeros((nd, B, H), dtype=torch.float32, device=dev)
-    db = torch.zeros((nd, 3 * H), dtype=torch.float32, device=dev)
-    dx = torch.empty((nd, T, B, 3 * H), dtype=torch.float32, device=dev)
+    dh = torch.zeros((nd, B, H), dtype=ft, device=dev)
+    db = torch.zeros((nd, 3 * H), dtype=ft, device=dev)
+    dx = torch.empty((nd, T, B, 3 * H), dtype=ft, device=dev)
     for t in range(T - 1, -1, -1):
-        mf = _window(start, end, t, (nd, B, 1))
-        r, z, n, hn = gates[:, t].float().split(H, dim=-1)
-        h_prev = h_seq[:, t - 1].float() if t > 0 else torch.zeros_like(dh)
-        dh_total = dh + mf * g_out[:, t].float()
+        mf = _window(start, end, t, (nd, B, 1)).to(ft)
+        r, z, n, hn = gates[:, t].to(ft).split(H, dim=-1)
+        h_prev = h_seq[:, t - 1].to(ft) if t > 0 else torch.zeros_like(dh)
+        dh_total = dh + mf * g_out[:, t].to(ft)
         dh_new = mf * dh_total
         dz = dh_new * (h_prev - n)
         dn_pre = dh_new * (1.0 - z) * (1.0 - n * n)
         dr_pre = dn_pre * hn * r * (1.0 - r)
         dz_pre = dz * z * (1.0 - z)
         dgates = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1)
-        dx[:, t] = dgates.to(torch.bfloat16).float()
+        dx[:, t] = rnd(dgates)
         db += dgates.sum(dim=1)
-        dhproj = torch.cat([dr_pre, dz_pre, dn_pre * r],
-                           dim=-1).to(torch.bfloat16).float()
+        dhproj = rnd(torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1))
         dh = ((1.0 - mf) * dh_total + dh_new * z
               + torch.bmm(dhproj, whb.transpose(1, 2)))
     return dx, db
@@ -176,7 +191,8 @@ def gru_bwd(g_out: torch.Tensor, gates: torch.Tensor, h_seq: torch.Tensor,
     """K5: (dxproj [nd, T, B, 3H] bf16, db [nd, 3H] f32) from the bf16
     cotangent of h and the forward's bf16 residuals (gates (r, z, n, hn)
     and the masked h). A CPU tensor gets the plain version; a CUDA
-    tensor launches the kernel (and raises if it cannot)."""
+    tensor launches the kernel on the plan ``plan_recurrence`` gives,
+    and raises where there is none or the launch fails."""
     if g_out.device.type == "cpu":
         dx, db = gru_bwd_plain(g_out, gates, h_seq, wh, start, end)
         return dx.to(torch.bfloat16), db
@@ -198,25 +214,28 @@ def gru_bwd(g_out: torch.Tensor, gates: torch.Tensor, h_seq: torch.Tensor,
         raise ValueError("wh must be 16-byte aligned")
     dev = g_out.device
     dxproj = torch.empty((nd, T, B, G), dtype=torch.bfloat16, device=dev)
-    nbt = -(-B // _BT)
-    db_part = torch.zeros((nbt, nd, G), dtype=torch.float32, device=dev)
     if gates.numel() == 0:     # no step or no row: nothing to launch
-        return dxproj, db_part.sum(dim=0)
-    dh = torch.zeros((nd, B, H), dtype=torch.float32, device=dev)
+        return dxproj, torch.zeros((nd, G), dtype=torch.float32, device=dev)
+    plan = require_plan(dev, nd, B, H, gate_mult=3, backward=True)
     # d(hproj) of the step before, ping-ponged: step t reads what step
-    # t + 1 wrote and writes the other half
+    # t + 1 wrote and writes the other half; one db partial per row
+    # block, each element written once
     dhproj = torch.empty((2, nd, B, G), dtype=torch.bfloat16, device=dev)
-    rc = build.load().gru_bwd_seq(
+    db_part = torch.empty((plan.grid[1], nd, G), dtype=torch.float32,
+                          device=dev)
+    sync = torch.zeros(nd * plan.grid[1], dtype=torch.int32, device=dev)
+    rc = build.load().gru_bwd_persistent(
         g_out.data_ptr(), gates.data_ptr(), h_seq.data_ptr(), wh.data_ptr(),
-        start.data_ptr(), end.data_ptr(), dh.data_ptr(), dhproj.data_ptr(),
-        dxproj.data_ptr(), db_part.data_ptr(), nd, T, B, H,
+        start.data_ptr(), end.data_ptr(), dhproj.data_ptr(),
+        dxproj.data_ptr(), db_part.data_ptr(), sync.data_ptr(), nd, T, B, H,
+        plan.jt, plan.bt, plan.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
-    build.check(rc, "gru_bwd_seq")
+    build.check(rc, "gru_bwd_persistent")
     gru_bwd.launches += 1
     return dxproj, db_part.sum(dim=0)
 
 
-gru_bwd.launches = 0
+gru_bwd.launches = 0            # one kernel a call
 
 
 class GruSeq(torch.autograd.Function):

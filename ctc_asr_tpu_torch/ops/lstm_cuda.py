@@ -11,15 +11,16 @@ The input projections ``x @ wx`` and the recurrent weight gradient
 outside the kernels (``torch.matmul``), as the reference leaves them to
 XLA.
 
-Each kernel has two routes on the card. ``"persistent"``: one
-cooperative launch runs all T steps, every block keeps its slice of
-``wh`` in shared memory and the blocks meet at a barrier between steps.
-``"per_step"``: one launch per step, for widths whose slices do not fit
-the card's shared memory. ``plan_recurrence`` picks the route and the
-tiling from the shapes and the device's attributes alone, before
-anything is launched; a launch that the card refuses raises. The
-wrappers count the two routes apart (``launches`` and
-``per_step_launches``).
+On the card each kernel is one cooperative launch a layer: every block
+keeps its slice of ``wh`` in shared memory for all T steps and the
+blocks meet at a barrier between steps (``csrc/recurrence.cuh``).
+``plan_recurrence`` cuts a layer over the card from the shapes and the
+device's attributes alone, before anything is launched, for the LSTM
+(``gate_mult=4``) and the GRU's K4 / K5 (``gate_mult=3``,
+``ops/gru_cuda.py``). A shape with no plan (a slice too wide for the
+card's shared memory) has no kernel: the wrappers raise on it, and the
+encoder gives such a layer its plain recurrence before it calls them
+(``models/encoder.py``). A launch that the card refuses raises.
 """
 
 from __future__ import annotations
@@ -31,8 +32,6 @@ import torch
 
 from . import build
 from .dispatch import check_kernel_tensor, require_kernel_device
-
-_BT = 32   # batch rows per block of the per-step BPTT kernel (lstm_bwd.cu)
 
 # One H100: SMs, and the dynamic shared memory a block may opt in to.
 SM_COUNT = 132
@@ -49,10 +48,8 @@ class RecurrencePlan:
     """How one layer's recurrence is cut over the card. ``grid`` is
     (unit tiles, row blocks, directions); a block owns ``jt`` hidden
     units of one direction for ``bt`` batch rows (a multiple of 32 that
-    it walks in tiles of 32). ``smem_bytes`` is the block's dynamic
-    shared memory on the persistent route (0 on the per-step route,
-    whose kernels fix their own)."""
-    route: str
+    it walks in passes of 32 or 64), with ``smem_bytes`` of dynamic
+    shared memory."""
     jt: int
     bt: int
     grid: tuple
@@ -71,56 +68,73 @@ def _a1024(n: int) -> int:
     return -(-n // 1024) * 1024
 
 
+def _ceil64(n: int) -> int:
+    return -(-n // 64) * 64
+
+
 def recurrence_smem_bytes(H: int, jt: int, bt: int, gate_mult: int = 4,
                           backward: bool = False) -> int:
     """Dynamic shared memory of one block of the persistent kernels: the
     sum that ``Layout`` in ``csrc/lstm_fwd.cu`` / ``csrc/lstm_bwd.cu``
-    computes (the launch is refused if the two disagree). A block walks
-    its rows in passes of 32 (jt = 32) or 64 (jt = 16) rows. Forward: the
-    resident ``wh`` columns [gm*jt][H up to 64] bf16, the ring of the h
-    slab (3 stages of [32][256], or 4 of [64][128] bf16), the product
-    tile [pass][gm*jt + 4] f32, the xproj tile [bt][gm*jt] bf16, c f32
-    and h bf16 [bt][jt], the bias, the windows, the ring's mbarriers.
-    Backward: the resident ``wh`` rows [jt][gm*H] bf16 (jt = 32: as 64
-    rows of gm*H/2 rounded up to 64 columns), the ring of the
-    dgates slab (2 stages of [64][256], or 3 of [64][128] bf16), two
-    partial tiles [pass][jt + 4] f32, dh and dc f32 [bt][jt], the gates
-    tile [bt][gm*jt] and c_t, c_{t-1}, g_out [bt][jt] bf16, the windows,
-    the mbarriers."""
+    (``gate_mult=4``) or ``csrc/gru_fwd.cu`` / ``csrc/gru_bwd.cu``
+    (``gate_mult=3``) computes; the launch is refused if the two
+    disagree. A block walks its rows in passes of 32 (jt = 32) or 64
+    (jt = 16) rows.
+
+    Forward: the resident ``wh`` columns [4*jt][H up to 64] bf16 (the
+    GRU's 3*jt columns padded with a zero group to 4*jt), the ring of the
+    h slab (3 stages of [32][256], or 4 of [64][128] bf16), the product
+    tile [pass][4*jt + 4] f32, the xproj tile [bt][gm*jt] bf16, the state
+    (LSTM: c f32 and h bf16; GRU: h f32) [bt][jt], the bias, the windows,
+    the ring's mbarriers.
+
+    Backward: the resident ``wh`` rows [jt][gm*H] bf16 (jt = 32: the two
+    halves of K = gm*H stacked as 64 rows, each half in whole atoms of 64
+    columns; the GRU's halves are 3H/2 rounded up to an atom), the ring
+    of the exchanged slab (2 stages of [64][256], or 3 of [64][128]
+    bf16), two partial tiles [pass][jt + 4] f32, the carried dh (and the
+    LSTM's dc) f32 [bt][jt], the gates tile [bt][4*jt] bf16 and the other
+    per-step inputs [bt][jt] bf16 (LSTM: c_t, c_{t-1}, g_out; GRU:
+    h_{t-1}, g_out), the windows, the mbarriers."""
+    if gate_mult not in (3, 4):
+        raise ValueError(f"gate_mult is 4 (LSTM) or 3 (GRU), got {gate_mult}")
     gm = gate_mult
+    pr = 32 if jt == 32 else 64
     if backward:
         ring = 2 * 256 * 64 * 2 if jt == 32 else 3 * 128 * 64 * 2
-        pr = 32 if jt == 32 else 64
-        # jt = 32 stacks the two halves of K = gm*H as 64 rows, stored in
-        # whole atoms of 64 k
-        wr = 64 * (-(-(gm * H // 2) // 64) * 64) * 2 if jt == 32 \
-            else jt * gm * H * 2
+        K = gm * H
+        if jt == 32:
+            half = K // 2 if gm == 4 else -(-K // 128) * 64
+            wr = 64 * _ceil64(half) * 2
+        else:
+            wr = jt * _ceil64(K) * 2
+        n_state, n_inputs = (2, 3) if gm == 4 else (1, 2)
         return (_a1024(wr) + _a1024(ring)
-                + _a128(2 * pr * (jt + 4) * 4) + 2 * _a128(bt * jt * 4)
-                + _a128(bt * gm * jt * 2) + 3 * _a128(bt * jt * 2)
+                + _a128(2 * pr * (jt + 4) * 4) + n_state * _a128(bt * jt * 4)
+                + _a128(bt * 4 * jt * 2) + n_inputs * _a128(bt * jt * 2)
                 + _a128(2 * bt * 4) + 128)
-    pr = 32 if jt == 32 else 64
     ring = 3 * 256 * 32 * 2 if jt == 32 else 4 * 128 * 64 * 2
-    return (_a1024(-(-H // 64) * 64 * gm * jt * 2) + _a1024(ring)
-            + _a128(pr * (gm * jt + 4) * 4) + _a128(bt * gm * jt * 2)
-            + _a128(bt * jt * 4) + _a128(bt * jt * 2) + _a128(gm * jt * 4)
-            + _a128(2 * bt * 4) + 128)
+    state = (_a128(bt * jt * 4) + _a128(bt * jt * 2)) if gm == 4 \
+        else _a128(bt * jt * 4)
+    return (_a1024(_ceil64(H) * 4 * jt * 2) + _a1024(ring)
+            + _a128(pr * (4 * jt + 4) * 4) + _a128(bt * gm * jt * 2)
+            + state + _a128(gm * jt * 4) + _a128(2 * bt * 4) + 128)
 
 
 def plan_recurrence(nd: int, B: int, H: int, gate_mult: int = 4,
                     sm_count: int = SM_COUNT,
                     smem_per_block: int = SMEM_PER_BLOCK,
-                    backward: bool = False) -> RecurrencePlan:
-    """The route and the tiling of one layer's recurrence (forward, or
-    the BPTT with ``backward``), from shapes and device attributes alone.
+                    backward: bool = False) -> RecurrencePlan | None:
+    """The tiling of one layer's recurrence (forward, or the BPTT with
+    ``backward``), from shapes and device attributes alone; ``None``
+    where none fits. ``gate_mult`` is 4 for the LSTM and 3 for the GRU.
 
-    Persistent needs every block resident at once (grid <= sm_count *
-    BLOCKS_PER_SM) and its shared memory within ``smem_per_block``. Among
-    the tilings that fit, the one with the least product work per block
-    (padded rows x units: the step's latency) wins, then the larger unit
-    tile (the operand exchanged per step is read H / jt times). Where
-    none fits, the per-step route with its fixed 32 x 32 tiling.
-    ``gate_mult`` is 4 for the LSTM and 3 for the GRU."""
+    Every block must be resident at once (grid <= sm_count *
+    BLOCKS_PER_SM) with its shared memory within ``smem_per_block``.
+    Among the tilings that fit, the one with the least product work per
+    block (padded rows x units: the step's latency) wins, then the
+    larger unit tile (the operand exchanged per step is read H / jt
+    times)."""
     if min(nd, B, H) <= 0 or H % 16:
         raise ValueError(f"need nd, B, H > 0 and H % 16 == 0, got nd={nd} "
                          f"B={B} H={H}")
@@ -136,17 +150,9 @@ def plan_recurrence(nd: int, B: int, H: int, gate_mult: int = 4,
                 work = jt * 16 * -(-min(bt, B) // 16)
                 if best is None or work < best[0]:
                     best = (work, RecurrencePlan(
-                        "persistent", jt, bt, (unit_tiles, row_blocks, nd),
-                        smem))
+                        jt, bt, (unit_tiles, row_blocks, nd), smem))
             break       # a larger bt only adds work to a block
-    if best is not None:
-        return best[1]
-    return _per_step_plan(nd, B, H)
-
-
-def _per_step_plan(nd: int, B: int, H: int) -> RecurrencePlan:
-    return RecurrencePlan("per_step", 32, _BT,
-                          (-(-H // 32), -(-B // _BT), nd), 0)
+    return None if best is None else best[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,23 +162,40 @@ def _device_limits(index: int) -> tuple:
             getattr(props, "shared_memory_per_block_optin", SMEM_PER_BLOCK))
 
 
-def plan_for(device: torch.device, nd: int, B: int, H: int,
-             backward: bool = False, route: str | None = None
-             ) -> RecurrencePlan:
-    """``plan_recurrence`` for the LSTM on ``device``'s SM count and
-    shared memory. ``route="per_step"`` asks for the second route;
-    ``route="persistent"`` raises where the shapes do not allow it."""
-    if route not in (None, "persistent", "per_step"):
-        raise ValueError(f"unknown route {route!r}")
+def device_limits(device: torch.device) -> tuple:
+    """(SM count, dynamic shared memory a block may opt in to) of a CUDA
+    ``device``; for any other device those of the H100 the kernels are
+    written for, so that a plan made on the CPU is the card's."""
+    if device.type != "cuda":
+        return SM_COUNT, SMEM_PER_BLOCK
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    sm_count, smem = _device_limits(index)
-    plan = plan_recurrence(nd, B, H, 4, sm_count, smem, backward)
-    if route == "per_step":
-        plan = _per_step_plan(nd, B, H)
-    if route == "persistent" and plan.route != "persistent":
-        raise ValueError(f"no persistent plan fits nd={nd} B={B} H={H} on "
-                         f"{sm_count} SMs with {smem} bytes a block")
+    return _device_limits(index)
+
+
+def plan_for(device: torch.device, nd: int, B: int, H: int,
+             gate_mult: int = 4, backward: bool = False
+             ) -> RecurrencePlan | None:
+    """``plan_recurrence`` on ``device``'s SM count and shared memory."""
+    sm_count, smem = device_limits(device)
+    return plan_recurrence(nd, B, H, gate_mult, sm_count, smem, backward)
+
+
+def require_plan(device: torch.device, nd: int, B: int, H: int,
+                 gate_mult: int = 4, backward: bool = False
+                 ) -> RecurrencePlan:
+    """``plan_for``, raising before any launch where no tiling fits. The
+    plan depends on B (row blocks times unit tiles must fit the SMs), so
+    a smaller batch may have one where a larger does not."""
+    plan = plan_for(device, nd, B, H, gate_mult, backward)
+    if plan is None:
+        sm_count, smem = device_limits(device)
+        raise ValueError(
+            f"no recurrence kernel fits nd={nd} B={B} H={H} "
+            f"(gate_mult={gate_mult}, backward={backward}) on {sm_count} "
+            f"SMs with {smem} bytes of shared memory a block: set "
+            f"--model.use_pallas_rnn=false for the plain recurrence, or "
+            f"use a smaller --data.batch_size")
     return plan
 
 
@@ -246,16 +269,15 @@ def _check_fwd_args(xproj, b, wh, start, end):
 
 def lstm_fwd(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
              start: torch.Tensor, end: torch.Tensor,
-             residuals: bool = False, route: str | None = None):
+             residuals: bool = False):
     """K2: masked h [nd, T, B, H] bf16, and with ``residuals`` also the
     carried c [nd, T, B, H] and activated gates [nd, T, B, 4H], bf16.
 
     xproj [nd, T, B, 4H] bf16; b [nd, 4H] f32; wh [nd, H, 4H] bf16;
     start/end [nd, B] int32. A CPU tensor gets the plain version
-    (outputs rounded to bf16); a CUDA tensor launches the kernel (and
-    raises if it cannot): the persistent one where ``plan_recurrence``
-    finds a plan, else the per-step one; ``route`` asks for either.
-    Returns h, or (h, c, gates)."""
+    (outputs rounded to bf16); a CUDA tensor launches the kernel on the
+    plan ``plan_recurrence`` gives, and raises where there is none or
+    the launch fails. Returns h, or (h, c, gates)."""
     if xproj.device.type == "cpu":
         outs = [o.to(torch.bfloat16)
                 for o in lstm_fwd_plain(xproj, b, wh, start, end)]
@@ -270,43 +292,28 @@ def lstm_fwd(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
         gates = torch.empty((nd, T, B, G), dtype=torch.bfloat16, device=dev)
     if xproj.numel() == 0:     # no step or no row: nothing to launch
         return (h_out, c_out, gates) if residuals else h_out
-    plan = plan_for(dev, nd, B, H, route=route)
+    plan = require_plan(dev, nd, B, H)
     res_ptrs = (c_out.data_ptr(), gates.data_ptr()) if residuals \
         else (None, None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if plan.route == "persistent":
-        # the h exchange (never read before it is written) and the
-        # barrier counters are the only scratch
-        hb16 = torch.empty((2, nd, B, H), dtype=torch.bfloat16, device=dev)
-        sync = torch.zeros(nd * plan.grid[1], dtype=torch.int32, device=dev)
-        rc = build.load().lstm_fwd_persistent(
-            xproj.data_ptr(), b.data_ptr(), wh.data_ptr(), start.data_ptr(),
-            end.data_ptr(), hb16.data_ptr(), sync.data_ptr(),
-            h_out.data_ptr(), *res_ptrs, nd, T, B, H, plan.jt, plan.bt,
-            plan.smem_bytes, stream)
-        build.check(rc, "lstm_fwd_persistent")
-        lstm_fwd.launches += 1
-    else:
-        hbuf = torch.zeros((2, nd, B, H), dtype=torch.float32, device=dev)
-        hb16 = torch.zeros((2, nd, B, H), dtype=torch.bfloat16, device=dev)
-        cbuf = torch.zeros((nd, B, H), dtype=torch.float32, device=dev)
-        rc = build.load().lstm_fwd_seq(
-            xproj.data_ptr(), b.data_ptr(), wh.data_ptr(), start.data_ptr(),
-            end.data_ptr(), hbuf.data_ptr(), hb16.data_ptr(),
-            cbuf.data_ptr(), h_out.data_ptr(), *res_ptrs, nd, T, B, H,
-            stream)
-        build.check(rc, "lstm_fwd_seq")
-        lstm_fwd.per_step_launches += 1
+    # the h exchange (never read before it is written) and the barrier
+    # counters are the only scratch
+    hb16 = torch.empty((2, nd, B, H), dtype=torch.bfloat16, device=dev)
+    sync = torch.zeros(nd * plan.grid[1], dtype=torch.int32, device=dev)
+    rc = build.load().lstm_fwd_persistent(
+        xproj.data_ptr(), b.data_ptr(), wh.data_ptr(), start.data_ptr(),
+        end.data_ptr(), hb16.data_ptr(), sync.data_ptr(), h_out.data_ptr(),
+        *res_ptrs, nd, T, B, H, plan.jt, plan.bt, plan.smem_bytes,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "lstm_fwd_persistent")
+    lstm_fwd.launches += 1
     return (h_out, c_out, gates) if residuals else h_out
 
 
-lstm_fwd.launches = 0            # persistent route: one kernel a call
-lstm_fwd.per_step_launches = 0   # per-step route: T kernels a call
+lstm_fwd.launches = 0            # one kernel a call
 
 
 def lstm_seq(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
-             start: torch.Tensor, end: torch.Tensor,
-             route: str | None = None) -> torch.Tensor:
+             start: torch.Tensor, end: torch.Tensor) -> torch.Tensor:
     """Inference entry of K2: masked hidden outputs [nd, T, B, H] bf16.
 
     The kernel is cut off from autograd, so inputs that want a gradient
@@ -316,7 +323,7 @@ def lstm_seq(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
             t.requires_grad for t in (xproj, b, wh)):
         raise RuntimeError("lstm_seq is forward-only; use LstmSeq.apply "
                            "when gradients are wanted")
-    return lstm_fwd(xproj, b, wh, start, end, route=route)
+    return lstm_fwd(xproj, b, wh, start, end)
 
 
 def lstm_bwd_plain(g_out: torch.Tensor, gates: torch.Tensor,
@@ -355,13 +362,12 @@ def lstm_bwd_plain(g_out: torch.Tensor, gates: torch.Tensor,
 
 
 def lstm_bwd(g_out: torch.Tensor, gates: torch.Tensor, c_seq: torch.Tensor,
-             wh: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
-             route: str | None = None):
+             wh: torch.Tensor, start: torch.Tensor, end: torch.Tensor):
     """K3: (dxproj [nd, T, B, 4H] bf16, db [nd, 4H] f32) from the bf16
     cotangent of h and the forward's bf16 residuals. A CPU tensor gets
-    the plain version; a CUDA tensor launches the kernel (and raises if
-    it cannot), on the route that ``plan_recurrence`` gives or the one
-    asked for."""
+    the plain version; a CUDA tensor launches the kernel on the plan
+    ``plan_recurrence`` gives, and raises where there is none or the
+    launch fails."""
     if g_out.device.type == "cpu":
         dx, db = lstm_bwd_plain(g_out, gates, c_seq, wh, start, end)
         return dx.to(torch.bfloat16), db
@@ -383,47 +389,30 @@ def lstm_bwd(g_out: torch.Tensor, gates: torch.Tensor, c_seq: torch.Tensor,
     dxproj = torch.empty((nd, T, B, G), dtype=torch.bfloat16, device=dev)
     if gates.numel() == 0:     # no step or no row: nothing to launch
         return dxproj, torch.zeros((nd, G), dtype=torch.float32, device=dev)
-    plan = plan_for(dev, nd, B, H, backward=True, route=route)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if plan.route == "persistent":
-        # one partial per row block, each element written once
-        db_part = torch.empty((plan.grid[1], nd, G), dtype=torch.float32,
-                              device=dev)
-        sync = torch.zeros(nd * plan.grid[1], dtype=torch.int32, device=dev)
-        rc = build.load().lstm_bwd_persistent(
-            g_out.data_ptr(), gates.data_ptr(), c_seq.data_ptr(),
-            wh.data_ptr(), start.data_ptr(), end.data_ptr(),
-            dxproj.data_ptr(), db_part.data_ptr(), sync.data_ptr(), nd, T,
-            B, H, plan.jt, plan.bt, plan.smem_bytes, stream)
-        build.check(rc, "lstm_bwd_persistent")
-        lstm_bwd.launches += 1
-    else:
-        db_part = torch.zeros((plan.grid[1], nd, G), dtype=torch.float32,
-                              device=dev)
-        dh = torch.zeros((nd, B, H), dtype=torch.float32, device=dev)
-        dc = torch.zeros_like(dh)
-        rc = build.load().lstm_bwd_seq(
-            g_out.data_ptr(), gates.data_ptr(), c_seq.data_ptr(),
-            wh.data_ptr(), start.data_ptr(), end.data_ptr(), dh.data_ptr(),
-            dc.data_ptr(), dxproj.data_ptr(), db_part.data_ptr(), nd, T, B,
-            H, stream)
-        build.check(rc, "lstm_bwd_seq")
-        lstm_bwd.per_step_launches += 1
+    plan = require_plan(dev, nd, B, H, backward=True)
+    # one partial per row block, each element written once
+    db_part = torch.empty((plan.grid[1], nd, G), dtype=torch.float32,
+                          device=dev)
+    sync = torch.zeros(nd * plan.grid[1], dtype=torch.int32, device=dev)
+    rc = build.load().lstm_bwd_persistent(
+        g_out.data_ptr(), gates.data_ptr(), c_seq.data_ptr(), wh.data_ptr(),
+        start.data_ptr(), end.data_ptr(), dxproj.data_ptr(),
+        db_part.data_ptr(), sync.data_ptr(), nd, T, B, H, plan.jt, plan.bt,
+        plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "lstm_bwd_persistent")
+    lstm_bwd.launches += 1
     return dxproj, db_part.sum(dim=0)
 
 
-lstm_bwd.launches = 0            # persistent route: one kernel a call
-lstm_bwd.per_step_launches = 0   # per-step route: T kernels a call
+lstm_bwd.launches = 0            # one kernel a call
 
 
 def barrier_probe(device: torch.device, plan: RecurrencePlan,
                   steps: int) -> None:
     """Launch ``steps`` step barriers and nothing else on ``plan``'s grid
     (``csrc/recurrence_probe.cu``): the floor that the barrier sets under
-    a step of the persistent kernels. For measurement only."""
+    a step of the recurrence kernels. For measurement only."""
     require_kernel_device(torch.empty(0, device=device))
-    if plan.route != "persistent":
-        raise ValueError("the barrier exists on the persistent route only")
     sync = torch.zeros(plan.grid[2] * plan.grid[1], dtype=torch.int32,
                        device=device)
     rc = build.load().recurrence_barrier_probe(
@@ -449,15 +438,11 @@ def dwh_from_seq(h_seq: torch.Tensor, dxproj: torch.Tensor) -> torch.Tensor:
 class LstmSeq(torch.autograd.Function):
     """Fused (bi)LSTM with BPTT: forward = K2 with residuals, backward =
     K3 plus ``dwh_from_seq``. Gradient dtypes as the reference's
-    (``lstm_pallas.py:459-460``): dxproj bf16, db f32, dwh in wh's. An
-    optional sixth argument asks for a route of both kernels."""
+    (``lstm_pallas.py:459-460``): dxproj bf16, db f32, dwh in wh's."""
 
     @staticmethod
-    def forward(ctx, xproj, b, wh, start, end, *route):
-        ctx.route = route[0] if route else None
-        ctx.n_inputs = 5 + len(route)
-        h, c, gates = lstm_fwd(xproj, b, wh, start, end, residuals=True,
-                               route=ctx.route)
+    def forward(ctx, xproj, b, wh, start, end):
+        h, c, gates = lstm_fwd(xproj, b, wh, start, end, residuals=True)
         ctx.save_for_backward(h, c, gates, wh, start, end)
         return h
 
@@ -465,6 +450,6 @@ class LstmSeq(torch.autograd.Function):
     def backward(ctx, g_out):
         h, c, gates, wh, start, end = ctx.saved_tensors
         dxproj, db = lstm_bwd(g_out.to(torch.bfloat16).contiguous(), gates,
-                              c, wh, start, end, route=ctx.route)
+                              c, wh, start, end)
         dwh = dwh_from_seq(h, dxproj)
-        return (dxproj, db, dwh.to(wh.dtype)) + (None,) * (ctx.n_inputs - 3)
+        return dxproj, db, dwh.to(wh.dtype), None, None

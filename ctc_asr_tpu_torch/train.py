@@ -151,12 +151,17 @@ def device_batches(src, loader: DataLoader, dev: torch.device):
         yield pending
 
 
-def _check_single_process(cfg: Config) -> None:
+def check_single_process(cfg: Config) -> None:
+    """Raise for a parallel regime the port does not have yet: more than
+    one process, a coordinator, or a model or sequence axis. Training,
+    evaluation and transcription call it first, so that such a config
+    never runs as if it were one process (the reference branches on
+    these settings: ``ctc_asr_tpu/evaluate.py:133-148``, ``:206-228``)."""
     m = cfg.mesh
     if m.num_processes > 1 or m.coordinator_address or m.model_axis > 1 \
             or m.seq_axis > 1:
         raise NotImplementedError(
-            "the port trains on one device in one process; the mesh, "
+            "the port runs on one device in one process; the mesh, "
             "multi-process and sequence-parallel regimes are not ported "
             "yet (ROADMAP.md A7/A8)")
 
@@ -170,7 +175,7 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
     ``max_steps`` overrides ``train.total_steps``. Resumes from the
     newest checkpoint under ``train.train_dir/ckpt`` when one exists
     (written by either package)."""
-    _check_single_process(cfg)
+    check_single_process(cfg)
     tcfg = cfg.train
     dev = resolve_device(device)
     total = max_steps if max_steps is not None else tcfg.total_steps

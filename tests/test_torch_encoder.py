@@ -181,6 +181,43 @@ def test_kernel_switch_runs_the_gru_wrapper_and_leaves_the_vanilla_cell():
                                        rtol=4e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_width_without_a_plan_names_the_ways_out(rnn_type, monkeypatch):
+    """Where ``plan_recurrence`` has no plan, the wrappers refuse a CUDA
+    tensor before any launch with a message that names
+    ``--model.use_pallas_rnn=false`` and a smaller batch: the port never
+    gives way to the plain recurrence on the card by itself. Shown here on
+    the H100's attributes at H = 1408 and on a card with 16 KB of shared
+    memory a block; CPU tensors never consult the plan, so the kernel
+    switch gives the same output on any device attributes."""
+    from ctc_asr_tpu_torch.models import init_params as t_init
+    from ctc_asr_tpu_torch.ops import lstm_cuda
+    cpu = torch.device("cpu")
+    gate_mult = {"lstm": 4, "gru": 3}[rnn_type]
+    kcfg = dataclasses.replace(_tiny_cfg(rnn_type=rnn_type, rnn_units=16)
+                               .model, use_pallas_rnn=True)
+    params = t_init(kcfg, 24, torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(5)
+    feats = torch.from_numpy(rng.standard_normal((2, 23, 24))
+                             .astype(np.float32))
+    flens = torch.tensor([23, 9], dtype=torch.int32)
+    before, _ = apply_encoder(params, feats, flens, kcfg)
+
+    def refused(B, H):
+        for backward in (False, True):
+            with pytest.raises(ValueError, match="use_pallas_rnn=false.*"
+                               "smaller --data.batch_size"):
+                lstm_cuda.require_plan(cpu, 2, B, H, gate_mult, backward)
+
+    refused(128, 1408)
+    assert lstm_cuda.plan_for(cpu, 2, 2, 16, gate_mult) is not None
+    monkeypatch.setattr(lstm_cuda, "device_limits",
+                        lambda device: (132, 16 * 1024))
+    refused(2, 16)
+    after, _ = apply_encoder(params, feats, flens, kcfg)
+    assert torch.equal(after, before)
+
+
 def test_golden_tiny_model():
     """tests/golden/tiny_model.npz (the reference's frozen outputs):
     the port on the same samples and the same parameters. The file was

@@ -55,13 +55,6 @@ def test_stft_kernel_matches_plain(dev, cfg, B, S):
     assert (got - want).abs().max().item() <= STFT_TOL
 
 
-ROUTES = ("persistent", "per_step")
-
-
-def _route_count(fn, route):
-    return fn.launches if route == "persistent" else fn.per_step_launches
-
-
 def _lens_case(T, B, g):
     """Ragged lengths with a full row, then (where B allows) a length-1
     and an empty row."""
@@ -74,7 +67,6 @@ def _lens_case(T, B, g):
 
 
 # T = 2 and 3 come first: a step barrier that deadlocks shows there
-@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("nd,T,B,H", [(2, 2, 3, 48), (2, 3, 33, 96),
                                       (1, 1, 5, 64), (1, 12, 5, 64),
                                       (2, 30, 33, 96), (2, 7, 3, 48),
@@ -82,7 +74,7 @@ def _lens_case(T, B, g):
                                       (2, 40, 16, 800), (2, 399, 128, 800),
                                       (2, 175, 16, 800), (2, 175, 1, 800),
                                       (2, 60, 128, 512), (1, 25, 200, 512)])
-def test_lstm_kernel_matches_plain(dev, nd, T, B, H, route):
+def test_lstm_kernel_matches_plain(dev, nd, T, B, H):
     g = torch.Generator().manual_seed(T)
     xproj = torch.randn(nd, T, B, 4 * H, generator=g).to(torch.bfloat16)
     b = 0.1 * torch.randn(nd, 4 * H, generator=g)
@@ -92,11 +84,11 @@ def test_lstm_kernel_matches_plain(dev, nd, T, B, H, route):
     start = torch.stack([torch.zeros_like(lens), T - lens])[:nd]
     end = torch.stack([lens, torch.full_like(lens, T)])[:nd]
     args = [t.to(dev).contiguous() for t in (xproj, b, wh, start, end)]
-    n0 = _route_count(lstm_cuda.lstm_fwd, route)
-    got = lstm_cuda.lstm_seq(*args, route=route)
+    n0 = lstm_cuda.lstm_fwd.launches
+    got = lstm_cuda.lstm_seq(*args)
     want = lstm_cuda.lstm_seq_plain(*args).to(torch.bfloat16)
     torch.cuda.synchronize()
-    assert _route_count(lstm_cuda.lstm_fwd, route) == n0 + 1
+    assert lstm_cuda.lstm_fwd.launches == n0 + 1
     assert (got.float() - want.float()).abs().max().item() <= LSTM_TOL
     t = torch.arange(T, device=dev)[None, :, None]
     outside = (t < args[3][:, None]) | (t >= args[4][:, None])
@@ -173,7 +165,6 @@ def _lstm_case(dev, nd, T, B, H, seed):
     return [t.to(dev).contiguous() for t in (xproj, b, wh, start, end, gout)]
 
 
-@pytest.mark.parametrize("route", ROUTES)
 @pytest.mark.parametrize("nd,T,B,H", [(2, 2, 3, 48), (2, 3, 33, 96),
                                       (1, 1, 5, 64), (1, 12, 5, 64),
                                       (2, 30, 33, 96), (2, 7, 3, 48),
@@ -181,11 +172,11 @@ def _lstm_case(dev, nd, T, B, H, seed):
                                       (2, 40, 16, 800), (2, 30, 128, 800),
                                       (2, 60, 128, 512), (1, 25, 200, 512),
                                       (2, 60, 16, 512)])
-def test_lstm_residuals_and_bptt_match_plain(dev, nd, T, B, H, route):
+def test_lstm_residuals_and_bptt_match_plain(dev, nd, T, B, H):
     """K2's residual mode and K3 against their plain versions on the same
     bf16 inputs (bf16 outputs: two ulps relative; db f32), with a
     length-1 and an empty row; dgates exactly 0 outside the windows."""
-    _check_residuals_and_bptt(dev, nd, T, B, H, route)
+    _check_residuals_and_bptt(dev, nd, T, B, H)
 
 
 @pytest.mark.parametrize("H", [272, 400, 496])
@@ -195,23 +186,21 @@ def test_lstm_persistent_unit_tile_of_32_at_odd_widths(dev, H):
     the 64-column atom, and the last atom of the resident slice is
     partial (and the last unit tile ragged where H % 32 == 16)."""
     for backward in (False, True):
-        plan = lstm_cuda.plan_for(dev, 2, 128, H, backward=backward)
-        assert (plan.route, plan.jt) == ("persistent", 32)
-    _check_residuals_and_bptt(dev, 2, 24, 128, H, "persistent")
+        assert lstm_cuda.plan_for(dev, 2, 128, H, backward=backward).jt == 32
+    _check_residuals_and_bptt(dev, 2, 24, 128, H)
 
 
-def _check_residuals_and_bptt(dev, nd, T, B, H, route):
+def _check_residuals_and_bptt(dev, nd, T, B, H):
     xproj, b, wh, start, end, gout = _lstm_case(dev, nd, T, B, H, T + H)
-    n2 = _route_count(lstm_cuda.lstm_fwd, route)
-    n3 = _route_count(lstm_cuda.lstm_bwd, route)
+    n2, n3 = lstm_cuda.lstm_fwd.launches, lstm_cuda.lstm_bwd.launches
     h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
-                                     residuals=True, route=route)
+                                     residuals=True)
     ph, pc, pg = lstm_cuda.lstm_fwd_plain(xproj, b, wh, start, end)
-    dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end, route=route)
+    dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
     pdx, pdb = lstm_cuda.lstm_bwd_plain(gout, gates, c, wh, start, end)
     torch.cuda.synchronize()
-    assert _route_count(lstm_cuda.lstm_fwd, route) == n2 + 1
-    assert _route_count(lstm_cuda.lstm_bwd, route) == n3 + 1
+    assert lstm_cuda.lstm_fwd.launches == n2 + 1
+    assert lstm_cuda.lstm_bwd.launches == n3 + 1
     for got, want in ((h, ph), (c, pc), (gates, pg)):
         assert (got.float() - want).abs().max().item() <= LSTM_TOL
     scale = pdx.abs().max().item()
@@ -222,18 +211,16 @@ def _check_residuals_and_bptt(dev, nd, T, B, H, route):
     assert not dx.float().abs().amax(-1)[outside].any()
 
 
-@pytest.mark.parametrize("route", ROUTES)
-def test_lstmseq_autograd_on_card(dev, route):
+def test_lstmseq_autograd_on_card(dev):
     xproj, b, wh, start, end, gout = _lstm_case(dev, 2, 20, 6, 64, 0)
     x = xproj.clone().requires_grad_(True)
     bb = b.clone().requires_grad_(True)
     w = wh.clone().requires_grad_(True)
-    n2 = _route_count(lstm_cuda.lstm_fwd, route)
-    n3 = _route_count(lstm_cuda.lstm_bwd, route)
-    h = lstm_cuda.LstmSeq.apply(x, bb, w, start, end, route)
+    n2, n3 = lstm_cuda.lstm_fwd.launches, lstm_cuda.lstm_bwd.launches
+    h = lstm_cuda.LstmSeq.apply(x, bb, w, start, end)
     h.backward(gout)
-    assert _route_count(lstm_cuda.lstm_fwd, route) == n2 + 1
-    assert _route_count(lstm_cuda.lstm_bwd, route) == n3 + 1
+    assert lstm_cuda.lstm_fwd.launches == n2 + 1
+    assert lstm_cuda.lstm_bwd.launches == n3 + 1
     assert x.grad.dtype == torch.bfloat16 and bb.grad.dtype == torch.float32
     assert w.grad.dtype == torch.bfloat16
     assert torch.isfinite(x.grad.float()).all()
@@ -262,9 +249,8 @@ def test_lstm_persistent_kernels_repeat_bit_equal(dev, nd, T, B, H):
     runs = []
     for _ in range(3):
         h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
-                                         residuals=True, route="persistent")
-        dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end,
-                                    route="persistent")
+                                         residuals=True)
+        dx, db = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
         runs.append((h, c, gates, dx, db))
     torch.cuda.synchronize()
     for other in runs[1:]:
@@ -273,41 +259,38 @@ def test_lstm_persistent_kernels_repeat_bit_equal(dev, nd, T, B, H):
 
 
 def test_lstm_cuda_tensor_never_reaches_plain(dev, monkeypatch):
-    """On a CUDA tensor both routes launch kernels: the plain versions
+    """On a CUDA tensor the wrappers launch kernels: the plain versions
     are not called, not even for an empty batch."""
     def refuse(*a, **k):
         raise AssertionError("a plain version ran on a CUDA tensor")
     monkeypatch.setattr(lstm_cuda, "lstm_fwd_plain", refuse)
     monkeypatch.setattr(lstm_cuda, "lstm_bwd_plain", refuse)
-    for route in ROUTES:
-        for T, B in ((4, 3), (0, 3), (4, 0)):
-            xproj, b, wh, start, end, gout = _lstm_case(dev, 2, T, B, 32, 1)
-            h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
-                                             residuals=True, route=route)
-            dx, _ = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end,
-                                       route=route)
-            assert h.is_cuda and dx.is_cuda
+    for T, B in ((4, 3), (0, 3), (4, 0)):
+        xproj, b, wh, start, end, gout = _lstm_case(dev, 2, T, B, 32, 1)
+        h, c, gates = lstm_cuda.lstm_fwd(xproj, b, wh, start, end,
+                                         residuals=True)
+        dx, _ = lstm_cuda.lstm_bwd(gout, gates, c, wh, start, end)
+        assert h.is_cuda and dx.is_cuda
     torch.cuda.synchronize()
 
 
-def test_lstm_route_is_planned_from_shapes(dev):
-    """A width whose slices exceed the card's shared memory takes the
-    per-step route without trying the persistent launch; asking for the
-    persistent route there raises before anything is launched."""
+@pytest.mark.parametrize("gate_mult", [4, 3])
+def test_width_without_a_plan_raises_before_any_launch(dev, gate_mult):
+    """A width whose slices exceed the card's shared memory has no plan:
+    the wrappers raise before anything is launched (the encoder gives
+    such a layer its plain recurrence before it calls them)."""
     nd, T, B, H = 2, 3, 4, 1408
-    assert lstm_cuda.plan_for(dev, nd, B, H).route == "per_step"
-    xproj, b, wh, start, end, gout = _lstm_case(dev, nd, T, B, H, 2)
-    n = (lstm_cuda.lstm_fwd.launches, lstm_cuda.lstm_fwd.per_step_launches)
-    got = lstm_cuda.lstm_seq(xproj, b, wh, start, end)
-    want = lstm_cuda.lstm_seq_plain(xproj, b, wh, start, end)
-    torch.cuda.synchronize()
-    assert (lstm_cuda.lstm_fwd.launches,
-            lstm_cuda.lstm_fwd.per_step_launches) == (n[0], n[1] + 1)
-    assert (got.float() - want).abs().max().item() <= LSTM_TOL
-    with pytest.raises(ValueError, match="persistent"):
-        lstm_cuda.lstm_seq(xproj, b, wh, start, end, route="persistent")
-    with pytest.raises(ValueError, match="route"):
-        lstm_cuda.lstm_seq(xproj, b, wh, start, end, route="graph")
+    assert lstm_cuda.plan_for(dev, nd, B, H, gate_mult) is None
+    if gate_mult == 4:
+        xproj, b, wh, start, end, _ = _lstm_case(dev, nd, T, B, H, 2)
+        fn, seq = lstm_cuda.lstm_fwd, lstm_cuda.lstm_seq
+    else:
+        xproj, b, wh, start, end, _ = _gru_case(dev, nd, T, B, H, 2)
+        fn, seq = gru_cuda.gru_fwd, gru_cuda.gru_seq
+    n = fn.launches
+    with pytest.raises(ValueError, match="no recurrence kernel fits"):
+        seq(xproj, b, wh, start, end)
+    assert fn.launches == n
 
 
 def _gru_case(dev, nd, T, B, H, seed, lens=None):
@@ -339,9 +322,13 @@ def _outside(args, T, dev):
     return (t < args[3][:, None]) | (t >= args[4][:, None])
 
 
+# T = 2 and 3 come first: a step barrier that deadlocks shows there
 @pytest.mark.parametrize("nd,T,B,H,lens", [
+    (2, 2, 3, 48, None), (2, 3, 33, 96, None),
     (1, 12, 5, 64, None), (2, 30, 33, 96, None), (2, 7, 3, 48, [7, 1, 0]),
-    (2, 40, 128, 512, None), (2, 40, 16, 800, None), (2, 175, 1, 800, None)])
+    (1, 1, 5, 64, None), (2, 9, 1, 16, None), (1, 20, 70, 16, None),
+    (2, 40, 128, 512, None), (2, 40, 16, 512, None), (2, 40, 16, 800, None),
+    (2, 30, 128, 800, None), (2, 175, 1, 800, None), (1, 25, 200, 512, None)])
 def test_gru_kernel_matches_plain(dev, nd, T, B, H, lens):
     """K4 in inference and residual mode against its plain version, with
     ragged rows, a length-1 and an empty row."""
@@ -360,25 +347,98 @@ def test_gru_kernel_matches_plain(dev, nd, T, B, H, lens):
 
 
 @pytest.mark.parametrize("nd,T,B,H,lens", [
+    (2, 2, 3, 48, None), (2, 3, 33, 96, None),
     (1, 12, 5, 64, None), (2, 30, 33, 96, None), (2, 7, 3, 48, [7, 1, 0]),
-    (2, 40, 128, 512, None), (2, 40, 16, 800, None), (2, 60, 1, 800, None)])
+    (1, 1, 5, 64, None), (2, 9, 1, 16, None), (1, 20, 70, 16, None),
+    (2, 40, 128, 512, None), (2, 40, 16, 512, None), (2, 40, 16, 800, None),
+    (2, 30, 128, 800, None), (2, 60, 1, 800, None), (1, 25, 200, 512, None)])
 def test_gru_bptt_matches_plain(dev, nd, T, B, H, lens):
     """K5 against its plain version on the kernel's own bf16 residuals
-    (bf16 dxproj: two ulps relative to the largest; db f32), and dgates
+    (bf16 dxproj: two ulps relative to the largest), its f32 db against
+    the f64 BPTT (no further than the plain version's), and dgates
     exactly 0 outside each row's window."""
+    _check_gru_bptt(dev, nd, T, B, H, lens)
+
+
+@pytest.mark.parametrize("H", [272, 400, 496])
+def test_gru_persistent_unit_tile_of_32_at_odd_widths(dev, H):
+    """H = 16 x an odd number at B = 128 plans 32 units a block: K5's
+    K = 3H then halves into no whole k-step (3H/2 = 8 x odd), so its two
+    stacked halves are rounded up to whole atoms; K4's last unit tile
+    is ragged where H % 32 == 16."""
+    for backward in (False, True):
+        assert lstm_cuda.plan_for(dev, 2, 128, H, 3, backward).jt == 32
+    args = _gru_case(dev, 2, 24, 128, H, H, [24, 1, 0] + [17] * 125)[:5]
+    h, gates = gru_cuda.gru_fwd(*args, residuals=True)
+    ph, pg = gru_cuda.gru_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (h.float() - ph).abs().max().item() <= LSTM_TOL
+    assert _gate_err(gates, pg) <= LSTM_TOL
+    _check_gru_bptt(dev, 2, 24, 128, H, [24, 1, 0] + [17] * 125)
+
+
+# K5's db against the f64 BPTT: no further from it than the plain version
+# is, by this much of the largest f64 db. Both round dhproj to bf16 at
+# every step; over 60 steps at H=800 and B=1 each lands 0.8e-3 to 1.2e-3
+# from f64 and two summation orders of the plain version differ by up to
+# 1.04e-3, so a kernel-vs-plain limit of 1e-3 there tests the rounding
+# noise, not the kernel (chip_smoke.phase_gru_f64; PERF.md §6).
+BPTT_F64_EXCESS = 5e-4
+
+
+def _check_gru_bptt(dev, nd, T, B, H, lens):
     xproj, b, wh, start, end, gout = _gru_case(dev, nd, T, B, H, T + H, lens)
     h, gates = gru_cuda.gru_fwd(xproj, b, wh, start, end, residuals=True)
     n0 = gru_cuda.gru_bwd.launches
     dx, db = gru_cuda.gru_bwd(gout, gates, h, wh, start, end)
     pdx, pdb = gru_cuda.gru_bwd_plain(gout, gates, h, wh, start, end)
+    _, xdb = gru_cuda.gru_bwd_plain(gout, gates, h, wh, start, end,
+                                    exact=True)
     torch.cuda.synchronize()
     assert gru_cuda.gru_bwd.launches == n0 + 1
     assert dx.dtype == torch.bfloat16 and db.dtype == torch.float32
     scale = pdx.abs().max().item()
     assert (dx.float() - pdx).abs().max().item() <= 8e-3 * scale
-    assert (db - pdb).abs().max().item() <= 1e-3 * pdb.abs().max().item()
+    db_scale = xdb.abs().max().item()
+    kernel_err = (db.double() - xdb).abs().max().item() / db_scale
+    plain_err = (pdb.double() - xdb).abs().max().item() / db_scale
+    assert kernel_err <= plain_err + BPTT_F64_EXCESS
     assert not dx.float().abs().amax(-1)[
         _outside((0, 0, 0, start, end), T, dev)].any()
+
+
+@pytest.mark.parametrize("nd,T,B,H", [(2, 399, 128, 512), (2, 60, 128, 800),
+                                      (2, 200, 16, 512)])
+def test_gru_persistent_kernels_repeat_bit_equal(dev, nd, T, B, H):
+    """Two runs of K4 and K5 on one input give the same bits: no atomics
+    in a sum, and no read of an exchange buffer (h or dhproj) that
+    another block has yet to write or has already overwritten."""
+    xproj, b, wh, start, end, gout = _gru_case(dev, nd, T, B, H, 3)
+    runs = []
+    for _ in range(3):
+        h, gates = gru_cuda.gru_fwd(xproj, b, wh, start, end, residuals=True)
+        dx, db = gru_cuda.gru_bwd(gout, gates, h, wh, start, end)
+        runs.append((h, gates, dx, db))
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, o in zip(runs[0], other):
+            assert torch.equal(a, o)
+
+
+def test_gru_cuda_tensor_never_reaches_plain(dev, monkeypatch):
+    """On a CUDA tensor the GRU wrappers launch kernels: the plain
+    versions are not called, not even for an empty batch."""
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+    monkeypatch.setattr(gru_cuda, "gru_fwd_plain", refuse)
+    monkeypatch.setattr(gru_cuda, "gru_bwd_plain", refuse)
+    for T, B in ((4, 3), (0, 3), (4, 0)):
+        xproj, b, wh, start, end, gout = _gru_case(dev, 2, T, B, 32, 1,
+                                                   lens=[min(T, 2)] * B)
+        h, gates = gru_cuda.gru_fwd(xproj, b, wh, start, end, residuals=True)
+        dx, _ = gru_cuda.gru_bwd(gout, gates, h, wh, start, end)
+        assert h.is_cuda and dx.is_cuda
+    torch.cuda.synchronize()
 
 
 def test_gruseq_autograd_on_card(dev):

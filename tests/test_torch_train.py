@@ -345,6 +345,35 @@ def test_unported_regimes_raise(corpus, tmp_path):
             t_train.train(cfg, "cuda", max_steps=1)
 
 
+def test_unported_regimes_raise_in_evaluate_and_transcribe(corpus, tmp_path):
+    """``evaluate`` (and with it the train-time ``eval_fn`` of ``cli
+    train``), ``cli evaluate`` and ``cli transcribe`` refuse the parallel
+    regimes the port does not have before they load or decode anything,
+    where the reference would split the corpus across processes; the
+    single-process config evaluates."""
+    from ctc_asr_tpu_torch.evaluate import evaluate
+    cfg = _cfg(corpus)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, eval_manifest=corpus))
+    wav = read_manifest(corpus)[0].path
+    missing = str(tmp_path / "no_such_checkpoint.npz")
+    for mesh in (dict(seq_axis=2), dict(model_axis=2), dict(num_processes=2),
+                 dict(coordinator_address="localhost:1234")):
+        bad = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, **mesh))
+        with pytest.raises(NotImplementedError, match="A7/A8"):
+            evaluate(bad, None, "cpu")
+        flags = [f"--mesh.{k}={v}" for k, v in mesh.items()]
+        for argv in (["evaluate", "--ckpt", missing],
+                     ["transcribe", "--ckpt", missing, wav]):
+            with pytest.raises(NotImplementedError, match="A7/A8"):
+                cli.main(argv + ["--device=cpu"] + flags)
+    params = t_train.init_train_state(cfg, "cpu")["params"]
+    with torch.no_grad():
+        res = evaluate(cfg, params, "cpu", max_batches=1, log_samples=0)
+    assert np.isfinite(res["wer"])
+
+
 @pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
 def test_profile_dir_writes_a_trace_and_keeps_the_loss(corpus, tmp_path,
                                                        rnn_type):
