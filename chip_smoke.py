@@ -21,9 +21,13 @@ Phases (any failure exits non-zero; no phase is skipped):
    own shapes (B=16 and B=1, 3.52 s, T=175). Each recurrence kernel is
    one cooperative launch a layer on the plan ``plan_recurrence`` gives
    (printed, with µs a step and the step barrier's own cost; two runs
-   must give equal bits); K8 (prefix beam search) on seeded logits at
+   must give equal bits); K8's top-K selection alone on crafted keys
+   (ties, NEG, positive scores, -0 / +0, K = 1 to 512) against a stable
+   sort, and its own time; K8 (prefix beam search) on seeded logits at
    B=128, T=400, C=29, K=64 in four modes (acoustic, order-4 char-LM
-   fusion, an order-5 table, N-best) and at B=1. Beside each kernel's
+   fusion, an order-5 table, N-best), at B=1 and at the decode path's
+   own shapes (B=16 x 175 frames with the N-best emitted, B=1 x 100),
+   with µs a step. Beside each kernel's
    time: its bound on this card (the bytes the function must move,
    once, over the memory rate, or the operations it needs over the peak
    rate, whichever is larger) and, where one PyTorch call computes the
@@ -954,9 +958,58 @@ def _beam_bound(lens, B, K, C, U, kout, table_bytes):
     return bound(n_bytes, ops, PEAK_F32)
 
 
+def phase_select() -> dict:
+    """K8's selection alone (``beam_select_probe``) on every crafted case
+    of ``tests/beam_select_cases.py``: the K best keys and flat indices
+    must equal a stable sort's. Then its own time at the kernel's shapes:
+    one block fills the keys and selects R times in one launch; the time
+    of R over that of 1, a rep, less the same without the selection."""
+    import torch
+    from ctc_asr_tpu_torch.ops import beam_cuda
+    sys.path.append(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from beam_select_cases import SELECT_CASES, select_case
+    for name, N, K in SELECT_CASES:
+        scores, h1 = (torch.from_numpy(a) for a in select_case(name, N, K))
+        keys, flat = beam_cuda.select_top_k_probe(scores.cuda(), h1.cuda(),
+                                                  K)
+        pkeys, pflat = beam_cuda.select_top_k_probe(scores, h1, K)
+        if not (torch.equal(keys.cpu(), pkeys)
+                and torch.equal(flat.cpu(), pflat)):
+            raise AssertionError(f"K8 selection, {name} (N={N}, K={K}): "
+                                 "differs from the stable sort")
+    log(f"[K8 select] {len(SELECT_CASES)} crafted cases: the selection "
+        "alone equals the stable sort exactly")
+    res, reps = {}, 201
+    for N, K, C in ((1856, 64, 29), (1024, 512, 2), (14848, 512, 29)):
+        scores, h1 = (torch.from_numpy(a).cuda()
+                      for a in select_case("quantized", N, K))
+
+        def per_rep(select):
+            t = [cuda_ms(lambda: beam_cuda._select_probe(
+                scores, h1, K, reps=r, select=select), reps=10)
+                for r in (1, reps)]
+            return 1e3 * (t[1] - t[0]) / (reps - 1)
+        fill = per_rep(False)
+        us = per_rep(True) - fill
+        log(f"[K8 select] N={N} (K={K}, C={C}): the selection alone "
+            f"{us:.3f} µs (its block barriers: one after the warp sorts and "
+            f"one a merge level, by select_top in csrc/beam.cu), the fill "
+            f"of its keys {fill:.3f} µs")
+        res[f"K={K} C={C}"] = us
+    return res
+
+
+def _beam_logits(B: int, T: int, seed: int):
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (rng.standard_normal((B, T, 29)) * 2).astype(np.float32)).cuda()
+
+
 def phase_beam() -> dict:
-    """K8 against its plain version on seeded logits at the decode
-    shape, four modes."""
+    """K8 against its plain version on seeded logits at B=128, T=400 in
+    four modes, then at the decode path's own shapes."""
     import torch
     from ctc_asr_tpu_torch.ops import beam_cuda
     B, T, C, K = 128, 400, 29, 64
@@ -1003,27 +1056,48 @@ def phase_beam() -> dict:
         log(f"[K8 beam] {label}: B={B} T={T} C={C} K={K}: rows excused by "
             f"the tie rule {agree['excused']}, N-best score max abs err "
             f"{agree['max_abs_err']:.3e} rel {agree['max_rel_err']:.3e} (tol "
-            f"{BEAM_SCORE_RTOL}); kernel {ms:.4f} ms, plain "
+            f"{BEAM_SCORE_RTOL}); kernel {ms:.4f} ms = {1e3 * ms / T:.2f} µs "
+            f"a step; plain "
             + (f"{plain_ms:.1f} ms" if time_plain else "not timed")
             + f", bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} (chain "
             f"of up to {T} steps)")
-        res["modes"][label] = {"ms": ms, "plain_ms": plain_ms, **agree, **bd}
+        res["modes"][label] = {"ms": ms, "us_per_step": 1e3 * ms / T,
+                               "plain_ms": plain_ms, **agree, **bd}
         res["max_abs_err"] = max(res["max_abs_err"], agree["max_abs_err"])
     res.update({k: res["modes"]["order-4 fusion"][k]
-                for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
-    # one request, as ``cli transcribe`` gives it
+                for k in ("ms", "us_per_step", "plain_ms", "bound_ms",
+                          "bound_by")})
+    # one request, as ``cli transcribe`` gives it, then the decode path's
+    # own shapes: a batch of ``evaluate`` (B=16, 175 frames, the whole
+    # beam emitted for rescoring) and a ~1 s request; every row full
     kw = dict(fused, lm_table=tables[4], beam_width=K, max_decode_len=T)
-    agree = beam_agreement(
-        beam_cuda.beam_search_decode_cuda(logits[:1], lens[:1],
-                                          return_nbest=True, **kw),
-        beam_cuda.beam_search_decode_plain(logits[:1], lens[:1],
-                                           return_nbest=True, **kw))
-    one = cuda_ms(lambda: beam_cuda.beam_search_decode_cuda(
-        logits[:1], lens[:1], **kw), reps=10)
-    log(f"[K8 beam] B=1 T={T} order-4 fusion: rows excused "
-        f"{agree['excused']}, score rel err {agree['max_rel_err']:.3e}; "
-        f"kernel {one:.4f} ms")
-    res["ms_b1"] = one
+    shapes = [("B=1 T=400 order-4 fusion", logits[:1], lens[:1], False),
+              ("B=16 T=175 order-4 fusion, N-best emit",
+               _beam_logits(16, 175, 10), None, True),
+              ("B=1 T=100 order-4 fusion", _beam_logits(1, 100, 11), None,
+               False)]
+    res["shapes"] = {}
+    for label, lg, ln, nbest_emit in shapes:
+        Bs, Ts = lg.shape[:2]
+        if ln is None:
+            ln = torch.full((Bs,), Ts, dtype=torch.int32, device="cuda")
+        kw = dict(kw, max_decode_len=Ts)
+        agree = beam_agreement(
+            beam_cuda.beam_search_decode_cuda(lg, ln, return_nbest=True,
+                                              **kw),
+            beam_cuda.beam_search_decode_plain(lg, ln, return_nbest=True,
+                                               **kw))
+        ms = cuda_ms(lambda: beam_cuda.beam_search_decode_cuda(
+            lg, ln, return_nbest=nbest_emit, **kw), reps=10)
+        bd = _beam_bound(ln.cpu().numpy(), Bs, K, C, Ts,
+                         K if nbest_emit else 1, tables[4].numel() * 4)
+        log(f"[K8 beam] {label}: rows excused {agree['excused']}, score rel "
+            f"err {agree['max_rel_err']:.3e}; kernel {ms:.4f} ms = "
+            f"{1e3 * ms / Ts:.2f} µs a step; bound {bd['bound_ms']:.4f} ms "
+            f"by {bd['bound_by']}")
+        res["shapes"][label] = {"ms": ms, "us_per_step": 1e3 * ms / Ts,
+                                **agree, **bd}
+    res["ms_b1"] = res["shapes"]["B=1 T=400 order-4 fusion"]["ms"]
     return res
 
 
@@ -1734,7 +1808,9 @@ def main() -> int:
     k2 = phase_lstm()
     k67 = phase_ctc()
     k23 = phase_lstm_train()
+    sel_us = phase_select()
     k8 = phase_beam()
+    k8["selection_us"] = sel_us
     k45 = phase_gru()
     k5_f64 = phase_gru_f64()
     with tempfile.TemporaryDirectory() as tmp:

@@ -24,21 +24,26 @@
 // log-probs are read once, a few MB) or operations (K*C = 1856 candidates
 // per frame and utterance). The cost is a chain of T dependent steps per
 // utterance, each with a block-wide selection, so the time is T times
-// the barriers of one step.
+// the latency of one step: its block barriers and the dependent stages
+// between them.
 //
 // What the design does about it, simple first:
 // - One launch for the whole batch, one block per utterance (B=128 blocks
 //   on 132 SMs), the loop over the utterance's own frames inside the
 //   block; the beam state (K x 10 scalars, double-buffered) lives in
 //   shared memory for the whole utterance.
-// - Top-K is a bitonic sort, in shared memory, of 64-bit keys
-//   (monotone score bits << 32 | ~hash) that carry the flat index as a
-//   16-bit value: the reference order with no tie pass and no threshold
-//   search, so positive fused scores (word_bonus) and -1e30 order like
-//   any other float. One thread per compare-exchange pair; a warp's 32
-//   pairs span 64 consecutive keys, so the strides below 64 need only
-//   __syncwarp and a step costs 15 block-wide barriers for the sort plus
-//   3 for the phases.
+// - Candidates rank by 64-bit keys (monotone score bits << 32 | ~hash)
+//   that carry the flat index as a 16-bit value: the reference order with
+//   no tie pass and no threshold search, so positive fused scores
+//   (word_bonus) and -1e30 order like any other float.
+// - Top-K is a selection, not a sort of all NP keys (select_top below):
+//   each warp sorts a chunk of L = max(64, K rounded up to a power of two)
+//   keys with no block barrier (shuffles in registers, __syncwarp), and a
+//   tree of pairwise top-L merges, one level per block barrier, leaves the
+//   K best in rank order. A step takes 4 + log2(NP / L) block barriers:
+//   after the extend phase, after the stay phase, after the warp sorts,
+//   one a merge level (the last one ahead of the pick) and after the pick;
+//   9 at K = 64, C = 29 (NP = 2048: 32 chunks, 5 levels).
 // - Prefixes are not copied: each step writes one (parent, char) record
 //   per beam to a [B, T, K] scratch, and the emitted beams are rebuilt by
 //   backtracking at the end. The emitted length clamps at U and
@@ -122,36 +127,186 @@ __device__ __forceinline__ BeamState state_at(unsigned char* base, int K) {
 
 constexpr int STATE_ARRAYS = 10;
 
-// Bitonic sort of (keys, vals)[NP] (NP a power of two >= 64): key
-// descending, then val ascending, so the order is total. One thread per
-// compare-exchange pair (looping when NP/2 > blockDim.x).
-__device__ void bitonic_sort_desc(unsigned long long* keys,
-                                  unsigned short* vals, int NP) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  for (int k = 2; k <= NP; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int p = tid; p < NP / 2; p += nt) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int q = i | j;
-        const unsigned long long a = keys[i], b = keys[q];
-        const unsigned short va = vals[i], vb = vals[q];
-        const bool a_first = a > b || (a == b && va < vb);
-        if (a_first != ((i & k) == 0)) {
-          keys[i] = b;
-          keys[q] = a;
-          vals[i] = vb;
-          vals[q] = va;
-        }
+// ---- top-K selection ---------------------------------------------------
+//
+// The K best of keys/vals[0..NP) in the total order (key descending, then
+// flat index ascending; no two slots share a flat index) come to
+// keys/vals[0..K) in rank order. NP is cut into chunks of L = max(64,
+// next power of two >= K) slots. Each warp sorts its chunks by itself
+// (bitonic: the strides below 64 in registers, two slots a lane, by
+// shuffles; longer strides in shared memory, __syncwarp between stages).
+// Then a tree of pairwise merges: at each level a warp takes its list a
+// and its partner's b, keeps max(a[i], b[L-1-i]) (the L best of both, a
+// bitonic sequence) and sorts that with log2 L half-cleaner stages. One
+// block barrier after the sorts and one after each of the log2(NP/L)
+// levels, the last of which the pick reads.
+
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+constexpr int TILE = 64;   // a warp's register tile: slot e*32 + lane, e < 2
+
+// a ranks before b
+__device__ __forceinline__ bool ranks_before(unsigned long long ka,
+                                             unsigned va,
+                                             unsigned long long kb,
+                                             unsigned vb) {
+  return ka > kb || (ka == kb && va < vb);
+}
+
+struct Tile {
+  unsigned long long k[2];
+  unsigned v[2];
+};
+
+__device__ __forceinline__ Tile load_tile(const unsigned long long* keys,
+                                          const unsigned short* vals,
+                                          int lane) {
+  Tile t;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    t.k[e] = keys[e * 32 + lane];
+    t.v[e] = vals[e * 32 + lane];
+  }
+  return t;
+}
+
+__device__ __forceinline__ void store_tile(unsigned long long* keys,
+                                           unsigned short* vals,
+                                           const Tile& t, int lane) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    keys[e * 32 + lane] = t.k[e];
+    vals[e * 32 + lane] = (unsigned short)t.v[e];
+  }
+}
+
+// The bitonic stages of strides jmax..1 (jmax <= 32) on a tile held in
+// registers, within the merge of runs of `run` slots: the slot at
+// position i (pos0 = the tile's first) sorts descending where
+// (i & run) == 0, ascending elsewhere.
+__device__ __forceinline__ void tile_stages(Tile& t, int pos0, int run,
+                                            int jmax, int lane) {
+  for (int j = jmax; j > 0; j >>= 1) {
+    if (j == 32) {      // slots e = 0 and 1 of one lane
+      const bool desc = ((pos0 + lane) & run) == 0;
+      if (ranks_before(t.k[1], t.v[1], t.k[0], t.v[0]) == desc) {
+        const unsigned long long k = t.k[0];
+        const unsigned v = t.v[0];
+        t.k[0] = t.k[1];
+        t.v[0] = t.v[1];
+        t.k[1] = k;
+        t.v[1] = v;
       }
-      // pairs 32w..32w+31 of a warp touch keys 64w..64w+63 while j < 64
-      if (j >= 64 || (j == 1 && k >= 64)) __syncthreads();
-      else __syncwarp();
+      continue;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = pos0 + e * 32 + lane;
+      const unsigned long long pk = __shfl_xor_sync(FULL_MASK, t.k[e], j);
+      const unsigned pv = __shfl_xor_sync(FULL_MASK, t.v[e], j);
+      // the lower slot of a descending pair keeps the one ranked first
+      const bool keep_first = ((i & j) == 0) == ((i & run) == 0);
+      if (ranks_before(pk, pv, t.k[e], t.v[e]) == keep_first) {
+        t.k[e] = pk;
+        t.v[e] = pv;
+      }
     }
   }
 }
 
-__global__ void beam_search_kernel(
+// One bitonic stage of stride j >= 64 over n slots in shared memory, by
+// one warp.
+__device__ __forceinline__ void smem_stage(unsigned long long* keys,
+                                           unsigned short* vals, int n,
+                                           int run, int j, int lane) {
+  for (int p = lane; p < n / 2; p += 32) {
+    const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+    const int q = i + j;
+    const unsigned long long a = keys[i], b = keys[q];
+    const unsigned short va = vals[i], vb = vals[q];
+    if (ranks_before(b, vb, a, va) == ((i & run) == 0)) {
+      keys[i] = b;
+      keys[q] = a;
+      vals[i] = vb;
+      vals[q] = va;
+    }
+  }
+  __syncwarp();
+}
+
+// Sort the L slots at keys/vals descending, by one warp.
+__device__ void warp_sort(unsigned long long* keys, unsigned short* vals,
+                          int L, int lane) {
+  for (int base = 0; base < L; base += TILE) {
+    Tile t = load_tile(keys + base, vals + base, lane);
+#pragma unroll
+    for (int run = 2; run <= TILE; run <<= 1)
+      tile_stages(t, base, run, run >> 1, lane);
+    store_tile(keys + base, vals + base, t, lane);
+  }
+  __syncwarp();
+  for (int run = 2 * TILE; run <= L; run <<= 1) {
+    for (int j = run >> 1; j >= TILE; j >>= 1)
+      smem_stage(keys, vals, L, run, j, lane);
+    for (int base = 0; base < L; base += TILE) {
+      Tile t = load_tile(keys + base, vals + base, lane);
+      tile_stages(t, base, run, 32, lane);
+      store_tile(keys + base, vals + base, t, lane);
+    }
+    __syncwarp();
+  }
+}
+
+// The L best of two descending lists of L, a (overwritten) and b, sorted
+// descending into a, by one warp.
+__device__ void warp_merge(unsigned long long* ak, unsigned short* av,
+                           const unsigned long long* bk,
+                           const unsigned short* bv, int L, int lane) {
+  for (int i = lane; i < L; i += 32) {
+    const unsigned long long kb = bk[L - 1 - i];
+    const unsigned short vb = bv[L - 1 - i];
+    if (ranks_before(kb, vb, ak[i], av[i])) {
+      ak[i] = kb;
+      av[i] = vb;
+    }
+  }
+  __syncwarp();
+  for (int j = L >> 1; j >= TILE; j >>= 1)
+    smem_stage(ak, av, L, L, j, lane);
+  for (int base = 0; base < L; base += TILE) {
+    Tile t = load_tile(ak + base, av + base, lane);
+    tile_stages(t, base, L, 32, lane);
+    store_tile(ak + base, av + base, t, lane);
+  }
+}
+
+// Chunk length of the selection for a beam of K.
+__device__ __forceinline__ int select_chunk(int K) {
+  int L = TILE;
+  while (L < K) L <<= 1;
+  return L;
+}
+
+// The selection described above, by the whole block (NP / L chunks;
+// blockDim.x a multiple of 32). Ends with a block barrier.
+__device__ void select_top(unsigned long long* keys, unsigned short* vals,
+                           int NP, int L) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int chunks = NP / L;
+  for (int c = warp; c < chunks; c += nwarps)
+    warp_sort(keys + (size_t)c * L, vals + (size_t)c * L, L, lane);
+  __syncthreads();
+  for (int s = 1; s < chunks; s <<= 1) {
+    for (int a = 2 * s * warp; a < chunks; a += 2 * s * nwarps)
+      warp_merge(keys + (size_t)a * L, vals + (size_t)a * L,
+                 keys + (size_t)(a + s) * L, vals + (size_t)(a + s) * L, L,
+                 lane);
+    __syncthreads();
+  }
+}
+
+// At most 1024 threads (NP / 2): 64 registers a thread.
+__global__ void __launch_bounds__(1024) beam_search_kernel(
     const float* __restrict__ log_probs,   // [B, T, C]
     const int* __restrict__ lens,          // [B]
     const float* __restrict__ table,       // [n_ctx, C-1] or null
@@ -168,6 +323,7 @@ __global__ void beam_search_kernel(
   const int Cr = C - 1;
   const int N = K * C;
   const int blank = C - 1;
+  const int L = select_chunk(K);
 
   unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
   unsigned short* vals = reinterpret_cast<unsigned short*>(
@@ -265,7 +421,7 @@ __global__ void beam_search_kernel(
     }
     __syncthreads();
 
-    bitonic_sort_desc(keys, vals, NP);
+    select_top(keys, vals, NP, L);
 
     // ---- the K best become the new beam, in rank order -----------------
     if (tid < K) {
@@ -353,6 +509,37 @@ __global__ void beam_search_kernel(
   }
 }
 
+// The selection alone, for its tests and its timing: one block ranks
+// the N candidates make_key(scores[i], h1[i]), flat index i, padded to NP
+// with key 0, and writes the K best in rank order. It fills the keys and
+// selects `reps` times over (fills only where `select` is 0), so that the
+// difference of two rep counts times one fill and selection without the
+// launch.
+__global__ void __launch_bounds__(1024) select_probe_kernel(
+    const float* __restrict__ scores, const uint32_t* __restrict__ h1, int N,
+    int K, int NP, int reps, int select,
+    unsigned long long* __restrict__ out_keys, int* __restrict__ out_flat) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(smem);
+  unsigned short* vals = reinterpret_cast<unsigned short*>(
+      smem + (size_t)NP * sizeof(unsigned long long));
+  for (int r = 0; r < reps; ++r) {
+    for (int flat = threadIdx.x; flat < NP; flat += blockDim.x) {
+      keys[flat] = flat < N ? make_key(scores[flat], h1[flat]) : 0ull;
+      vals[flat] = (unsigned short)flat;
+    }
+    __syncthreads();
+    if (select) select_top(keys, vals, NP, select_chunk(K));
+  }
+  for (int i = threadIdx.x; i < K; i += blockDim.x) {
+    out_keys[i] = keys[i];
+    out_flat[i] = vals[i];
+  }
+}
+
+// A block's threads: one per pair of sort slots, at most 1024 (NP >= 64).
+int block_threads(int NP) { return NP / 2 < 1024 ? NP / 2 : 1024; }
+
 }  // namespace
 
 // Shared memory of one block: the sort keys and values, two state
@@ -377,10 +564,29 @@ extern "C" int beam_search(const void* log_probs, const void* lens,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  int threads = NP / 2 < 1024 ? NP / 2 : 1024;
-  beam_search_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+  beam_search_kernel<<<B, block_threads(NP), smem, (cudaStream_t)stream>>>(
       (const float*)log_probs, (const int*)lens, (const float*)table,
       (int*)back, (int*)out_ids, (int*)out_lens, (float*)out_scores, T, C, K,
       U, NP, n_ctx, lm_vocab, space, init_ctx, lm_weight, word_bonus, nbest);
+  return (int)cudaGetLastError();
+}
+
+// select_probe_kernel on one block; N <= NP, K <= NP, NP a power of two
+// in 64..16384, reps >= 1. Returns cudaError_t.
+extern "C" int beam_select_probe(const void* scores, const void* h1, int N,
+                                 int K, int NP, int reps, int select,
+                                 void* out_keys, void* out_flat,
+                                 void* stream) {
+  const size_t smem =
+      (size_t)NP * (sizeof(unsigned long long) + sizeof(unsigned short));
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        select_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  select_probe_kernel<<<1, block_threads(NP), smem, (cudaStream_t)stream>>>(
+      (const float*)scores, (const uint32_t*)h1, N, K, NP, reps, select,
+      (unsigned long long*)out_keys, (int*)out_flat);
   return (int)cudaGetLastError();
 }

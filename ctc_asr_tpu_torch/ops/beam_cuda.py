@@ -22,7 +22,7 @@ import torch
 from ..text import BLANK_ID, PAD_ID
 from . import build
 from .beam import beam_search_decode as beam_search_decode_plain
-from .beam import decode_buffer_len, padded_lm_table
+from .beam import _sort_key, decode_buffer_len, padded_lm_table
 from .dispatch import check_kernel_tensor, require_kernel_device
 
 MAX_BEAM = 512          # a block's threads pick the beams and prefetch
@@ -34,6 +34,46 @@ def sort_width(beam_width: int, num_classes: int) -> int:
     """Candidates per step, K*C, padded to a power of two (>= 64)."""
     n = max(64, beam_width * num_classes)
     return 1 << (n - 1).bit_length()
+
+
+def select_top_k_probe(scores: torch.Tensor, h1: torch.Tensor, k: int):
+    """K8's top-K selection alone, in one block on the card (the C entry
+    ``beam_select_probe``; the decode path never calls it): candidate i
+    has score ``scores[i]`` (f32) and first hash ``h1[i]`` (uint32 bits in
+    int32). Returns the k best as (keys, indices), int64, in rank order:
+    ``ops.beam._sort_key`` descending, the index ascending among equal
+    keys. A CPU tensor gets that order from a stable ``torch.sort``."""
+    return _select_probe(scores, h1, k)
+
+
+def _select_probe(scores: torch.Tensor, h1: torch.Tensor, k: int,
+                  reps: int = 1, select: bool = True):
+    """``select_top_k_probe`` with the knobs that time the selection on
+    the card: ``reps`` repeats the fill of the keys and the selection
+    inside the one launch, and ``select=False`` leaves the selection out
+    (the outputs are then not the k best)."""
+    n = scores.shape[0]
+    NP = sort_width(1, n)
+    if not 1 <= k <= min(n, MAX_BEAM) or NP > MAX_SORT_KEYS or reps < 1:
+        raise ValueError(f"the selection takes 1 <= k <= min(n, {MAX_BEAM})"
+                         f", n <= {MAX_SORT_KEYS} and reps >= 1, got k={k},"
+                         f" n={n}, reps={reps}")
+    if scores.device.type == "cpu":
+        keys = _sort_key(scores, h1.long() & 0xFFFFFFFF)
+        keys, order = torch.sort(keys, descending=True, stable=True)
+        return keys[:k], order[:k]
+    check_kernel_tensor("scores", scores, torch.float32, (n,))
+    check_kernel_tensor("h1", h1, torch.int32, (n,))
+    require_kernel_device(scores)
+    keys = torch.empty(k, dtype=torch.int64, device=scores.device)
+    flat = torch.empty(k, dtype=torch.int32, device=scores.device)
+    rc = build.load().beam_select_probe(
+        scores.data_ptr(), h1.data_ptr(), n, k, NP, int(reps), int(select),
+        keys.data_ptr(), flat.data_ptr(),
+        torch.cuda.current_stream(scores.device).cuda_stream)
+    build.check(rc, "beam_select_probe")
+    # the kernel's unsigned key, less 2**63, is _sort_key's signed one
+    return keys ^ torch.iinfo(torch.int64).min, flat.long()
 
 
 def beam_search_decode_cuda(logits: torch.Tensor, logit_lengths: torch.Tensor,

@@ -71,6 +71,8 @@ _SIGNATURES = {
     # nbest, stream
     "beam_search": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _F, _F, _I, _P],
+    # scores, h1, N, K, NP, reps, select, out_keys, out_flat, stream
+    "beam_select_probe": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

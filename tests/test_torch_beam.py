@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from beam_select_cases import SELECT_CASES, select_case
 from ctc_asr_tpu.ops import beam as j_beam
 from ctc_asr_tpu.ops import lm as j_lm
 from ctc_asr_tpu.ops.greedy import greedy_decode as j_greedy
@@ -321,3 +322,49 @@ def test_make_beam_decoder_matches_reference(use_kernel):
         return_nbest=True)(torch.from_numpy(logits), torch.from_numpy(lens))
     assert ids.shape == (1, 8, T) and scores.shape == (1, 8)
     assert _lists(ids[:, 0], dlens[:, 0])[0].count(2) > 0
+
+
+@pytest.mark.parametrize("name,N,K", SELECT_CASES)
+def test_selection_probe_on_cpu_is_the_reference_order(name, N, K):
+    """The order K8's selection is held to (``select_top_k_probe`` on a
+    CPU tensor: a stable sort of ``_sort_key``) on the crafted cases of
+    its card test, against numpy's lexsort of (score descending, -0 equal
+    to +0; first hash ascending; index ascending)."""
+    scores, h1 = select_case(name, N, K)
+    keys, idx = beam_cuda.select_top_k_probe(
+        torch.from_numpy(scores), torch.from_numpy(h1), K)
+    hu = h1.view(np.uint32).astype(np.int64)
+    want = np.lexsort((np.arange(N), hu, -(scores.astype(np.float64) + 0.0)))
+    assert idx.tolist() == want[:K].tolist()
+    assert (keys[:-1] >= keys[1:]).all()
+    assert keys.tolist() == t_beam._sort_key(
+        torch.from_numpy(scores[want[:K]]), torch.from_numpy(hu[want[:K]])
+    ).tolist()
+
+
+def test_selection_shapes_for_every_accepted_beam():
+    """Every (K, C) the kernel takes, with the chunk length of
+    ``select_chunk`` in ``csrc/beam.cu`` (K rounded up to a power of two,
+    at least 64): the chunk a warp sorts holds the K best (L >= K), whole
+    chunks tile the sort width in a power-of-two count (the merge tree
+    pairs them level by level), and the block has a thread for each
+    beam."""
+    for K in range(1, beam_cuda.MAX_BEAM + 1):
+        L = 1 << (max(64, K) - 1).bit_length()
+        assert L >= max(K, 64) and L < 2 * max(K, 64)
+        for C in range(2, beam_cuda.MAX_CLASSES + 1):
+            NP = beam_cuda.sort_width(K, C)
+            if NP > beam_cuda.MAX_SORT_KEYS:
+                break
+            chunks = NP // L
+            assert chunks * L == NP and chunks & (chunks - 1) == 0
+            assert min(NP // 2, 1024) >= K
+
+
+def test_selection_probe_rejects_bad_input():
+    s, h = torch.zeros(100), torch.zeros(100, dtype=torch.int32)
+    for k in (0, 101):
+        with pytest.raises(ValueError, match="selection"):
+            beam_cuda.select_top_k_probe(s, h, k)
+    with pytest.raises(ValueError, match="selection"):
+        beam_cuda.select_top_k_probe(torch.zeros(20000), h, 8)

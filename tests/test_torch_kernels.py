@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from beam_select_cases import SELECT_CASES, select_case
 from ctc_asr_tpu_torch.config import FeatureConfig, ModelConfig
 from ctc_asr_tpu_torch.models import apply_encoder, init_shapes
 from ctc_asr_tpu_torch.ops import (beam_cuda, ctc_cuda, gru_cuda, lstm_cuda,
@@ -616,6 +617,50 @@ def test_beam_kernel_matches_plain(dev, B, T, K, mode):
     if not nbest:
         ids, dl = beam_cuda.beam_search_decode_cuda(logits, lens, **kw)
         assert torch.equal(ids, got[0][:, 0]) and torch.equal(dl, got[1][:, 0])
+
+
+@pytest.mark.parametrize("name,N,K", SELECT_CASES)
+def test_beam_selection_alone_matches_stable_sort(dev, name, N, K):
+    """K8's top-K selection alone (one block, ``beam_select_probe``) on
+    crafted keys: the K best keys and flat indices equal those of a
+    stable descending ``torch.sort`` of ``ops.beam._sort_key``,
+    exactly."""
+    scores, h1 = (torch.from_numpy(a) for a in select_case(name, N, K))
+    keys, flat = beam_cuda.select_top_k_probe(scores.to(dev), h1.to(dev), K)
+    torch.cuda.synchronize()
+    want_keys, want_flat = beam_cuda.select_top_k_probe(scores, h1, K)
+    assert torch.equal(keys.cpu(), want_keys)
+    assert torch.equal(flat.cpu(), want_flat)
+
+
+@pytest.mark.parametrize("lm", [False, True])
+@pytest.mark.parametrize("B,T,C,K", [(4, 40, 29, 64), (4, 24, 2, 512)])
+def test_beam_kernel_exact_ties_identical(dev, B, T, C, K, lm):
+    """Quantized logits tie many candidates exactly; with the LM, a flat
+    table, a word bonus of 3 and logits that favour the space and the
+    blank drive the fused scores positive. The kernel must give the
+    plain version's ids, lengths and N-best scores in every row."""
+    from chip_smoke import beam_agreement
+    rng = np.random.default_rng(T * K + lm)
+    x = np.round(rng.standard_normal((B, T, C)) * 2) / 2.0
+    if lm:
+        x[:, :, [0, C - 1]] += 3.0        # char 0 is the space
+    logits = torch.from_numpy(x.astype(np.float32)).to(dev)
+    lens = torch.tensor([T, T, T - 5, T // 2], dtype=torch.int32,
+                        device=dev)
+    kw = dict(beam_width=K, blank_id=C - 1, max_decode_len=T,
+              return_nbest=True)
+    if lm:
+        kw.update(lm_table=torch.zeros(C - 1, C - 1, device=dev),
+                  lm_weight=1.0, word_bonus=3.0, lm_vocab=C - 1)
+    got = beam_cuda.beam_search_decode_cuda(logits, lens, **kw)
+    want = beam_cuda.beam_search_decode_plain(logits, lens, **kw)
+    torch.cuda.synchronize()
+    assert beam_agreement(got, want)["excused"] == 0
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if lm:
+        assert want[2].max().item() > 0
 
 
 @pytest.mark.parametrize("K", [8, 32, 64, 512])
