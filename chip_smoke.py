@@ -11,10 +11,20 @@ Phases (any failure exits non-zero; no phase is skipped):
    (one ``nvcc`` per source, all started together).
 3. Kernels versus their plain PyTorch versions, at the main paths'
    shapes: max error against a stated tolerance, and the median of
-   CUDA-event times over repeated runs after warm-up. K1 (STFT) and K2
-   (LSTM forward) at the serving shapes; K6/K7 (CTC α, β + gradient) at
-   the train geometry B=128, T'=399, U=96 with ragged lengths, one
-   empty and one infeasible row; K2 with residuals and K3 (LSTM BPTT)
+   CUDA-event times over repeated runs after warm-up. K1 (STFT, an FFT
+   a frame) at the train step's B=128 x 8 s, the decode slice's B=16 and
+   B=1 x 3.52 s, MFCC, n_fft 256 (the window folded) and 1024, and a
+   low-energy input with an all-zero tail, each also timed on the device
+   alone by ``torch.profiler``, beside its bound, the old DFT-as-matmul
+   bound and ``torch.stft`` (the DFT power alone, a partial yardstick),
+   and both the kernel and the plain version held against an f64
+   evaluation of the same function;
+   an n_fft that is not a power of two must be refused before any
+   launch. K2 (LSTM forward) at the serving shapes; K6/K7 (CTC α, β +
+   gradient) at the train geometry B=128, T'=399, U=96 with ragged
+   lengths, one empty and one infeasible row, and at T = 1 to 12 (which
+   spans K7's prefetch ring) and at ``cli train``'s B=16, T'=175; K2 with
+   residuals and K3 (LSTM BPTT)
    at nd=2, B=128, T=399, H=512 and H=800, at the serving and cli-train
    batch B=16, T=200, H=512 (another tiling of both kernels) and at T=1;
    K2 also at the ds3 width H=800, and K1 and K2 at the decode slice's
@@ -247,40 +257,161 @@ def _speechlike(B: int, S: int, seed: int):
     return torch.from_numpy(x.astype(np.float32)).cuda()
 
 
+def _stft_bounds(cfg, B: int, S: int) -> tuple[dict, float]:
+    """K1's bound: the samples read and the features written once (and
+    the kernel's constants), or the operations its function needs at the
+    f32 peak: an n_fft/2-point complex FFT (5 (N/2) log2(N/2)), the real
+    split (~10 a point), the window, the power, the sparse mel product,
+    the log and the DCT. Second, in ms, the old DFT-as-matmul bound (both
+    bases over the W window samples and the dense mel product), printed
+    so the bound's history reads."""
+    import math
+    from ctc_asr_tpu_torch.features import num_frames
+    from ctc_asr_tpu_torch.ops import stft_cuda
+    c = stft_cuda.kernel_constants(cfg)
+    T, W, N, M, F = (max(1, num_frames(S, cfg)), cfg.win_length, cfg.n_fft,
+                     cfg.n_mels, cfg.feature_dim)
+    nh, nb, nnz = N // 2, c["nb"], len(c["mel_w"])
+    consts = W + 2 * N + nnz + 2 * M + 1 + (M * F if c["use_dct"] else 0)
+    frame_ops = (5 * nh * math.log2(nh) + 10 * nh + W + 3 * nb + 2 * nnz + M
+                 + (2 * M * F if c["use_dct"] else 0))
+    nbd = N // 2 + 1
+    old = bound(4 * (B * S + B * T * M + 2 * W * nbd + nbd * M),
+                B * T * (4 * W * nbd + 3 * nbd + 2 * nbd * M), PEAK_F32)
+    return (bound(4 * (B * S + B * T * F + consts), B * T * frame_ops,
+                  PEAK_F32), old["bound_ms"])
+
+
+def _features_f64(x, cfg):
+    """The features of ``x`` evaluated in f64: the same f32 window,
+    filterbank and DCT values as the kernel and the plain version, an
+    exact DFT (its basis built in f64, not rounded to f32) and f64
+    arithmetic throughout. An independent witness of which of the two
+    f32 evaluations is nearer the function."""
+    import torch
+    from ctc_asr_tpu_torch import features as feat_mod
+    W, N = cfg.win_length, cfg.n_fft
+    ang = (2.0 * np.pi / N) * np.outer(np.arange(W), np.arange(N // 2 + 1))
+
+    def f64(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=x.device)
+
+    frames = feat_mod.frame_signal(x.double(), cfg) \
+        * f64(feat_mod.hann_window(W))
+    power = (frames @ f64(np.cos(ang))) ** 2 + (frames @ f64(np.sin(ang))) ** 2
+    fb = feat_mod.mel_filterbank(N, cfg.n_mels, cfg.sample_rate, cfg.fmin,
+                                 cfg.fmax)
+    out = torch.log(torch.clamp_min(power @ f64(fb), 1e-6))
+    if cfg.feature_type == "mfcc":
+        out = out @ f64(feat_mod.dct_matrix(cfg.n_mels, cfg.n_mfcc))
+    return out
+
+
+def _stft_power_ms(x, cfg) -> float:
+    """A partial yardstick for K1: ``torch.stft`` (cuFFT; center=False,
+    the Hann window zero-padded at its end to n_fft, the same hop) and
+    ``.abs() ** 2``, the DFT power alone, without the mel, the log or the
+    DCT. Timed here only; the port never calls it."""
+    import torch
+    from ctc_asr_tpu_torch.features import hann_window
+    win = torch.zeros(cfg.n_fft, device=x.device)
+    win[:cfg.win_length] = torch.as_tensor(hann_window(cfg.win_length),
+                                           device=x.device)
+    return cuda_ms(lambda: torch.stft(
+        x, cfg.n_fft, cfg.hop_length, window=win, center=False,
+        return_complex=True).abs() ** 2, reps=20)
+
+
+def _device_ms(fn, name: str, reps: int = 20) -> float:
+    """Mean device time in ms of the kernels whose name holds ``name``
+    over ``reps`` calls of ``fn``, from ``torch.profiler``: the kernel
+    alone, where a CUDA-event time of a small call is the host's
+    enqueue time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == DeviceType.CUDA and name in e.name]
+    if not evs:
+        raise AssertionError(f"torch.profiler recorded no {name}")
+    return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / len(evs)
+
+
 def phase_stft() -> dict:
     import torch
     from ctc_asr_tpu_torch.config import FeatureConfig, preset
-    from ctc_asr_tpu_torch.features import num_frames
     from ctc_asr_tpu_torch.ops import stft_cuda
-    res = {"max_abs_err": 0.0, "library_ms": None}
+    res = {"max_abs_err": 0.0, "library_ms": None, "cases": {}}
     mel = preset("conv_bilstm3").features
-    cases = [("mel B=128 x 8 s", mel, 128, 128000),
+    cases = [("mel B=128 x 8 s", mel, 128, 128000, 1.0),
              ("mfcc B=4 x 1.5 s", FeatureConfig(feature_type="mfcc",
-                                                n_mfcc=13, n_mels=40), 4, 24000),
+                                                n_mfcc=13, n_mels=40), 4,
+              24000, 1.0),
              # the decode slice's batches (evaluate) and requests (transcribe)
-             ("mel B=16 x 3.52 s", mel, 16, 56320),
-             ("mel B=1 x 3.52 s", mel, 1, 56320)]
-    for i, (label, cfg, B, S) in enumerate(cases):
-        x = _speechlike(B, S, seed=B)
+             ("mel B=16 x 3.52 s", mel, 16, 56320, 1.0),
+             ("mel B=1 x 3.52 s", mel, 1, 56320, 1.0),
+             # other FFT sizes: W=400 folded into 256 points, and 1024
+             ("mel n_fft=256 B=4 x 1.5 s",
+              dataclasses.replace(mel, n_fft=256), 4, 24000, 1.0),
+             ("mel n_fft=1024 B=4 x 1.5 s",
+              dataclasses.replace(mel, n_fft=1024), 4, 24000, 1.0),
+             # amplitude ~1e-4 and an all-zero last third: the log
+             # amplifies any error of a weak spectrum
+             ("mel low energy B=4 x 1.5 s", mel, 4, 24000, 3e-4)]
+    for i, (label, cfg, B, S, scale) in enumerate(cases):
+        x = _speechlike(B, S, seed=B) * scale
+        if scale != 1.0:
+            x[:, 2 * S // 3:] = 0.0
         got = stft_cuda.stft_features(x, cfg)
         want = stft_cuda.stft_features_plain(x, cfg)
+        exact = _features_f64(x, cfg)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
+        f64_err = (got.double() - exact).abs().max().item()
+        plain_f64_err = (want.double() - exact).abs().max().item()
+        del exact
         ms = cuda_ms(lambda: stft_cuda.stft_features(x, cfg), reps=20)
         plain_ms = cuda_ms(lambda: stft_cuda.stft_features_plain(x, cfg),
                            reps=20)
+        dev_ms = _device_ms(lambda: stft_cuda.stft_features(x, cfg),
+                            "stft_mel_kernel")
+        bd, dft_bound_ms = _stft_bounds(cfg, B, S)
         log(f"[K1 stft] {label}: out {tuple(got.shape)} max_abs_err={err:.3e}"
-            f" (tol {STFT_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f" (tol {STFT_TOL}); against f64: kernel {f64_err:.3e}, plain "
+            f"{plain_f64_err:.3e}; kernel {ms:.4f} ms (device {dev_ms:.4f} "
+            f"ms) plain {plain_ms:.4f} ms bound {bd['bound_ms']:.4f} ms by "
+            f"{bd['bound_by']} (the old DFT-as-matmul bound "
+            f"{dft_bound_ms:.4f} ms)")
         if not torch.isfinite(got).all() or not err <= STFT_TOL:
             raise AssertionError(f"K1 {label}: max_abs_err {err} > {STFT_TOL}")
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        if i == 0:   # the serving path's shape gives the reported times
-            # framed DFT (cos and sin) and the mel product, in f32
-            T, W, NB, M = (num_frames(S, cfg), cfg.win_length,
-                           cfg.n_fft // 2 + 1, cfg.n_mels)
-            res.update(ms=ms, plain_ms=plain_ms, **bound(
-                4 * (B * S + B * T * M + 2 * W * NB + NB * M),
-                B * T * (4 * W * NB + 3 * NB + 2 * NB * M), PEAK_F32))
+        errs = {"max_abs_err": err, "max_abs_err_vs_f64": f64_err,
+                "plain_max_abs_err_vs_f64": plain_f64_err}
+        res["cases"][label] = {"ms": ms, "device_ms": dev_ms,
+                               "plain_ms": plain_ms, **errs, **bd}
+        if i == 0:   # the train step's shape gives the reported times
+            part = _stft_power_ms(x, cfg)
+            log(f"[K1 stft] {label}: torch.stft + abs()**2 (cuFFT, the DFT "
+                f"power alone: a partial yardstick) {part:.4f} ms")
+            res.update(ms=ms, plain_ms=plain_ms, stft_power_partial_ms=part,
+                       max_abs_err_vs_f64=f64_err,
+                       plain_max_abs_err_vs_f64=plain_f64_err, **bd)
+    # an n_fft the FFT kernel does not take: refused before any launch
+    n0 = stft_cuda.stft_features.launches
+    try:
+        stft_cuda.stft_features(x, dataclasses.replace(mel, n_fft=400))
+    except ValueError as e:
+        log(f"[K1 stft] n_fft=400 refused before any launch: {e}")
+    else:
+        raise AssertionError("K1 took n_fft=400")
+    if stft_cuda.stft_features.launches != n0:
+        raise AssertionError("K1 launched for n_fft=400")
     return res
 
 
@@ -445,7 +576,7 @@ def phase_lstm() -> dict:
 
 def _ctc_inputs(B, T, U, C, seed):
     """lp_z [T, B, S] of random logits, ragged lengths, row 0 an empty
-    label, the last row infeasible (U labels in 3 frames)."""
+    label, the last row infeasible (U > 3 labels in min(3, T) frames)."""
     import torch
     from ctc_asr_tpu_torch.ops import ctc_cuda
     g = torch.Generator().manual_seed(seed)
@@ -455,7 +586,7 @@ def _ctc_inputs(B, T, U, C, seed):
     llens = torch.randint(U // 2, U + 1, (B,), generator=g,
                           dtype=torch.int32)
     lens[0], llens[0] = T, 0
-    lens[-1], llens[-1] = 3, U
+    lens[-1], llens[-1] = min(3, T), U
     z = ctc_cuda.extended_labels(labels, C - 1)
     lpz = torch.gather(torch.log_softmax(logits, -1), 2,
                        z[:, None, :].expand(-1, T, -1)).transpose(0, 1)
@@ -494,9 +625,45 @@ def _library_ctc_ms(B, T, U, C, seed):
     return fwd_ms, bwd_ms
 
 
+def _ctc_small_cases() -> float:
+    """K6 / K7 against their plain versions at T = 1 to 12, which spans
+    K7's ring (csrc/ctc.cu prefetches 8 rows ahead into 10 slots): fewer
+    rows than the prefetch, exactly it, and past one turn of the ring;
+    and at ``cli train``'s batch (B=16, T'=175). Returns the largest
+    gradient error."""
+    import torch
+    from ctc_asr_tpu_torch.ops import ctc_cuda
+    worst = 0.0
+    cases = [(4, 1, 4), (4, 2, 4)]
+    cases += [(6, T, 4 if T <= 8 else 5) for T in range(3, 13)]
+    for B, T, U in cases + [(16, 175, 40)]:
+        lpz, skip, lens, ends = _ctc_inputs(B, T, U, 29, seed=T)
+        alphas, nll = ctc_cuda.ctc_alpha(lpz, skip, lens, ends)
+        grad = ctc_cuda.ctc_beta_grad(lpz, alphas, skip, lens, ends, nll)
+        palphas, pnll = ctc_cuda.ctc_alpha_plain(lpz, skip, lens, ends)
+        pgrad = ctc_cuda.ctc_beta_grad_plain(lpz, palphas, skip, lens, ends,
+                                             pnll)
+        torch.cuda.synchronize()
+        feas = pnll < 1e29
+        nll_err = ((nll - pnll).abs() / pnll.abs().clamp_min(1.0))[feas] \
+            .max().item()
+        grad_err = (grad - pgrad)[:, feas].abs().max().item()
+        ok = (nll_err <= CTC_NLL_RTOL and grad_err <= CTC_GRAD_ATOL
+              and bool(torch.isfinite(grad).all()) and not bool(feas[-1])
+              and nll[-1].item() >= 1e29)
+        log(f"[K6/K7 ctc] B={B} T={T} U={U}: nll rel err={nll_err:.3e} grad "
+            f"max abs err={grad_err:.3e} infeasible row nll="
+            f"{nll[-1].item():.3e}{'' if ok else ' FAIL'}")
+        if not ok:
+            raise AssertionError(f"K6/K7 at B={B} T={T} U={U}")
+        worst = max(worst, grad_err)
+    return worst
+
+
 def phase_ctc() -> dict:
     import torch
     from ctc_asr_tpu_torch.ops import ctc_cuda
+    small_err = _ctc_small_cases()
     lpz, skip, lens, ends = _ctc_inputs(128, 399, 96, 29, seed=7)
     alphas, nll = ctc_cuda.ctc_alpha(lpz, skip, lens, ends)
     grad = ctc_cuda.ctc_beta_grad(lpz, alphas, skip, lens, ends, nll)
@@ -525,7 +692,7 @@ def phase_ctc() -> dict:
         "ctc_beta_grad": {
             "library_ms": lib_bwd,
             **bound(4 * (3 * T * B * S + B * S), 14 * T * B * S, PEAK_F32),
-            "max_abs_err": grad_err,
+            "max_abs_err": max(grad_err, small_err),
             "ms": cuda_ms(lambda: ctc_cuda.ctc_beta_grad(
                 lpz, alphas, skip, lens, ends, nll), reps=20),
             "plain_ms": cuda_ms(lambda: ctc_cuda.ctc_beta_grad_plain(
@@ -1635,12 +1802,13 @@ _KERNEL_GROUPS = (
 def _profile_step(cfg, arrs, tag: str = "profile") -> dict:
     """Where a kernel-path train step's time goes: CUDA events between
     its phases (median of 5 steps after one warm-up), then
-    ``torch.profiler`` over 3 steps: device time per kernel group, and
+    ``torch.profiler`` over 3 steps after a traced one that is thrown
+    away: device time per kernel group, and
     the device's busy share (the union of its kernel and copy intervals
     over the event-timed step)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from ctc_asr_tpu_torch import train as train_mod
     from ctc_asr_tpu_torch.optim import Adam
     state = train_mod.init_train_state(cfg, "cuda")
@@ -1666,15 +1834,32 @@ def _profile_step(cfg, arrs, tag: str = "profile") -> dict:
 
     step = train_mod.make_step_fn(cfg)
     reps = 3
+    # the first traced step is thrown away (the first kernel after the
+    # tracer starts, K1, often went unrecorded), and only kernels from
+    # the start of the measured range on the device's clock are counted:
+    # the host's clock is offset from it by enough to drop a step's first
+    # kernels
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            step(state, *arrs)
+        step(state, *arrs)
         torch.cuda.synchronize()
+        with record_function("measured steps"):
+            for _ in range(reps):
+                step(state, *arrs)
+            torch.cuda.synchronize()
+    marks = [e.time_range.start for e in prof.events()
+             if e.name == "measured steps"
+             and e.device_type == DeviceType.CUDA]
+    if not marks:
+        raise AssertionError(
+            "torch.profiler gave no device-side mark of 'measured steps': "
+            "the host clock's start would drop the range's first kernels")
+    t0 = marks[0]
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and "Command Buffer" not in e.name]
+               and "Command Buffer" not in e.name
+               and e.time_range.start >= t0]
     groups: dict = {}
     for e in kernels:
         label = next((g for g, keys in _KERNEL_GROUPS
@@ -1693,9 +1878,9 @@ def _profile_step(cfg, arrs, tag: str = "profile") -> dict:
         f"(median of 5): {step_ms:.2f} ms; "
         + ", ".join(f"{n} {v:.2f}" for n, v in split.items())
         + f"; peak device memory {peak:.2f} GiB")
-    log(f"[{tag}] torch.profiler over {reps} steps: device busy "
-        f"{busy_ms:.2f} ms a step = {busy_ms / step_ms:.3f} of the "
-        f"event-timed step")
+    log(f"[{tag}] torch.profiler over {reps} steps (from the device "
+        f"clock's start of the range): device busy {busy_ms:.2f} ms a step = "
+        f"{busy_ms / step_ms:.3f} of the event-timed step")
     total = sum(ms for ms, _ in groups.values())
     for label, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         log(f"[{tag}]   {label}: {ms:.2f} ms a step, {n // reps} "

@@ -28,7 +28,21 @@
 // in a double-buffered shared array, so each step needs one
 // __syncthreads: step t reads buffer t&1's neighbours and writes buffer
 // (t+1)&1. Reads of lp_z and writes of alpha / grad are coalesced rows
-// of S floats. An infeasible row (nll = 1e30) gives -exp(0) = -1 at its
+// of S floats. K7 takes the device-memory reads off its chain: each
+// thread requests its own state's lp_z and alpha PREFETCH steps ahead
+// with 4-byte cp.async copies into a ring of rows in shared memory, and
+// waits on the oldest copy group at the top of a step; the gradient of a
+// row is computed one step late, beside the next log-sum-exp. A step is
+// then the barrier, the exchange and the log-sum-exp (K6 still loads its
+// lp_z row after each barrier). Not TMA: row (t, b) starts at
+// (t*B + b)*S*4 bytes, in steps of 772 B at S=193, not the 16-byte
+// multiples TMA's strides (and 16-byte cp.async copies) need without a
+// padded layout. Not a ring of registers: in the SASS of such a ring the
+// compiler joined the loaded values into it with moves at the end of
+// each step, which wait for the loads; cp.async completion is tracked by
+// groups, not registers, and a barrier does not wait for it.
+//
+// An infeasible row (nll = 1e30) gives -exp(0) = -1 at its
 // unreachable states, a finite gradient that the zero cotangent turns
 // into exact zeros, as in the reference. Compiled without fast math so
 // expf/logf keep the reference's f32 results.
@@ -92,6 +106,27 @@ __global__ void ctc_alpha_kernel(const float* __restrict__ lpz,   // [T,B,S]
   }
 }
 
+// K7's prefetch depth: the rows of lp_z and alpha that step t uses were
+// requested at step t + PREFETCH, so their device-memory latency (~0.6
+// µs) hides under PREFETCH steps of the chain instead of stalling each.
+// They land in a ring of SLOTS rows in shared memory; the slot refilled
+// at step t was last read at step t + 2, whose values are consumed.
+constexpr int PREFETCH = 8;
+constexpr int SLOTS = PREFETCH + 2;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most PREFETCH - 1 groups (the newest) are in flight
+__device__ __forceinline__ void cp_async_wait_oldest() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PREFETCH - 1) : "memory");
+}
+
 __global__ void ctc_beta_grad_kernel(const float* __restrict__ lpz,
                                      const float* __restrict__ alphas,
                                      const float* __restrict__ skip,
@@ -100,7 +135,10 @@ __global__ void ctc_beta_grad_kernel(const float* __restrict__ lpz,
                                      const float* __restrict__ nll,
                                      float* __restrict__ grad,
                                      int T, int B, int S) {
-  extern __shared__ float xbuf[];       // [2][S]: x = beta_{t+1} + lp_z[t+1]
+  extern __shared__ float smem[];
+  const int SP = blockDim.x;            // a row of S states, padded
+  float* xbuf = smem;                   // [2][SP + 2]: beta_{t+1} + lp_z[t+1]
+  float* ring = smem + 2 * (SP + 2);    // [SLOTS][2][SP]: lp_z and alpha rows
   const int b = blockIdx.x;
   const int s = threadIdx.x;
   const bool active = s < S;
@@ -109,29 +147,53 @@ __global__ void ctc_beta_grad_kernel(const float* __restrict__ lpz,
   const float logp = -nll[b];
   const bool sk2 = active && s + 2 < S && skip[(size_t)b * S + s + 2] > 0.5f;
   const bool is_end = s == end || (s == end - 1 && end > 0);
+  const size_t row = (size_t)B * S;     // one time step of [T, B, S]
+  const size_t own = (size_t)b * S + s;
+
+  // request row t of lp_z and alpha into slot t % SLOTS (one group a row,
+  // empty where there is nothing to copy, so the groups count rows)
+  auto fetch = [&](int t) {
+    if (active && t >= 0) {
+      float* d = ring + (t % SLOTS) * 2 * SP + s;
+      cp_async4(d, lpz + t * row + own);
+      cp_async4(d + SP, alphas + t * row + own);
+    }
+    cp_async_commit();
+  };
+  for (int j = 0; j < PREFETCH; ++j) fetch(T - 1 - j);
 
   float beta = NEG, plpz = NEG;          // carried beta_{t+1}, lp_z[t+1]
+  // the gradient of row gt (T: none yet) is computed one step late, from
+  // its beta and alpha, beside the next step's log-sum-exp
+  float gbeta = NEG, galpha = 0.f;
+  int gt = T;
   for (int t = T - 1; t >= 0; --t) {
-    float* x = xbuf + (t & 1) * S;
+    cp_async_wait_oldest();              // row t has landed
+    const float* d = ring + (t % SLOTS) * 2 * SP + s;
+    const float lp = d[0], al = d[SP];
+    fetch(t - PREFETCH);
+    float* x = xbuf + (t & 1) * (SP + 2);
     if (active) x[s] = fmaxf(plpz + beta, NEG);
     __syncthreads();
-    if (active) {
-      const float stay = x[s];
-      const float diag = s + 1 < S ? x[s + 1] : NEG;
-      const float skp = sk2 ? x[s + 2] : NEG;
-      const float rec = lse3(stay, diag, skp);
-      if (t == len - 1)
-        beta = is_end ? 0.f : NEG;
-      else
-        beta = t < len - 1 ? rec : NEG;
-      const size_t o = ((size_t)t * B + b) * S + s;
-      plpz = lpz[o];
-      const float g = -expf(fmaxf(alphas[o] + beta, NEG) - logp);
-      grad[o] = t < len ? g : 0.f;
-    }
-    // the next step writes the other buffer; two steps on, this one is
+    const float stay = x[s];
+    const float diag = s + 1 < S ? x[s + 1] : NEG;
+    const float skp = sk2 ? x[s + 2] : NEG;
+    const float rec = lse3(stay, diag, skp);
+    const float g = -expf(fmaxf(galpha + gbeta, NEG) - logp);
+    if (active && gt < T) grad[gt * row + own] = gt < len ? g : 0.f;
+    if (t == len - 1)
+      beta = is_end ? 0.f : NEG;
+    else
+      beta = t < len - 1 ? rec : NEG;
+    plpz = lp;
+    gbeta = beta;
+    galpha = al;
+    gt = t;
+    // the next step writes the other x buffer; two steps on, this one is
     // rewritten only after every thread has passed the barrier above
   }
+  const float g = -expf(fmaxf(galpha + gbeta, NEG) - logp);
+  if (active && gt < T) grad[gt * row + own] = gt < len ? g : 0.f;
 }
 
 }  // namespace
@@ -158,8 +220,11 @@ extern "C" int ctc_beta_grad(const void* lpz, const void* alphas,
   if (T <= 0 || B <= 0 || S <= 0) return (int)cudaSuccess;
   if (S > 1024) return (int)cudaErrorInvalidValue;
   const int threads = ((S + 31) / 32) * 32;
-  ctc_beta_grad_kernel<<<B, threads, 2 * S * sizeof(float),
-                         (cudaStream_t)stream>>>(
+  const int smem = (2 * (threads + 2) + SLOTS * 2 * threads) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ctc_beta_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  ctc_beta_grad_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
       (const float*)lpz, (const float*)alphas, (const float*)skip,
       (const int*)lens, (const int*)ends, (const float*)nll, (float*)grad,
       T, B, S);

@@ -40,10 +40,10 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes (restype is int = cudaError_t)
 _SIGNATURES = {
-    # samples, cos, sin, mel, dct, out, B, S, T, W, hop, NB, M, F,
-    # use_dct, log_floor, stream
-    "stft_mel_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _F, _P],
+    # samples, window, twiddle, mel_w, mel_lo, mel_off, dct, out, B, S, T,
+    # W, hop, n_fft, NB, M, F, n_melw, use_dct, log_floor, stream
+    "stft_mel_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # xproj, bias, wh, start, end, hb16, sync, h_out, c_out, gates_out, nd,
     # T, B, H, jt, bt, smem_bytes, stream
     "lstm_fwd_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

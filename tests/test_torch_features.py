@@ -90,23 +90,106 @@ def test_plain_path_matches_pallas_kernel(feature_type):
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
 
 
+def _fft_radices(n_fft: int) -> tuple[int, ...]:
+    """csrc/stft.cu's passes over the n_fft/2-point FFT (``Plan``): radix
+    8 while three or more bits are left, then one of 4 or 2."""
+    bits = (n_fft // 2).bit_length() - 1
+    return (8,) * (bits // 3) + {0: (), 1: (2,), 2: (4,)}[bits % 3]
+
+
+def _kernel_model(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """A numpy model of csrc/stft.cu built from ``kernel_constants``:
+    window (folded mod n_fft where W > n_fft), the packing z[p] =
+    x[2p] + i x[2p+1], the Stockham passes in the kernel's order with
+    its twiddle table, the real split, the sparse mel ranges, the log
+    floor and the DCT. [B, S] -> [B, T, F]."""
+    c = stft_cuda.kernel_constants(cfg)
+    n, nh = cfg.n_fft, cfg.n_fft // 2
+    tw = c["twiddle"][:, 0].astype(np.float64) + 1j * c["twiddle"][:, 1]
+    frames = tf.frame_signal(torch.from_numpy(x), cfg).double().numpy()
+    xw = frames * c["window"]
+    W = xw.shape[-1]
+    xw = np.pad(xw, [(0, 0)] * (xw.ndim - 1) + [(0, -W % n)])
+    xw = xw.reshape(*xw.shape[:-1], -1, n).sum(-2)          # the fold
+    z = xw[..., 0::2] + 1j * xw[..., 1::2]                  # [B, T, nh]
+    ns = 1
+    for R in _fft_radices(n):
+        bf = np.arange(nh // R)
+        k = bf % ns
+        r = np.arange(R)
+        v = z[..., bf[:, None] + r * (nh // R)]
+        v = v * tw[r[None, :] * k[:, None] * (n // (ns * R))]
+        v = np.fft.fft(v, axis=-1)                          # radix-R DFT
+        z = np.empty_like(z)
+        z[..., ((bf // ns) * ns * R + k)[:, None] + r * ns] = v
+        ns *= R
+    ref = np.fft.fft(xw[..., 0::2] + 1j * xw[..., 1::2])
+    # the passes are the FFT, up to the f32 twiddles' rounding
+    assert np.abs(z - ref).max() <= 1e-5 * np.abs(ref).max()
+    kb = np.arange(c["nb"])
+    zk, zc = z[..., kb % nh], np.conj(z[..., (nh - kb) % nh])
+    spec = 0.5 * ((zk + zc) + tw[kb] * (-1j) * (zk - zc))
+    power = spec.real ** 2 + spec.imag ** 2
+    lo, off = c["mel_lo"], c["mel_off"]
+    mel = np.stack([power[..., lo[m]:lo[m] + off[m + 1] - off[m]]
+                    @ c["mel_w"][off[m]:off[m + 1]]
+                    for m in range(len(lo))], -1)
+    feats = np.log(np.maximum(mel, stft_cuda.LOG_FLOOR))
+    return feats @ c["dct"] if c["use_dct"] else feats
+
+
 @pytest.mark.parametrize("cfg", [
     FeatureConfig(), FeatureConfig(feature_type="mfcc", n_mels=26),
-    FeatureConfig(n_mels=40, fmax=8000.0),   # no bin truncation
+    FeatureConfig(n_mels=40, fmax=8000.0),   # 257 bins: Nyquist included
+    FeatureConfig(n_fft=256),                # W=400 > n_fft: folded
+    FeatureConfig(n_fft=1024),
+    FeatureConfig(n_fft=64, n_mels=20),      # fewer butterflies than lanes
+    FeatureConfig(n_fft=2048, feature_type="mfcc", n_mels=40),
 ])
 def test_kernel_constants_reproduce_plain_path(cfg):
-    """The truncated, window-folded bases the CUDA kernel consumes give
-    the plain path's features (a numpy model of the kernel's math)."""
+    """The kernel's algorithm on its host constants (a numpy model of
+    csrc/stft.cu) gives the plain path's features."""
     c = stft_cuda.kernel_constants(cfg)
     x = _signal(2, 9000, seed=5)
-    frames = tf.frame_signal(torch.from_numpy(x), cfg).double().numpy()
-    power = (frames @ c["cos"]) ** 2 + (frames @ c["sin"]) ** 2
-    feats = np.log(np.maximum(power @ c["mel"], stft_cuda.LOG_FLOOR))
-    if c["use_dct"]:
-        feats = feats @ c["dct"]
     want = tf.plain_features(torch.from_numpy(x), cfg).numpy()
-    np.testing.assert_allclose(feats, want, rtol=TOL, atol=TOL)
-    assert c["cos"].shape[1] == (256 if cfg.fmax < 8000 else 257)
+    np.testing.assert_allclose(_kernel_model(x, cfg), want, rtol=TOL,
+                               atol=TOL)
+    fb = tf.mel_filterbank(cfg.n_fft, cfg.n_mels, cfg.sample_rate, cfg.fmin,
+                           cfg.fmax)
+    assert c["nb"] == np.nonzero(fb.any(axis=1))[0][-1] + 1
+    assert (c["nb"] == cfg.n_fft // 2 + 1) == (cfg.fmax >= 8000)
+    assert np.prod(_fft_radices(cfg.n_fft)) == cfg.n_fft // 2
+
+
+def test_kernel_sparse_mel_is_the_filterbank():
+    """Each filter's packed weights are its nonzero column; every bin
+    feeds at most two filters, so the weights are at most 2 * nb."""
+    cfg = FeatureConfig()
+    c = stft_cuda.kernel_constants(cfg)
+    fb = tf.mel_filterbank(cfg.n_fft, cfg.n_mels, cfg.sample_rate, cfg.fmin,
+                           cfg.fmax)
+    dense = np.zeros_like(fb)
+    for m, lo in enumerate(c["mel_lo"]):
+        w = c["mel_w"][c["mel_off"][m]:c["mel_off"][m + 1]]
+        dense[lo:lo + len(w), m] = w
+    np.testing.assert_array_equal(dense, fb)
+    assert len(c["mel_w"]) <= 2 * c["nb"]
+    assert ((fb != 0).sum(axis=1) <= 2).all()
+
+
+@pytest.mark.parametrize("n_fft", [400, 32, 4096, 320])
+def test_geometry_refuses_unsupported_n_fft(n_fft):
+    """Any n_fft the FFT kernel does not take is refused on the host,
+    before any launch, naming the plain frontend's switch; the plain
+    path itself takes it."""
+    cfg = FeatureConfig(n_fft=n_fft)
+    with pytest.raises(ValueError, match="features.use_pallas=false"):
+        stft_cuda.check_geometry(cfg)
+    with pytest.raises(ValueError, match="features.use_pallas=false"):
+        stft_cuda.kernel_constants(cfg)
+    x = torch.from_numpy(_signal(1, 4000, seed=1))
+    assert stft_cuda.stft_features(x, cfg).shape == \
+        tf.plain_features(x, cfg).shape
 
 
 @pytest.mark.parametrize("mode,with_stats", [

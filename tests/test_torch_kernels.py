@@ -37,16 +37,22 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("cfg,B,S", [
-    (FeatureConfig(), 3, 16000),
-    (FeatureConfig(feature_type="mfcc", n_mels=26, n_mfcc=13), 2, 7777),
-    (FeatureConfig(n_mels=40, fmax=8000.0), 2, 9000),   # 257 bins
-    (FeatureConfig(), 2, 300),                          # shorter than W
+@pytest.mark.parametrize("cfg,B,S,amp,tail", [
+    (FeatureConfig(), 3, 16000, 0.3, 0),
+    (FeatureConfig(feature_type="mfcc", n_mels=26, n_mfcc=13), 2, 7777, 0.3,
+     0),
+    (FeatureConfig(n_mels=40, fmax=8000.0), 2, 9000, 0.3, 0),   # 257 bins
+    (FeatureConfig(), 2, 300, 0.3, 0),                  # shorter than W
+    (FeatureConfig(n_fft=256), 2, 9000, 0.3, 0),        # W=400: folded
+    (FeatureConfig(n_fft=1024), 2, 9000, 0.3, 0),
+    # low energy and an all-zero tail, where the log amplifies any error
+    (FeatureConfig(), 2, 16000, 1e-4, 6000),
 ])
-def test_stft_kernel_matches_plain(dev, cfg, B, S):
+def test_stft_kernel_matches_plain(dev, cfg, B, S, amp, tail):
     rng = np.random.default_rng(S)
-    x = torch.from_numpy((rng.standard_normal((B, S)) * 0.3)
-                         .astype(np.float32)).to(dev)
+    x = (rng.standard_normal((B, S)) * amp).astype(np.float32)
+    x[:, S - tail:] = 0.0
+    x = torch.from_numpy(x).to(dev)
     n0 = stft_cuda.stft_features.launches
     got = stft_cuda.stft_features(x, cfg)
     want = stft_cuda.stft_features_plain(x, cfg)
@@ -54,6 +60,21 @@ def test_stft_kernel_matches_plain(dev, cfg, B, S):
     assert stft_cuda.stft_features.launches == n0 + 1
     assert got.shape == want.shape
     assert (got - want).abs().max().item() <= STFT_TOL
+
+
+def test_stft_kernel_refuses_n_fft_before_any_launch(dev, monkeypatch):
+    """An n_fft the FFT kernel does not take raises on a CUDA tensor
+    before any launch, naming the plain frontend's switch; the plain
+    version never sees the CUDA tensor."""
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+    monkeypatch.setattr(stft_cuda, "stft_features_plain", refuse)
+    x = torch.zeros(2, 9000, device=dev)
+    for n_fft in (400, 4096, 32):
+        n0 = stft_cuda.stft_features.launches
+        with pytest.raises(ValueError, match="features.use_pallas=false"):
+            stft_cuda.stft_features(x, FeatureConfig(n_fft=n_fft))
+        assert stft_cuda.stft_features.launches == n0
 
 
 def _lens_case(T, B, g):
@@ -536,8 +557,15 @@ def test_encoder_gru_kernel_path_matches_plain_path(dev):
     assert (lk - lp).abs().max().item() <= 2e-2
 
 
-@pytest.mark.parametrize("B,T,U,C", [(5, 30, 6, 29), (37, 50, 20, 29),
-                                     (3, 8, 2, 6)])
+@pytest.mark.parametrize("B,T,U,C", [
+    (5, 30, 6, 29), (37, 50, 20, 29), (3, 8, 2, 6),
+    (4, 1, 2, 29), (4, 2, 3, 29),                      # T = 1, 2
+    # T = 3..12 spans K7's ring (csrc/ctc.cu prefetches 8 rows ahead
+    # into 10 slots): fewer rows than the prefetch, exactly it, and past
+    # one turn of the ring
+    *[(6, T, 3 if T <= 8 else 4, 29) for T in range(3, 13)],
+    (16, 175, 40, 29),                                 # cli train's batch
+])
 def test_ctc_kernels_match_plain(dev, B, T, U, C):
     g = torch.Generator().manual_seed(B * T)
     logits = torch.randn(B, T, C, generator=g)
