@@ -23,7 +23,9 @@ Phases (any failure exits non-zero; no phase is skipped):
    launch. K2 (LSTM forward) at the serving shapes; K6/K7 (CTC α, β +
    gradient) at the train geometry B=128, T'=399, U=96 with ragged
    lengths, one empty and one infeasible row, and at T = 1 to 12 (which
-   spans K7's prefetch ring) and at ``cli train``'s B=16, T'=175; K2 with
+   spans both kernels' prefetch rings) and at ``cli train``'s B=16,
+   T'=175, K6's α equal to the plain version's bit for bit, each CTC
+   kernel also timed on the device alone by ``torch.profiler``; K2 with
    residuals and K3 (LSTM BPTT)
    at nd=2, B=128, T=399, H=512 and H=800, at the serving and cli-train
    batch B=16, T=200, H=512 (another tiling of both kernels) and at T=1;
@@ -132,10 +134,11 @@ ARGMAX_AGREEMENT = 0.995
 # for the checkpoint the GRU slice trains; the random weights get this
 # floor, and their agreement is printed.
 ARGMAX_AGREEMENT_RANDOM_GRU = 0.99
-# CTC (f32 log space): the NLL relative, the gradient -exp(α+β-logP) in
-# [-1, 0] absolute. Kernel and plain version do the same operations per
-# state; only expf/logf's last bits and sum order differ, and α+β-logP
-# is a difference of numbers ~500 whose ulp is 3e-5.
+# CTC (f32 log space): α equal bits, the NLL relative, the gradient
+# -exp(α+β-logP) in [-1, 0] absolute. Kernel and plain version do the
+# same operations per state in the same order; the NLL's and gradient's
+# limits allow for expf/logf's last bits and sum order, as α+β-logP is a
+# difference of numbers ~500 whose ulp is 3e-5.
 CTC_NLL_RTOL = 1e-5
 CTC_GRAD_ATOL = 1e-4
 # BPTT on the same bf16 residuals: dgates are bf16 (two ulps relative to
@@ -625,15 +628,16 @@ def _library_ctc_ms(B, T, U, C, seed):
     return fwd_ms, bwd_ms
 
 
-def _ctc_small_cases() -> float:
+def _ctc_small_cases() -> tuple[float, float]:
     """K6 / K7 against their plain versions at T = 1 to 12, which spans
-    K7's ring (csrc/ctc.cu prefetches 8 rows ahead into 10 slots): fewer
-    rows than the prefetch, exactly it, and past one turn of the ring;
-    and at ``cli train``'s batch (B=16, T'=175). Returns the largest
-    gradient error."""
+    both kernels' rings (csrc/ctc.cu prefetches 8 rows ahead into 10
+    slots): fewer rows than the prefetch, exactly it, and past one turn
+    of the ring; and at ``cli train``'s batch (B=16, T'=175). K6's α
+    must equal the plain version's bit for bit. Returns the largest α
+    and gradient errors."""
     import torch
     from ctc_asr_tpu_torch.ops import ctc_cuda
-    worst = 0.0
+    worst, worst_alpha = 0.0, 0.0
     cases = [(4, 1, 4), (4, 2, 4)]
     cases += [(6, T, 4 if T <= 8 else 5) for T in range(3, 13)]
     for B, T, U in cases + [(16, 175, 40)]:
@@ -645,25 +649,29 @@ def _ctc_small_cases() -> float:
                                              pnll)
         torch.cuda.synchronize()
         feas = pnll < 1e29
+        alpha_err = (alphas - palphas).abs().max().item()
         nll_err = ((nll - pnll).abs() / pnll.abs().clamp_min(1.0))[feas] \
             .max().item()
         grad_err = (grad - pgrad)[:, feas].abs().max().item()
-        ok = (nll_err <= CTC_NLL_RTOL and grad_err <= CTC_GRAD_ATOL
+        ok = (alpha_err == 0.0 and nll_err <= CTC_NLL_RTOL
+              and grad_err <= CTC_GRAD_ATOL
               and bool(torch.isfinite(grad).all()) and not bool(feas[-1])
               and nll[-1].item() >= 1e29)
-        log(f"[K6/K7 ctc] B={B} T={T} U={U}: nll rel err={nll_err:.3e} grad "
-            f"max abs err={grad_err:.3e} infeasible row nll="
-            f"{nll[-1].item():.3e}{'' if ok else ' FAIL'}")
+        log(f"[K6/K7 ctc] B={B} T={T} U={U}: alpha max abs err="
+            f"{alpha_err:.3e} (equal bits required) nll rel err="
+            f"{nll_err:.3e} grad max abs err={grad_err:.3e} infeasible row "
+            f"nll={nll[-1].item():.3e}{'' if ok else ' FAIL'}")
         if not ok:
             raise AssertionError(f"K6/K7 at B={B} T={T} U={U}")
         worst = max(worst, grad_err)
-    return worst
+        worst_alpha = max(worst_alpha, alpha_err)
+    return worst_alpha, worst
 
 
 def phase_ctc() -> dict:
     import torch
     from ctc_asr_tpu_torch.ops import ctc_cuda
-    small_err = _ctc_small_cases()
+    small_alpha_err, small_err = _ctc_small_cases()
     lpz, skip, lens, ends = _ctc_inputs(128, 399, 96, 29, seed=7)
     alphas, nll = ctc_cuda.ctc_alpha(lpz, skip, lens, ends)
     grad = ctc_cuda.ctc_beta_grad(lpz, alphas, skip, lens, ends, nll)
@@ -674,6 +682,7 @@ def phase_ctc() -> dict:
     feas = pnll < 1e29
     lib_fwd, lib_bwd = _library_ctc_ms(128, 399, 96, 29, seed=7)
     T, B, S = lpz.shape
+    alpha_err = (alphas - palphas).abs().max().item()
     nll_err = ((nll - pnll).abs() / pnll.abs())[feas].max().item()
     grad_err = (grad - pgrad).abs().max().item()
     finite = bool(torch.isfinite(grad).all())
@@ -685,8 +694,11 @@ def phase_ctc() -> dict:
             "library_ms": lib_fwd,
             **bound(4 * (2 * T * B * S + B * S), 12 * T * B * S, PEAK_F32),
             "max_abs_err": (nll - pnll)[feas].abs().max().item(),
+            "alpha_max_abs_err": max(alpha_err, small_alpha_err),
             "ms": cuda_ms(lambda: ctc_cuda.ctc_alpha(lpz, skip, lens, ends),
                           reps=20),
+            "device_ms": _device_ms(lambda: ctc_cuda.ctc_alpha(
+                lpz, skip, lens, ends), "ctc_alpha_kernel"),
             "plain_ms": cuda_ms(lambda: ctc_cuda.ctc_alpha_plain(
                 lpz, skip, lens, ends), reps=3, warmup=1)},
         "ctc_beta_grad": {
@@ -695,23 +707,27 @@ def phase_ctc() -> dict:
             "max_abs_err": max(grad_err, small_err),
             "ms": cuda_ms(lambda: ctc_cuda.ctc_beta_grad(
                 lpz, alphas, skip, lens, ends, nll), reps=20),
+            "device_ms": _device_ms(lambda: ctc_cuda.ctc_beta_grad(
+                lpz, alphas, skip, lens, ends, nll), "ctc_beta_grad_kernel"),
             "plain_ms": cuda_ms(lambda: ctc_cuda.ctc_beta_grad_plain(
                 lpz, alphas, skip, lens, ends, nll), reps=3, warmup=1)},
     }
-    log(f"[K6/K7 ctc] B=128 T=399 U=96 S=193: nll rel err={nll_err:.3e} "
+    log(f"[K6/K7 ctc] B=128 T=399 U=96 S=193: alpha max abs err="
+        f"{alpha_err:.3e} (equal bits required) nll rel err={nll_err:.3e} "
         f"(tol {CTC_NLL_RTOL}) grad max abs err={grad_err:.3e} (tol "
         f"{CTC_GRAD_ATOL}) grad finite={finite} infeasible row "
         f"nll={nll[-1].item():.3e}")
     for k, v in res.items():
-        log(f"[K6/K7 ctc] {k}: kernel {v['ms']:.4f} ms plain "
+        log(f"[K6/K7 ctc] {k}: kernel {v['ms']:.4f} ms (device "
+            f"{v['device_ms']:.4f} ms) plain "
             f"{v['plain_ms']:.4f} ms bound {v['bound_ms']:.4f} ms by "
             f"{v['bound_by']} (chain of {T} steps) ctc_loss "
             f"{v['library_ms']:.4f} ms")
-    if not (nll_err <= CTC_NLL_RTOL and grad_err <= CTC_GRAD_ATOL
-            and finite and infeasible_ok):
-        raise AssertionError(f"K6/K7: nll err {nll_err}, grad err "
-                             f"{grad_err}, finite {finite}, infeasible "
-                             f"{infeasible_ok}")
+    if not (alpha_err == 0.0 and nll_err <= CTC_NLL_RTOL
+            and grad_err <= CTC_GRAD_ATOL and finite and infeasible_ok):
+        raise AssertionError(f"K6/K7: alpha err {alpha_err}, nll err "
+                             f"{nll_err}, grad err {grad_err}, finite "
+                             f"{finite}, infeasible {infeasible_ok}")
     return res
 
 

@@ -18,8 +18,10 @@
 // What bounds it on the H100: a strict chain of T steps per utterance,
 // each a 3-way log-sum-exp per state (3 expf + 1 logf): at B=128, T=399,
 // S=193 that is ~10 M states, far below the card's compute, and 40 MB
-// of alphas written by K6 and read back by K7. The cost is the chain's
-// latency: one shared-memory exchange and barrier per step.
+// of alphas written by K6 and read back by K7. K6's bound by bytes (lp_z
+// read and alpha written once) is ~0.024 ms there, K7's ~0.035 ms; both
+// are held instead to the chain's latency, T dependent steps of one
+// shared-memory exchange and one barrier each.
 //
 // What the design does about it, simple first: one block per utterance
 // (B=128 -> 128 blocks on 132 SMs), one thread per state, the loop over
@@ -27,14 +29,15 @@
 // loop). A thread keeps its state's value in a register and publishes it
 // in a double-buffered shared array, so each step needs one
 // __syncthreads: step t reads buffer t&1's neighbours and writes buffer
-// (t+1)&1. Reads of lp_z and writes of alpha / grad are coalesced rows
-// of S floats. K7 takes the device-memory reads off its chain: each
-// thread requests its own state's lp_z and alpha PREFETCH steps ahead
-// with 4-byte cp.async copies into a ring of rows in shared memory, and
-// waits on the oldest copy group at the top of a step; the gradient of a
-// row is computed one step late, beside the next log-sum-exp. A step is
-// then the barrier, the exchange and the log-sum-exp (K6 still loads its
-// lp_z row after each barrier). Not TMA: row (t, b) starts at
+// (t+1)&1. Writes of alpha / grad are coalesced rows of S floats, plain
+// stores that do not stall the chain. Both kernels take the
+// device-memory reads off their chains with one RowRing: each thread
+// requests its own state's elements of the rows it will need (lp_z for
+// K6; lp_z and alpha for K7) PREFETCH steps ahead with 4-byte cp.async
+// copies into a ring of rows in shared memory, and waits on the oldest
+// copy group at the top of a step. K7 computes the gradient of a row one
+// step late, beside the next log-sum-exp. A step is then the barrier,
+// the exchange and the log-sum-exp. Not TMA: row (t, b) starts at
 // (t*B + b)*S*4 bytes, in steps of 772 B at S=193, not the 16-byte
 // multiples TMA's strides (and 16-byte cp.async copies) need without a
 // padded layout. Not a ring of registers: in the SASS of such a ring the
@@ -59,58 +62,11 @@ __device__ __forceinline__ float lse3(float a, float b, float c) {
   return fmaxf(out, NEG);
 }
 
-__global__ void ctc_alpha_kernel(const float* __restrict__ lpz,   // [T,B,S]
-                                 const float* __restrict__ skip,  // [B,S]
-                                 const int* __restrict__ lens,    // [B]
-                                 const int* __restrict__ ends,    // [B]
-                                 float* __restrict__ alphas,      // [T,B,S]
-                                 float* __restrict__ nll,         // [B]
-                                 int T, int B, int S) {
-  extern __shared__ float buf[];        // [2][S]
-  const int b = blockIdx.x;
-  const int s = threadIdx.x;
-  const bool active = s < S;
-  const int len = lens[b];
-  const int end = ends[b];
-  const bool sk = active && skip[(size_t)b * S + s] > 0.5f;
-
-  float a = NEG;
-  if (active) {
-    const float lp0 = lpz[(size_t)b * S + s];
-    if (s == 0 || (s == 1 && end > 0)) a = lp0;
-    buf[s] = a;
-    alphas[(size_t)b * S + s] = a;
-  }
-  __syncthreads();
-  for (int t = 1; t < T; ++t) {
-    const float* prev = buf + ((t - 1) & 1) * S;
-    float* cur = buf + (t & 1) * S;
-    if (active) {
-      const float stay = prev[s];
-      const float diag = s >= 1 ? prev[s - 1] : NEG;
-      const float sk2 = (sk && s >= 2) ? prev[s - 2] : NEG;
-      const size_t o = ((size_t)t * B + b) * S + s;
-      if (t < len) a = fmaxf(lse3(stay, diag, sk2) + lpz[o], NEG);
-      cur[s] = a;
-      alphas[o] = a;
-    }
-    __syncthreads();
-  }
-  if (s == 0) {
-    const float* fin = buf + ((T - 1) & 1) * S;
-    const float ae = end < S ? fin[end] : NEG;
-    const float ae1 = (end > 0 && end - 1 < S) ? fin[end - 1] : NEG;
-    const float m = fmaxf(fmaxf(ae, ae1), NEG);
-    const float total = m + logf(expf(ae - m) + expf(ae1 - m));
-    nll[b] = -fmaxf(total, NEG);
-  }
-}
-
-// K7's prefetch depth: the rows of lp_z and alpha that step t uses were
-// requested at step t + PREFETCH, so their device-memory latency (~0.6
-// µs) hides under PREFETCH steps of the chain instead of stalling each.
-// They land in a ring of SLOTS rows in shared memory; the slot refilled
-// at step t was last read at step t + 2, whose values are consumed.
+// The prefetch depth: the rows that step t uses were requested
+// PREFETCH steps earlier, so their device-memory latency (~0.6 µs) hides
+// under PREFETCH steps of the chain instead of stalling each. They land
+// in a ring of SLOTS rows in shared memory; the slot refilled at step t
+// was last read two steps earlier, whose values are consumed.
 constexpr int PREFETCH = 8;
 constexpr int SLOTS = PREFETCH + 2;
 
@@ -127,6 +83,92 @@ __device__ __forceinline__ void cp_async_wait_oldest() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PREFETCH - 1) : "memory");
 }
 
+// This thread's element of row t of N arrays [T, B, S], prefetched into
+// a shared ring [SLOTS][N][SP]. A thread reads only the elements it
+// copied itself, so its own wait on the copy group is all the ordering
+// the ring needs; no barrier waits for a cp.async.
+template <int N>
+struct RowRing {
+  float* slots;          // the ring, offset to this thread's state
+  const float* src[N];   // each array, offset to (t = 0, b, s)
+  size_t row;            // B * S: one time step of [T, B, S]
+  int SP, T;
+  bool active;
+
+  // request row t into slot t % SLOTS: one commit group a row, empty
+  // where there is nothing to copy, so that the groups count rows
+  __device__ __forceinline__ void fetch(int t) const {
+    if (active && t >= 0 && t < T) {
+      float* d = slots + (t % SLOTS) * N * SP;
+#pragma unroll
+      for (int i = 0; i < N; ++i) cp_async4(d + i * SP, src[i] + t * row);
+    }
+    cp_async_commit();
+  }
+  // row t, once it has landed: it must be the oldest of PREFETCH rows
+  // requested and not yet waited on; its arrays are SP floats apart
+  __device__ __forceinline__ const float* wait(int t) const {
+    cp_async_wait_oldest();
+    return slots + (t % SLOTS) * N * SP;
+  }
+};
+
+__global__ void ctc_alpha_kernel(const float* __restrict__ lpz,   // [T,B,S]
+                                 const float* __restrict__ skip,  // [B,S]
+                                 const int* __restrict__ lens,    // [B]
+                                 const int* __restrict__ ends,    // [B]
+                                 float* __restrict__ alphas,      // [T,B,S]
+                                 float* __restrict__ nll,         // [B]
+                                 int T, int B, int S) {
+  extern __shared__ float smem[];
+  const int SP = blockDim.x;            // a row of S states, padded
+  float* buf = smem;                    // [2][S]: alpha_{t-1}, alpha_t
+  const int b = blockIdx.x;
+  const int s = threadIdx.x;
+  const bool active = s < S;
+  const int len = lens[b];
+  const int end = ends[b];
+  const bool sk = active && skip[(size_t)b * S + s] > 0.5f;
+  const size_t row = (size_t)B * S;
+  const size_t own = (size_t)b * S + s;
+
+  // rows 1 .. T-1 of lp_z come through the ring; row 0 is read directly
+  const RowRing<1> ring{smem + 2 * S + s, {lpz + own}, row, SP, T, active};
+  for (int j = 1; j <= PREFETCH; ++j) ring.fetch(j);
+
+  float a = NEG;
+  if (active) {
+    const float lp0 = lpz[own];
+    if (s == 0 || (s == 1 && end > 0)) a = lp0;
+    buf[s] = a;
+    alphas[own] = a;
+  }
+  __syncthreads();
+  for (int t = 1; t < T; ++t) {
+    const float lp = *ring.wait(t);
+    ring.fetch(t + PREFETCH);
+    const float* prev = buf + ((t - 1) & 1) * S;
+    float* cur = buf + (t & 1) * S;
+    if (active) {
+      const float stay = prev[s];
+      const float diag = s >= 1 ? prev[s - 1] : NEG;
+      const float sk2 = (sk && s >= 2) ? prev[s - 2] : NEG;
+      if (t < len) a = fmaxf(lse3(stay, diag, sk2) + lp, NEG);
+      cur[s] = a;
+      alphas[t * row + own] = a;
+    }
+    __syncthreads();
+  }
+  if (s == 0) {
+    const float* fin = buf + ((T - 1) & 1) * S;
+    const float ae = end < S ? fin[end] : NEG;
+    const float ae1 = (end > 0 && end - 1 < S) ? fin[end - 1] : NEG;
+    const float m = fmaxf(fmaxf(ae, ae1), NEG);
+    const float total = m + logf(expf(ae - m) + expf(ae1 - m));
+    nll[b] = -fmaxf(total, NEG);
+  }
+}
+
 __global__ void ctc_beta_grad_kernel(const float* __restrict__ lpz,
                                      const float* __restrict__ alphas,
                                      const float* __restrict__ skip,
@@ -138,7 +180,7 @@ __global__ void ctc_beta_grad_kernel(const float* __restrict__ lpz,
   extern __shared__ float smem[];
   const int SP = blockDim.x;            // a row of S states, padded
   float* xbuf = smem;                   // [2][SP + 2]: beta_{t+1} + lp_z[t+1]
-  float* ring = smem + 2 * (SP + 2);    // [SLOTS][2][SP]: lp_z and alpha rows
+                                        // then the ring [SLOTS][2][SP]
   const int b = blockIdx.x;
   const int s = threadIdx.x;
   const bool active = s < S;
@@ -150,17 +192,10 @@ __global__ void ctc_beta_grad_kernel(const float* __restrict__ lpz,
   const size_t row = (size_t)B * S;     // one time step of [T, B, S]
   const size_t own = (size_t)b * S + s;
 
-  // request row t of lp_z and alpha into slot t % SLOTS (one group a row,
-  // empty where there is nothing to copy, so the groups count rows)
-  auto fetch = [&](int t) {
-    if (active && t >= 0) {
-      float* d = ring + (t % SLOTS) * 2 * SP + s;
-      cp_async4(d, lpz + t * row + own);
-      cp_async4(d + SP, alphas + t * row + own);
-    }
-    cp_async_commit();
-  };
-  for (int j = 0; j < PREFETCH; ++j) fetch(T - 1 - j);
+  // rows of lp_z and alpha, in reverse time
+  const RowRing<2> ring{smem + 2 * (SP + 2) + s, {lpz + own, alphas + own},
+                        row, SP, T, active};
+  for (int j = 0; j < PREFETCH; ++j) ring.fetch(T - 1 - j);
 
   float beta = NEG, plpz = NEG;          // carried beta_{t+1}, lp_z[t+1]
   // the gradient of row gt (T: none yet) is computed one step late, from
@@ -168,10 +203,9 @@ __global__ void ctc_beta_grad_kernel(const float* __restrict__ lpz,
   float gbeta = NEG, galpha = 0.f;
   int gt = T;
   for (int t = T - 1; t >= 0; --t) {
-    cp_async_wait_oldest();              // row t has landed
-    const float* d = ring + (t % SLOTS) * 2 * SP + s;
+    const float* d = ring.wait(t);
     const float lp = d[0], al = d[SP];
-    fetch(t - PREFETCH);
+    ring.fetch(t - PREFETCH);
     float* x = xbuf + (t & 1) * (SP + 2);
     if (active) x[s] = fmaxf(plpz + beta, NEG);
     __syncthreads();
@@ -205,8 +239,11 @@ extern "C" int ctc_alpha(const void* lpz, const void* skip, const void* lens,
   if (T <= 0 || B <= 0 || S <= 0) return (int)cudaSuccess;
   if (S > 1024) return (int)cudaErrorInvalidValue;
   const int threads = ((S + 31) / 32) * 32;
-  ctc_alpha_kernel<<<B, threads, 2 * S * sizeof(float),
-                     (cudaStream_t)stream>>>(
+  const int smem = (2 * S + SLOTS * threads) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ctc_alpha_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  ctc_alpha_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
       (const float*)lpz, (const float*)skip, (const int*)lens,
       (const int*)ends, (float*)alphas, (float*)nll, T, B, S);
   return (int)cudaGetLastError();

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
+from ctc_asr_tpu.ops import ctc_pallas
 from ctc_asr_tpu.ops.ctc_pallas import ctc_loss_pallas
 from ctc_asr_tpu.ops.ctc_ref import ctc_loss as j_ctc_loss
 from ctc_asr_tpu.ops.ctc_ref import ctc_loss_ref
@@ -26,6 +27,9 @@ from ctc_asr_tpu_torch.ops import ctc_cuda
 
 NLL_TOL = 1e-4
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
+# α rows against the Pallas α: the golden tolerance in f32 (both sides
+# run the same log-sum-exp per state, in other libraries' expf / logf)
+ALPHA_TOL = 2e-4
 
 
 def _case(seed, B, T, C, U, full_lens=False):
@@ -211,3 +215,53 @@ def test_dp_pieces_match_each_other():
                                         lens_t, ends, nll.detach())
     np.testing.assert_allclose(grad.numpy(), lpz.grad.numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+def _dp_inputs(seed, B, T, C, U):
+    """lp_z [T, B, S], skip [B, S], lens, ends from seeded logits: rows
+    shorter than T, row 0 an empty label, the last row infeasible (U
+    distinct labels in one frame)."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((B, T, C)).astype(np.float32)
+    lp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    labels = rng.integers(0, C - 1, size=(B, U))
+    labels[-1] = np.arange(U)
+    lens = rng.integers(1, T + 1, B).astype(np.int32)
+    llens = rng.integers(1, U + 1, B).astype(np.int32)
+    lens[0], llens[0] = T, 0
+    lens[-1], llens[-1] = 1, U
+    z = ctc_cuda.extended_labels(torch.from_numpy(labels), C - 1)
+    skip = ctc_cuda.can_skip(z, C - 1).numpy()
+    lpz = np.take_along_axis(lp, z.numpy()[:, None, :], axis=2)
+    return (np.ascontiguousarray(lpz.transpose(1, 0, 2)), skip, lens,
+            (2 * llens).astype(np.int32))
+
+
+# T = 1 to 21 spans the kernels' ring (csrc/ctc.cu prefetches 8 rows
+# ahead into 10 slots): fewer rows than the prefetch, exactly it, and
+# past one turn of the ring
+@pytest.mark.parametrize("T", [1, 8, 9, 11, 21])
+def test_alpha_rows_match_pallas_interpret(T):
+    """K6's plain version: every α row and the nll against the Pallas
+    α kernel's residual (cropped from its B / S padding)."""
+    lpz, skip, lens, ends = _dp_inputs(T, 6, T, 7, 4)
+    B, S = skip.shape
+    want_nll, res = ctc_pallas._ctc_nll_fwd_impl(
+        jnp.asarray(lpz), jnp.asarray(skip), jnp.asarray(lens),
+        jnp.asarray(ends), interpret=True)
+    want = np.asarray(res[1])[:, :B, :S]
+    alphas, nll = ctc_cuda.ctc_alpha_plain(
+        torch.from_numpy(lpz), torch.from_numpy(skip), torch.from_numpy(lens),
+        torch.from_numpy(ends))
+    alphas, nll, want_nll = alphas.numpy(), nll.numpy(), np.asarray(want_nll)
+    assert alphas.shape == want.shape == (T, B, S)
+    neg = np.float32(ctc_cuda.NEG_INF)
+    reach = want > neg / 2
+    np.testing.assert_array_equal(alphas[~reach], neg)
+    np.testing.assert_allclose(alphas[reach], want[reach], rtol=ALPHA_TOL,
+                               atol=ALPHA_TOL)
+    feas = want_nll < 1e29
+    assert not feas[-1] and feas[0]
+    np.testing.assert_array_equal(nll[~feas], want_nll[~feas])
+    np.testing.assert_allclose(nll[feas], want_nll[feas], rtol=ALPHA_TOL,
+                               atol=ALPHA_TOL)

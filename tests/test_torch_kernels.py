@@ -560,9 +560,9 @@ def test_encoder_gru_kernel_path_matches_plain_path(dev):
 @pytest.mark.parametrize("B,T,U,C", [
     (5, 30, 6, 29), (37, 50, 20, 29), (3, 8, 2, 6),
     (4, 1, 2, 29), (4, 2, 3, 29),                      # T = 1, 2
-    # T = 3..12 spans K7's ring (csrc/ctc.cu prefetches 8 rows ahead
-    # into 10 slots): fewer rows than the prefetch, exactly it, and past
-    # one turn of the ring
+    # T = 3..12 spans both kernels' rings (csrc/ctc.cu prefetches 8 rows
+    # ahead into 10 slots): fewer rows than the prefetch, exactly it, and
+    # past one turn of the ring
     *[(6, T, 3 if T <= 8 else 4, 29) for T in range(3, 13)],
     (16, 175, 40, 29),                                 # cli train's batch
 ])
@@ -587,10 +587,49 @@ def test_ctc_kernels_match_plain(dev, B, T, U, C):
     torch.cuda.synchronize()
     feas = pnll < 1e29
     assert not feas[-1] and nll[-1].item() >= 1e29
+    # K6 does the plain version's operations in its order: equal bits
+    assert torch.equal(alphas, palphas)
     rel = (nll - pnll).abs() / pnll.abs().clamp_min(1.0)
     assert rel[feas].max().item() <= CTC_TOL
     assert torch.isfinite(grad).all()
     assert (grad - pgrad)[:, feas].abs().max().item() <= CTC_TOL
+
+
+def test_ctc_kernels_state_limit(dev):
+    """S = 1023, the most a block of 1024 threads takes (K6's ring ~48
+    KB), runs and matches the plain version; S = 1025 is refused before
+    any launch."""
+    g = torch.Generator().manual_seed(11)
+    T, B = 12, 2
+
+    def inputs(S):
+        lpz = torch.log_softmax(torch.randn(T, B, S, generator=g), -1)
+        skip = (torch.arange(S) % 2 == 1).float().expand(B, S).contiguous()
+        lens = torch.full((B,), T, dtype=torch.int32)
+        ends = torch.tensor([S - 1, 8], dtype=torch.int32)   # row 0 infeasible
+        return [x.to(dev) for x in (lpz, skip, lens, ends)]
+
+    def launches():
+        return ctc_cuda.ctc_alpha.launches, ctc_cuda.ctc_beta_grad.launches
+
+    n6, n7 = launches()
+    lpz, skip, lens, ends = inputs(1025)
+    with pytest.raises(ValueError, match="at most 1024"):
+        ctc_cuda.ctc_alpha(lpz, skip, lens, ends)
+    with pytest.raises(ValueError, match="at most 1024"):
+        ctc_cuda.ctc_beta_grad(lpz, lpz, skip, lens, ends, lpz[0, :, 0])
+    assert launches() == (n6, n7)
+    lpz, skip, lens, ends = inputs(1023)
+    alphas, nll = ctc_cuda.ctc_alpha(lpz, skip, lens, ends)
+    grad = ctc_cuda.ctc_beta_grad(lpz, alphas, skip, lens, ends, nll)
+    palphas, pnll = ctc_cuda.ctc_alpha_plain(lpz, skip, lens, ends)
+    pgrad = ctc_cuda.ctc_beta_grad_plain(lpz, palphas, skip, lens, ends, pnll)
+    torch.cuda.synchronize()
+    assert launches() == (n6 + 1, n7 + 1)
+    assert torch.equal(alphas, palphas)
+    assert pnll[0].item() >= 1e29 and torch.equal(nll[0], pnll[0])
+    assert abs(nll[1] - pnll[1]).item() <= CTC_TOL * abs(pnll[1].item())
+    assert (grad - pgrad)[:, 1].abs().max().item() <= CTC_TOL
 
 
 def _beam_case(dev, B, T, C, seed, table_rows=0):
