@@ -18,9 +18,11 @@ Phases (any failure exits non-zero; no phase is skipped):
    alone by ``torch.profiler``, beside its bound, the old DFT-as-matmul
    bound and ``torch.stft`` (the DFT power alone, a partial yardstick),
    and both the kernel and the plain version held against an f64
-   evaluation of the same function;
-   an n_fft that is not a power of two must be refused before any
-   launch. K2 (LSTM forward) at the serving shapes; K6/K7 (CTC α, β +
+   evaluation of the same function; K1's direct-DFT route (an n_fft
+   that is not a power of two) at n_fft=400, B=128 x 8 s and n_fft=320,
+   held and timed the same way; n_fft=4096 and a direct-DFT block above
+   the shared memory must be refused before any launch. K2 (LSTM
+   forward) at the serving shapes; K6/K7 (CTC α, β +
    gradient) at the train geometry B=128, T'=399, U=96 with ragged
    lengths, one empty and one infeasible row, and at T = 1 to 12 (which
    spans both kernels' prefetch rings) and at ``cli train``'s B=16,
@@ -44,7 +46,14 @@ Phases (any failure exits non-zero; no phase is skipped):
    once, over the memory rate, or the operations it needs over the peak
    rate, whichever is larger) and, where one PyTorch call computes the
    same function, that call's time (``ctc_loss``, cuDNN ``nn.LSTM`` /
-   ``nn.GRU``), which the port itself never calls.
+   ``nn.GRU``), which the port itself never calls. Then the frontend
+   convs (no TPU kernel: the reference computes them with XLA), conv 1
+   -> clipped ReLU -> conv 2 of ``conv_bilstm3`` at B=128 x 8 s (forward,
+   and forward + backward) and at the serving batch B=16 x 350 frames
+   (forward), in the three forms the encoder selects by
+   ``model.conv_as_matmul`` / ``model.conv_blocked_fwd`` (blocked band,
+   full band, the 2-D cuDNN conv) and three other ways of computing the
+   banded time conv, each against the f32 2-D conv with its FLOP bound.
 4. Serving slice: a seeded random checkpoint at full ``conv_bilstm3``
    width in the reference's keypath format, a synthetic corpus, then
    the port's ``cli evaluate`` and ``cli transcribe`` on ``cuda``. The
@@ -66,7 +75,11 @@ Phases (any failure exits non-zero; no phase is skipped):
    smallest per-leaf cosine of the gradients against stated limits, the
    step's time on the kernel path and the plain path, and where the
    kernel path's step goes: CUDA events between its phases and a
-   ``torch.profiler`` split of its device time by kernel group.
+   ``torch.profiler`` split of its device time by kernel group (the
+   frontend's group by the encoder's profiler range and the autograd
+   nodes it created, whichever conv form runs); the same step with
+   ``--model.conv_as_matmul=false`` in turns with the default
+   (default, 2-D, 2-D, default) and profiled alike.
 6. Decode slice: a seeded random checkpoint at full ``lm_fusion_960h``
    width (5 x BiLSTM-800), a char LM (order 4) and a word LM (order 2)
    trained by ``cli train-lm`` from the synthetic corpus, then ``cli
@@ -271,13 +284,14 @@ def _stft_bounds(cfg, B: int, S: int) -> tuple[dict, float]:
     import math
     from ctc_asr_tpu_torch.features import num_frames
     from ctc_asr_tpu_torch.ops import stft_cuda
-    c = stft_cuda.kernel_constants(cfg)
+    fb, nb = stft_cuda._filterbank(cfg)
+    use_dct = cfg.feature_type == "mfcc"
     T, W, N, M, F = (max(1, num_frames(S, cfg)), cfg.win_length, cfg.n_fft,
                      cfg.n_mels, cfg.feature_dim)
-    nh, nb, nnz = N // 2, c["nb"], len(c["mel_w"])
-    consts = W + 2 * N + nnz + 2 * M + 1 + (M * F if c["use_dct"] else 0)
+    nh, nnz = N // 2, int((fb != 0).sum())
+    consts = W + 2 * N + nnz + 2 * M + 1 + (M * F if use_dct else 0)
     frame_ops = (5 * nh * math.log2(nh) + 10 * nh + W + 3 * nb + 2 * nnz + M
-                 + (2 * M * F if c["use_dct"] else 0))
+                 + (2 * M * F if use_dct else 0))
     nbd = N // 2 + 1
     old = bound(4 * (B * S + B * T * M + 2 * W * nbd + nbd * M),
                 B * T * (4 * W * nbd + 3 * nbd + 2 * nbd * M), PEAK_F32)
@@ -325,6 +339,28 @@ def _stft_power_ms(x, cfg) -> float:
         return_complex=True).abs() ** 2, reps=20)
 
 
+PROFILE_TRIES = 3
+
+
+def _trace(run, ok, what: str, cpu: bool = True):
+    """The ``torch.profiler`` events of ``run()``, traced again (each time
+    logged, at most ``PROFILE_TRIES`` traces) while ``ok(events)`` is
+    false: now and then a trace on the H100 holds none of a session's
+    kernels (one of four ``chip_smoke`` runs, in ``phase_ctc``). The
+    results checked elsewhere do not depend on it; only the times do."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=acts) as prof:
+            run()
+        evs = prof.events()
+        if ok(evs):
+            return evs
+        log(f"[profiler] trace {attempt} holds no {what}")
+    raise AssertionError(f"torch.profiler recorded no {what} in "
+                         f"{PROFILE_TRIES} traces")
+
+
 def _device_ms(fn, name: str, reps: int = 20) -> float:
     """Mean device time in ms of the kernels whose name holds ``name``
     over ``reps`` calls of ``fn``, from ``torch.profiler``: the kernel
@@ -332,17 +368,18 @@ def _device_ms(fn, name: str, reps: int = 20) -> float:
     enqueue time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and name in e.name]
-    if not evs:
-        raise AssertionError(f"torch.profiler recorded no {name}")
+
+    def named(evs):
+        return [e for e in evs
+                if e.device_type == DeviceType.CUDA and name in e.name]
+    evs = named(_trace(run, named, name, cpu=False))
     return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / len(evs)
 
 
@@ -405,16 +442,61 @@ def phase_stft() -> dict:
             res.update(ms=ms, plain_ms=plain_ms, stft_power_partial_ms=part,
                        max_abs_err_vs_f64=f64_err,
                        plain_max_abs_err_vs_f64=plain_f64_err, **bd)
-    # an n_fft the FFT kernel does not take: refused before any launch
-    n0 = stft_cuda.stft_features.launches
-    try:
-        stft_cuda.stft_features(x, dataclasses.replace(mel, n_fft=400))
-    except ValueError as e:
-        log(f"[K1 stft] n_fft=400 refused before any launch: {e}")
-    else:
-        raise AssertionError("K1 took n_fft=400")
-    if stft_cuda.stft_features.launches != n0:
-        raise AssertionError("K1 launched for n_fft=400")
+    # an n_fft that is not a power of two: the direct-DFT kernel
+    for i, (label, cfg, B, S) in enumerate((
+            ("mel n_fft=400 B=128 x 8 s", dataclasses.replace(mel, n_fft=400),
+             128, 128000),
+            ("mel n_fft=320 B=4 x 1.5 s", dataclasses.replace(mel, n_fft=320),
+             4, 24000))):
+        x = _speechlike(B, S, seed=B + 1)
+        d0 = stft_cuda.stft_features.dft_launches
+        got = stft_cuda.stft_features(x, cfg)
+        if stft_cuda.stft_features.dft_launches != d0 + 1:
+            raise AssertionError(f"K1 {label}: the direct DFT did not launch")
+        want = stft_cuda.stft_features_plain(x, cfg)
+        exact = _features_f64(x, cfg)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        f64_err = (got.double() - exact).abs().max().item()
+        plain_f64_err = (want.double() - exact).abs().max().item()
+        del exact
+        ms = cuda_ms(lambda: stft_cuda.stft_features(x, cfg), reps=20)
+        plain_ms = cuda_ms(lambda: stft_cuda.stft_features_plain(x, cfg),
+                           reps=20)
+        dev_ms = _device_ms(lambda: stft_cuda.stft_features(x, cfg),
+                            "stft_dft_kernel")
+        bd, _ = _stft_bounds(cfg, B, S)
+        log(f"[K1 stft dft] {label}: direct DFT, out {tuple(got.shape)} "
+            f"max_abs_err={err:.3e} (tol {STFT_TOL}); against f64: kernel "
+            f"{f64_err:.3e}, plain {plain_f64_err:.3e}; kernel {ms:.4f} ms "
+            f"(device {dev_ms:.4f} ms) plain {plain_ms:.4f} ms bound "
+            f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+        if not torch.isfinite(got).all() or not err <= STFT_TOL:
+            raise AssertionError(f"K1 {label}: max_abs_err {err} > {STFT_TOL}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["cases"][label] = {"ms": ms, "device_ms": dev_ms,
+                               "plain_ms": plain_ms, "max_abs_err": err,
+                               "max_abs_err_vs_f64": f64_err,
+                               "plain_max_abs_err_vs_f64": plain_f64_err,
+                               **bd}
+        if i == 0:   # the direct route's entry in the kernels line
+            res.update(dft_ms=ms, dft_device_ms=dev_ms,
+                       dft_plain_ms=plain_ms, dft_max_abs_err=err,
+                       dft_max_abs_err_vs_f64=f64_err,
+                       dft_bound_ms=bd["bound_ms"])
+    # geometries neither kernel takes: refused before any launch
+    for label, cfg in (("n_fft=4096", dataclasses.replace(mel, n_fft=4096)),
+                       ("n_fft=400, hop 100 ms",
+                        dataclasses.replace(mel, n_fft=400, hop_ms=100.0))):
+        n0 = stft_cuda.stft_features.launches
+        try:
+            stft_cuda.stft_features(x, cfg)
+        except ValueError as e:
+            log(f"[K1 stft] {label} refused before any launch: {e}")
+        else:
+            raise AssertionError(f"K1 took {label}")
+        if stft_cuda.stft_features.launches != n0:
+            raise AssertionError(f"K1 launched for {label}")
     return res
 
 
@@ -1284,6 +1366,276 @@ def phase_beam() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the frontend convs (no TPU kernel: the reference leaves them to XLA)
+# ---------------------------------------------------------------------------
+
+# The forms in bf16 against the f32 2-D conv (TF32 off), each error over
+# the f32 result's largest magnitude. bf16 rounds the operands and conv
+# 1's output (2**-9 relative each); a sum of hundreds to thousands of such
+# products with random signs lands within a few of those (measured 4.9e-3
+# for every form). Conv 1's kernel gradient also sums x * dy over the
+# positions where the clipped ReLU passes, and bf16 moves ~0.1% of conv
+# 1's outputs across 0: those flips, with random signs, shift the sum by
+# ~sqrt(0.001) of its size (measured 3.7e-2 for the bf16 2-D cuDNN conv,
+# 3.7e-2 for the full band, on the H100).
+CONV_VALUE_RTOL = 2e-2
+CONV_GRAD_RTOL = 6e-2
+
+
+CONV_LEAVES = ("conv 1 w", "conv 1 b", "conv 2 w", "conv 2 b")
+
+
+def _rel_err(got, want) -> float:
+    """Max abs error over the reference's largest magnitude."""
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+def _device_ms_per_call(fn, reps: int = 7) -> list:
+    """Device time of each of ``reps`` calls of ``fn`` in ms, from
+    ``torch.profiler``: the kernels and copies inside each call's
+    device-side range, after one traced call that is thrown away
+    (``_profile_step``'s method, per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        fn()
+        torch.cuda.synchronize()
+        for i in range(reps):
+            with record_function(f"timed call {i}"):
+                fn()
+            torch.cuda.synchronize()
+
+    # a range's device-side marks start at its first kernel; kernels
+    # launched by the autograd thread fall outside them, so a call owns
+    # every kernel from its first mark to the next call's (the calls are
+    # separated by a synchronize)
+    def first_marks(evs):
+        marks: dict = {}
+        for e in evs:
+            if e.name.startswith("timed call ") \
+                    and e.device_type == DeviceType.CUDA:
+                marks[e.name] = min(marks.get(e.name, e.time_range.start),
+                                    e.time_range.start)
+        return sorted(marks.values())
+    evs = _trace(run, lambda evs: len(first_marks(evs)) == reps,
+                 f"device-side mark of each of {reps} timed calls")
+    starts = first_marks(evs)
+    kernels = [e for e in evs if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("timed call ")]
+    ends = starts[1:] + [float("inf")]
+    return [sum(k.time_range.elapsed_us() for k in kernels
+                if a <= k.time_range.start < b) / 1e3
+            for a, b in zip(starts, ends)]
+
+
+def _conv_flops(form: str, w_shape, B, T_out, F_in, sf) -> float:
+    """Multiply-adds x 2 of one conv's forward in ``form``: the true 2-D
+    conv, the full band (every input row against every output column) or
+    the blocked band (each block's slab against its gfo columns; the
+    full band where no 128-column tiling exists)."""
+    from ctc_asr_tpu_torch.models.layers import _pick_gfo, same_pad
+    kt, kf, cin, cout = w_shape
+    f_out = same_pad(F_in, kf, sf)[0]
+    gfo = _pick_gfo(f_out, cout)
+    if form == "2-D":
+        k, n = kt * kf * cin, f_out * cout
+    elif form == "full band" or gfo is None:
+        k, n = kt * F_in * cin, f_out * cout
+    else:
+        k = kt * min((gfo - 1) * sf + kf, F_in) * cin
+        n = f_out * cout
+    return 2.0 * B * T_out * k * n
+
+
+def _blocked_grouped_apply(params, x, strides, compute_dtype):
+    """The blocked form as ONE grouped 1-D time conv (groups = blocks)
+    over the blocks' overlapping slabs gathered side by side. Timed here
+    only, beside the port's one conv a distinct slab."""
+    import torch
+    import torch.nn.functional as F
+    from ctc_asr_tpu_torch.models import layers as L
+    w = params["w"]
+    kt, kf, cin, cout = w.shape
+    B, T, F_in, _ = x.shape
+    st, sf = strides
+    f_out = L.same_pad(F_in, kf, sf)[0]
+    starts, mats = L._blocked_bands(w, F_in, sf, L._pick_gfo(f_out, cout))
+    mats = torch.stack(mats)
+    G, _, K, N = mats.shape
+    rows = torch.as_tensor([s + r for s in starts for r in range(K // cin)],
+                           device=x.device)
+    slabs = x.to(compute_dtype)[:, :, rows].reshape(B, T, G * K)
+    wt = mats.to(compute_dtype).permute(0, 3, 2, 1).reshape(G * N, K, kt, 1)
+    T_out, lo, hi = L.same_pad(T, kt, st)
+    x4 = F.pad(slabs, (0, 0, lo, hi)).unsqueeze(2).permute(0, 3, 1, 2)
+    y = F.conv2d(x4.contiguous(memory_format=torch.channels_last),
+                 wt.contiguous(memory_format=torch.channels_last),
+                 stride=(st, 1), groups=G)     # as layers._time_conv does
+    y = y.permute(0, 2, 3, 1).reshape(B, T_out, f_out, cout)
+    return y.float() + params["b"]
+
+
+def _blocked_loop_apply(params, x, strides, compute_dtype):
+    """The reference's blocked form as written (``_conv_blocked_fwd_impl``
+    there): one 1-D time conv a block, then a concatenation. Timed here
+    only, beside the port's one conv a distinct slab."""
+    import torch
+    from ctc_asr_tpu_torch.models import layers as L
+    w = params["w"]
+    kt, kf, cin, cout = w.shape
+    B, T, F_in, _ = x.shape
+    st, sf = strides
+    f_out = L.same_pad(F_in, kf, sf)[0]
+    starts, mats = L._blocked_bands(w, F_in, sf, L._pick_gfo(f_out, cout))
+    gin_f = mats[0].shape[1] // cin
+    xb = x.to(compute_dtype)
+    y = torch.cat([L._time_conv(xb[:, :, s:s + gin_f].reshape(B, T, -1),
+                                m.to(compute_dtype).permute(2, 1, 0), st)
+                   for s, m in zip(starts, mats)], -1)
+    return y.float().reshape(B, y.shape[1], f_out, cout) + params["b"]
+
+
+def _full_band_taps_apply(params, x, strides, compute_dtype):
+    """The full band as kt matmuls, one a time tap, on strided time
+    views, summed in f32 (each tap's product rounded to the compute
+    dtype first). Timed here only."""
+    import torch
+    import torch.nn.functional as F
+    from ctc_asr_tpu_torch.models import layers as L
+    w = params["w"]
+    kt, cout = w.shape[0], w.shape[3]
+    B, T, F_in, C = x.shape
+    st, sf = strides
+    Wb = L._band_matrices(w, F_in, sf).to(compute_dtype)
+    T_out, lo, hi = L.same_pad(T, kt, st)
+    xp = F.pad(x.reshape(B, T, F_in * C).to(compute_dtype), (0, 0, lo, hi))
+    y = sum(torch.matmul(xp[:, k:k + st * (T_out - 1) + 1:st], Wb[k]).float()
+            for k in range(kt))
+    return y.reshape(B, T_out, -1, cout) + params["b"]
+
+
+def _conv_chain(fn, p1, p2, x, cfg, cdt):
+    """conv 1 -> clipped ReLU -> conv 2, as the encoder's frontend."""
+    from ctc_asr_tpu_torch.models.layers import clipped_relu
+    s1, s2 = cfg.conv_strides
+    y = clipped_relu(fn(p1, x, s1, cdt), cfg.relu_clip)
+    return fn(p2, y, s2, cdt)
+
+
+def phase_conv() -> dict:
+    """The ``conv_bilstm3`` frontend (two SAME convs, 1 -> 32 -> 32
+    channels) at the train step's B=128 x 8 s (T=798 frames, T'=399) and
+    the serving batch B=16 x 350 frames (T'=175, forward only), in the
+    three forms the encoder selects (the 2-D cuDNN conv, the full band
+    and the blocked band) and, at the train shape, three more ways of
+    computing the banded time conv (the reference's one conv a block; one
+    grouped conv over the gathered slabs; the full band as kt matmuls).
+    Each: the profiler's device time, median of
+    7 calls, with the CUDA-event median beside it, forward alone and
+    forward + backward (gradients of both kernels and biases, and so of
+    conv 2's input); the error of the output and the gradients against
+    the f32 2-D conv; the FLOP bound at the bf16 peak."""
+    import torch
+    from ctc_asr_tpu_torch.config import preset
+    from ctc_asr_tpu_torch.models import layers as L
+    from ctc_asr_tpu_torch.models.encoder import init_params
+    mcfg = preset("conv_bilstm3").model
+    params = init_params(mcfg, 80, torch.Generator().manual_seed(21))
+    p1 = {k: params[f"frontend/0/{k}"].cuda() for k in ("w", "b")}
+    p2 = {k: params[f"frontend/1/{k}"].cuda() for k in ("w", "b")}
+    for p in (p1, p2):   # the encoder's biases start at 0; test them too
+        p["b"] = 0.1 * torch.randn(p["b"].shape, device="cuda",
+                                   generator=torch.Generator(
+                                       "cuda").manual_seed(22))
+    leaves = [p1["w"], p1["b"], p2["w"], p2["b"]]
+    forms = {"2-D": L.conv2d_apply, "full band": L.conv2d_matmul_apply,
+             "blocked": L.conv2d_blocked_apply}
+    extra = {"blocked, one conv a block (the reference's loop)":
+             _blocked_loop_apply,
+             "blocked, one grouped conv": _blocked_grouped_apply,
+             "full band as kt matmuls": _full_band_taps_apply}
+    cdt = torch.bfloat16
+    res: dict = {"train": {}, "serve": {}}
+    for shape, B, T in (("train", 128, 798), ("serve", 16, 350)):
+        rng = np.random.default_rng(23)
+        x = torch.from_numpy(rng.standard_normal((B, T, 80)).astype(
+            np.float32))[..., None].cuda()
+        (kt1, _, _, _), (kt2, _, _, _) = p1["w"].shape, p2["w"].shape
+        T1 = -(-T // mcfg.conv_strides[0][0])
+        T2 = -(-T1 // mcfg.conv_strides[1][0])
+        ref_w = [t.detach().requires_grad_() for t in leaves]
+        rp1 = {"w": ref_w[0], "b": ref_w[1]}
+        rp2 = {"w": ref_w[2], "b": ref_w[3]}
+        want = _conv_chain(L.conv2d_apply, rp1, rp2, x, mcfg, torch.float32)
+        g = torch.randn(want.shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(24))
+        want_g = torch.autograd.grad(want, ref_w, g)
+        want = want.detach()
+        todo = dict(forms, **(extra if shape == "train" else {}))
+        for name, fn in todo.items():
+            w_ = [t.detach().requires_grad_() for t in leaves]
+            q1, q2 = {"w": w_[0], "b": w_[1]}, {"w": w_[2], "b": w_[3]}
+            got = _conv_chain(fn, q1, q2, x, mcfg, cdt)
+            got_g = torch.autograd.grad(got, w_, g)
+            err = _rel_err(got.detach(), want)
+            gerrs = [_rel_err(a, b) for a, b in zip(got_g, want_g)]
+            gerr = max(gerrs)
+            del got, got_g
+
+            def fwd():
+                with torch.no_grad():
+                    _conv_chain(fn, q1, q2, x, mcfg, cdt)
+
+            def fwd_bwd():
+                torch.autograd.grad(_conv_chain(fn, q1, q2, x, mcfg, cdt),
+                                    w_, g)
+
+            form = "2-D" if name == "2-D" else (
+                "full band" if "full" in name else "blocked")
+            f1 = _conv_flops(form, p1["w"].shape, B, T1, 80,
+                             mcfg.conv_strides[0][1])
+            f2 = _conv_flops(form, p2["w"].shape, B, T2, 40,
+                             mcfg.conv_strides[1][1])
+            io = 4 * (x.numel() + want.numel()
+                      + sum(t.numel() for t in leaves))
+            entry = {"max_rel_err": err, "grad_max_rel_err": gerr,
+                     "grad_rel_errs": dict(zip(CONV_LEAVES, gerrs)),
+                     "fwd_gflop": (f1 + f2) / 1e9}
+            runs = (("fwd", fwd, f1 + f2, io),) if shape == "serve" else (
+                ("fwd", fwd, f1 + f2, io),
+                ("fwd_bwd", fwd_bwd, 2 * f1 + 3 * f2,
+                 2 * io + 4 * g.numel()))
+            for tag, call, flops, n_bytes in runs:
+                dev = _device_ms_per_call(call)
+                ev = cuda_ms(call, reps=7)
+                bd = bound(n_bytes, flops, PEAK_BF16)
+                entry[tag] = {"device_ms": statistics.median(dev),
+                              "device_ms_runs": dev, "event_ms": ev,
+                              "gflop": flops / 1e9, **bd}
+                log(f"[conv] {shape} B={B} x {T} frames, {name}, {tag}: "
+                    f"device {statistics.median(dev):.4f} ms (median of 7; "
+                    f"runs {', '.join(f'{v:.4f}' for v in dev)}), CUDA "
+                    f"events {ev:.4f} ms; {flops / 1e9:.1f} GFLOP, bound "
+                    f"{bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                    f"({flops / 1e9 / statistics.median(dev):.1f} TFLOP/s)")
+            log(f"[conv] {shape} {name}: max error against the f32 2-D conv "
+                f"{err:.3e} of the largest output (limit "
+                f"{CONV_VALUE_RTOL}); gradients "
+                + ", ".join(f"{k} {v:.3e}" for k, v in zip(CONV_LEAVES, gerrs))
+                + f" of each one's largest (limit {CONV_GRAD_RTOL})")
+            if not (err <= CONV_VALUE_RTOL and gerr <= CONV_GRAD_RTOL):
+                raise AssertionError(f"conv {shape} {name}: error {err}, "
+                                     f"gradients {gerr}")
+            res[shape][name] = entry
+    return res
+
+
 def random_checkpoint(cfg, path: str, seed: int = 0) -> None:
     """Glorot-uniform weights, zero biases (an LSTM's forget bias 1), in
     the reference checkpoint's keypath format."""
@@ -1802,17 +2154,50 @@ def _step_grads(cfg, params, arrs, mark=lambda: None):
     return loss.detach(), dict(zip(params, grads))
 
 
-# device kernels of a train step, by layer (the first match names it)
+# device kernels of a train step, by layer: first the frontend's (every
+# kernel its forward range or the autograd nodes that range created
+# launched, whichever conv form runs), then by name (the first match)
+_FRONTEND_GROUP = "frontend convs, fwd + bwd"
 _KERNEL_GROUPS = (
     ("K3 lstm_bwd", ("lstm_bwd_persistent_kernel",)),
     ("K2 lstm_fwd", ("lstm_fwd_persistent_kernel",)),
     ("K5 gru_bwd", ("gru_bwd_persistent_kernel",)),
     ("K4 gru_fwd", ("gru_fwd_persistent_kernel",)),
-    ("K1 stft", ("stft_mel_kernel",)),
+    ("K1 stft", ("stft_mel_kernel", "stft_dft_kernel")),
     ("K6+K7 ctc", ("ctc_alpha_kernel", "ctc_beta_grad_kernel")),
-    ("cuDNN convs", ("cudnn", "conv", "xmma", "Nhwc", "nhwc")),
     ("cuBLAS matmuls", ("gemm", "nvjet", "cutlass")),
 )
+# conv kernels by name (cuDNN's and CUTLASS's forward, data- and
+# weight-gradient kernels and layout transforms): a check that the
+# frontend group holds them all
+_CONV_NAMES = ("fprop", "dgrad", "wgrad", "Convolution", "nhwc", "Nhwc",
+               "nchw", "Nchw")
+
+
+def _frontend_kernels(evs) -> set:
+    """Ids of the device events launched inside the encoder's frontend
+    range (``encoder.FRONTEND_RANGE``) or inside the backward of an
+    autograd node that range created (matched by sequence number). A
+    kernel is tied to its launch (the runtime call that shares its
+    correlation id), and the launch to the op ranges that contain it on
+    the launching thread's clock."""
+    from torch.autograd import DeviceType
+    from ctc_asr_tpu_torch.models.encoder import FRONTEND_RANGE
+    cpu = [e for e in evs if e.device_type == DeviceType.CPU]
+    launches = {e.id: e for e in cpu if e.name.startswith("cu")}
+
+    def inside(e, spans):
+        t = e.time_range.start
+        return any(e.thread == th and r.start <= t <= r.end
+                   for th, r in spans)
+    fronts = [(e.thread, e.time_range) for e in cpu
+              if e.name == FRONTEND_RANGE]
+    fwd_seq = {e.sequence_nr for e in cpu
+               if e.sequence_nr >= 0 and inside(e, fronts)}
+    spans = fronts + [(e.thread, e.time_range) for e in cpu
+                      if "Backward" in e.name and e.sequence_nr in fwd_seq]
+    return {id(e) for e in evs if e.device_type == DeviceType.CUDA
+            and e.id in launches and inside(launches[e.id], spans)}
 
 
 def _profile_step(cfg, arrs, tag: str = "profile") -> dict:
@@ -1824,7 +2209,7 @@ def _profile_step(cfg, arrs, tag: str = "profile") -> dict:
     over the event-timed step)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
     from ctc_asr_tpu_torch import train as train_mod
     from ctc_asr_tpu_torch.optim import Adam
     state = train_mod.init_train_state(cfg, "cuda")
@@ -1855,32 +2240,39 @@ def _profile_step(cfg, arrs, tag: str = "profile") -> dict:
     # the start of the measured range on the device's clock are counted:
     # the host's clock is offset from it by enough to drop a step's first
     # kernels
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def run():
         step(state, *arrs)
         torch.cuda.synchronize()
         with record_function("measured steps"):
             for _ in range(reps):
                 step(state, *arrs)
             torch.cuda.synchronize()
-    marks = [e.time_range.start for e in prof.events()
-             if e.name == "measured steps"
-             and e.device_type == DeviceType.CUDA]
-    if not marks:
-        raise AssertionError(
-            "torch.profiler gave no device-side mark of 'measured steps': "
-            "the host clock's start would drop the range's first kernels")
-    t0 = marks[0]
-    kernels = [e for e in prof.events()
+
+    # the host clock's start would drop the range's first kernels
+    def marks(evs):
+        return [e.time_range.start for e in evs
+                if e.name == "measured steps"
+                and e.device_type == DeviceType.CUDA]
+    evs = _trace(run, marks, "device-side mark of 'measured steps'")
+    t0 = marks(evs)[0]
+    kernels = [e for e in evs
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and "Command Buffer" not in e.name
                and e.time_range.start >= t0]
+    frontend = _frontend_kernels(evs)
+    stray = [e for e in kernels if id(e) not in frontend
+             and any(k in e.name for k in _CONV_NAMES)]
+    log(f"[{tag}] conv kernels by name outside the frontend group: "
+        f"{len(stray) // reps} a step, "
+        f"{sum(e.time_range.elapsed_us() for e in stray) / 1e3 / reps:.3f} "
+        f"ms a step {sorted({e.name[:60] for e in stray})[:3]}")
     groups: dict = {}
     for e in kernels:
-        label = next((g for g, keys in _KERNEL_GROUPS
-                      if any(k in e.name for k in keys)),
-                     "elementwise, copies, other")
+        label = _FRONTEND_GROUP if id(e) in frontend else next(
+            (g for g, keys in _KERNEL_GROUPS
+             if any(k in e.name for k in keys)),
+            "elementwise, copies, other")
         ms, n = groups.get(label, (0.0, 0))
         groups[label] = (ms + e.time_range.elapsed_us() / 1e3 / reps,
                          n + 1)
@@ -1982,10 +2374,34 @@ def phase_step(rnn_type: str = "lstm") -> dict:
             and min_cos >= STEP_MIN_COSINE):
         raise AssertionError(f"kernel vs plain step: loss {loss_err} "
                              f"gnorm {gn_err} cosine {min_cos}")
-    _profile_step(base, arrs, "profile" if rnn_type == "lstm"
-                  else f"{rnn_type} profile")
+    # the default conv (the blocked band) against the 2-D conv that
+    # --model.conv_as_matmul=false selects, in turns on the kernel path
+    conv2d = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, conv_as_matmul=False))
+    ab: dict = {}
+    for name, cfg in (("default", base), ("2-D", conv2d), ("2-D", conv2d),
+                      ("default", base)):
+        st = train_mod.init_train_state(cfg, "cuda")
+        step = train_mod.make_step_fn(cfg)
+        step(st, *arrs)                                   # first call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(st, *arrs)
+        torch.cuda.synchronize()
+        ab.setdefault(name, []).append((time.perf_counter() - t0) / 5 * 1e3)
+    log(f"[{tag}] ms per step, host clock over 5 steps (default, 2-D, 2-D, "
+        f"default order): default conv (--model.conv_as_matmul=true "
+        f"--model.conv_blocked_fwd=true) {ab['default']}, "
+        f"--model.conv_as_matmul=false {ab['2-D']}")
+    ptag = "profile" if rnn_type == "lstm" else f"{rnn_type} profile"
+    prof = _profile_step(base, arrs, ptag)
+    prof_2d = _profile_step(conv2d, arrs, f"{ptag}, conv_as_matmul=false")
     return {"kernel_ms": min(times["kernel"]),
-            "plain_ms": min(times["plain"])}
+            "plain_ms": min(times["plain"]), "default_ms": ab["default"],
+            "conv2d_ms": ab["2-D"],
+            "frontend_ms": prof["groups"][_FRONTEND_GROUP][0],
+            "frontend_conv2d_ms": prof_2d["groups"][_FRONTEND_GROUP][0]}
 
 
 def main() -> int:
@@ -2014,6 +2430,7 @@ def main() -> int:
     k8["selection_us"] = sel_us
     k45 = phase_gru()
     k5_f64 = phase_gru_f64()
+    conv = phase_conv()
     with tempfile.TemporaryDirectory() as tmp:
         sl = phase_slice(tmp)
         tr = phase_train(tmp, sl["manifest"])
@@ -2076,6 +2493,16 @@ def main() -> int:
         f"{step['kernel_ms']:.1f}, plain path {step['plain_ms']:.1f}; GRU "
         f"kernel path {gru_step['kernel_ms']:.1f}, plain path "
         f"{gru_step['plain_ms']:.1f}")
+    for tag, st in (("LSTM", step), ("GRU", gru_step)):
+        log(f"[step] {tag} step, default conv against "
+            f"--model.conv_as_matmul=false (host clock, in turns): "
+            f"{st['default_ms']} against {st['conv2d_ms']} ms; frontend "
+            f"group (profiler) {st['frontend_ms']:.2f} against "
+            f"{st['frontend_conv2d_ms']:.2f} ms a step")
+    log("[conv] summary, device ms (fwd, fwd + bwd): " + json.dumps(
+        {shape: {name: [e[t]["device_ms"] for t in ("fwd", "fwd_bwd")
+                        if t in e] for name, e in forms.items()}
+         for shape, forms in conv.items()}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

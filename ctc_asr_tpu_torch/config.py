@@ -8,8 +8,8 @@ the other. CLI ``--section.key=value`` overrides apply on top.
 
 The ``use_pallas*`` flags keep their names: in the port they select the
 hand-written CUDA kernel (true) or its plain PyTorch version (false).
-Fields the port does not read yet (``precompile``, ``conv_as_matmul``,
-``conv_blocked_fwd``) are kept so that configs round-trip; of ``mesh``
+The one field the port does not read (``precompile``: eager PyTorch
+compiles nothing per shape) is kept so that configs round-trip; of ``mesh``
 it reads only enough to refuse the parallel regimes it does not have
 (``train.check_single_process``).
 """
@@ -73,8 +73,8 @@ class ModelConfig:
     conv_channels: tuple = (32, 32)
     conv_kernels: tuple = ((11, 41), (11, 21))  # (time, freq)
     conv_strides: tuple = ((2, 2), (1, 2))
-    # conv formulations of the reference (banded matmul, frequency
-    # blocks); the port runs one SAME conv and ignores both
+    # conv formulation: the 2-D conv as a 1-D time conv over a banded
+    # matrix (models/layers.py), in frequency blocks where they tile
     conv_as_matmul: bool = True
     conv_blocked_fwd: bool = True
     # recurrent stack

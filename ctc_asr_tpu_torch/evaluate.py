@@ -9,6 +9,7 @@ steady-state RTF accounting.
 
 from __future__ import annotations
 
+import itertools
 import time
 
 import numpy as np
@@ -21,15 +22,16 @@ from .metrics import ErrorRateAccumulator
 from .models.encoder import apply_encoder
 from .ops.dispatch import resolve_device
 from .text import decode_ids
-from .train import check_single_process
+from .train import check_single_process, device_batches
 
 
 def make_eval_step(cfg: Config, device: str | torch.device = "cuda"):
     """``(params, samples, slens) -> (logits, logit_lens)`` on ``device``.
 
     samples/slens may be numpy arrays (a loader batch) or tensors; they
-    are moved to ``device`` first. Raises at once when ``device`` is
-    CUDA and there is none."""
+    are moved to ``device`` first (nothing to move for the tensors that
+    ``evaluate`` uploads ahead). Raises at once when ``device`` is CUDA
+    and there is none."""
     dev = resolve_device(device)
 
     def eval_step(params, samples, sample_lengths):
@@ -139,11 +141,14 @@ def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
     steady_wall, steady_audio = 0.0, 0.0
     seen_buckets: set = set()
     shown = 0
-    for bi, batch in enumerate(loader.iter_epoch(0)):
-        if max_batches is not None and bi >= max_batches:
-            break
-        logits, logit_lens = eval_step(params, batch.samples,
-                                       batch.sample_lengths)
+    src = loader.iter_epoch(0)
+    if max_batches is not None:
+        # cap BEFORE the upload prefetch: nothing past the cap is read or
+        # uploaded
+        src = itertools.islice(src, max_batches)
+    for batch, (d_samples, d_slens) in device_batches(
+            src, None, resolve_device(device), with_labels=False):
+        logits, logit_lens = eval_step(params, d_samples, d_slens)
         # the copy to the host waits for the device: a true barrier
         if rescorer is not None:
             ids, lens = rescorer(*decoder(logits, logit_lens))

@@ -1,8 +1,10 @@
 """DS1/DS2-style acoustic encoders.
 
 Counterpart of ``ctc_asr_tpu/models/encoder.py``: a dense (DS1) or
-conv2d (DS2) frontend with clipped ReLU, a (bi)LSTM / GRU / vanilla-RNN
-stack (``cfg.rnn_type``) and a dense head to the vocabulary, returning
+conv2d (DS2) frontend with clipped ReLU (the conv form chosen by
+``cfg.conv_as_matmul`` / ``cfg.conv_blocked_fwd``, as in the
+reference: blocked banded, full banded or the 2-D conv), a (bi)LSTM /
+GRU / vanilla-RNN stack (``cfg.rnn_type``) and a dense head to the vocabulary, returning
 pre-softmax logits ``[B, T', C]`` and their lengths. Parameters are the flat keypath dict of
 ``checkpoint.params_from_jax`` (``frontend/0/w``, ``rnn/0/fwd/wx``,
 ``head/b``, ...) in the reference's layouts. ``train=True`` adds
@@ -15,13 +17,20 @@ reference.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 
-from .layers import (clipped_relu, conv2d_apply, dense_apply, dropout,
-                     dropout_mask, glorot)
+from .layers import (clipped_relu, conv2d_apply, conv2d_blocked_apply,
+                     conv2d_matmul_apply, dense_apply, dropout, dropout_mask,
+                     glorot)
 from .rnn import birnn_apply, rnn_apply
+
+
+# the profiler range around the conv frontend's forward (its backward is
+# found through the autograd nodes that range created)
+FRONTEND_RANGE = "encoder.frontend"
 
 
 def _cdiv(a, b):
@@ -118,11 +127,17 @@ def apply_encoder(params: dict, feats: torch.Tensor,
             x = dropout(x, rate, generator)
         out_lens = frame_lengths.to(torch.int32)
     elif cfg.frontend == "conv":
+        if cfg.conv_as_matmul:
+            conv_fn = (conv2d_blocked_apply if cfg.conv_blocked_fwd
+                       else conv2d_matmul_apply)
+        else:
+            conv_fn = conv2d_apply
         x = feats[..., None]                         # [B, T, F, 1] NHWC
-        for i, strides in enumerate(cfg.conv_strides):
-            x = clipped_relu(conv2d_apply(_layer(params, f"frontend/{i}/"),
-                                          x, strides, cdt), cfg.relu_clip)
-            x = dropout(x, rate, generator)
+        with record_function(FRONTEND_RANGE):
+            for i, strides in enumerate(cfg.conv_strides):
+                x = clipped_relu(conv_fn(_layer(params, f"frontend/{i}/"),
+                                         x, strides, cdt), cfg.relu_clip)
+                x = dropout(x, rate, generator)
         Bc, Tc, Fc, Cc = x.shape
         x = x.reshape(Bc, Tc, Fc * Cc)               # NHWC flatten order
         out_lens = output_lengths(frame_lengths, cfg)

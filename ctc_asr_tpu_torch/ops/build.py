@@ -44,6 +44,10 @@ _SIGNATURES = {
     # W, hop, n_fft, NB, M, F, n_melw, use_dct, log_floor, stream
     "stft_mel_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # samples, cos, sin, mel, dct, out, B, S, T, W, hop, NB, M, F, use_dct,
+    # log_floor, stream
+    "stft_dft_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _F, _P],
     # xproj, bias, wh, start, end, hb16, sync, h_out, c_out, gates_out, nd,
     # T, B, H, jt, bt, smem_bytes, stream
     "lstm_fwd_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -130,24 +130,30 @@ def make_step_fn(cfg: Config):
     return step_fn
 
 
-def device_batches(src, loader: DataLoader, dev: torch.device):
-    """Yield (batch, (samples, sample_lens, labels, label_lens)) on
+def device_batches(src, loader: DataLoader | None, dev: torch.device,
+                   with_labels: bool = True):
+    """Yield (batch, (samples, sample_lens[, labels, label_lens])) on
     ``dev`` with the NEXT batch's copy already in flight (pinned host
     memory, ``non_blocking``), so step k overlaps batch k+1's transfer.
-    Re-pins ``loader.consumed`` to each yielded batch so
-    ``state_dict()`` stays an exact resume point (``train.device_batches``)."""
+    ``with_labels=False`` uploads only the samples (or cached features)
+    and their lengths, as evaluation needs. Given a ``loader``, re-pins
+    ``loader.consumed`` to each yielded batch so ``state_dict()`` stays
+    an exact resume point (``train.device_batches``)."""
     pending = None
     for b in src:
-        arrs = [torch.from_numpy(np.ascontiguousarray(a)) for a in
-                (b.samples, b.sample_lengths, b.labels, b.label_lengths)]
+        host = (b.samples, b.sample_lengths) + (
+            (b.labels, b.label_lengths) if with_labels else ())
+        arrs = [torch.from_numpy(np.ascontiguousarray(a)) for a in host]
         if dev.type == "cuda":
             arrs = [a.pin_memory().to(dev, non_blocking=True) for a in arrs]
         if pending is not None:
-            loader.consumed = (pending[0].epoch, pending[0].position)
+            if loader is not None:
+                loader.consumed = (pending[0].epoch, pending[0].position)
             yield pending
         pending = (b, arrs)
     if pending is not None:
-        loader.consumed = (pending[0].epoch, pending[0].position)
+        if loader is not None:
+            loader.consumed = (pending[0].epoch, pending[0].position)
         yield pending
 
 

@@ -93,6 +93,13 @@ def _tiny_cfg(**model_kw):
      "bidirectional": False, "rnn_type": "gru"},
     {"frontend": "dense", "dense_layers": 2, "dense_units": 12,
      "bidirectional": False, "rnn_type": "rnn"},
+    # the conv forms the flags select (the cases above run the defaults,
+    # both true): full band, the 2-D conv, and 32 channels, where conv 1
+    # tiles onto 128 columns (the blocked form) and conv 2 does not
+    {"conv_blocked_fwd": False}, {"conv_as_matmul": False},
+    {"conv_channels": (32, 32)},
+    {"conv_channels": (32, 32), "conv_blocked_fwd": False},
+    {"conv_channels": (32, 32), "conv_as_matmul": False},
 ])
 def test_encoder_matches_reference(model_kw):
     cfg = _tiny_cfg(**model_kw)
@@ -109,6 +116,31 @@ def test_encoder_matches_reference(model_kw):
     np.testing.assert_array_equal(glens.numpy(), np.asarray(wlens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
+
+
+@pytest.mark.parametrize("as_matmul,blocked,route", [
+    (True, True, "conv2d_blocked_apply"), (True, False, "conv2d_matmul_apply"),
+    (False, True, "conv2d_apply"), (False, False, "conv2d_apply")])
+def test_conv_flags_choose_the_route(as_matmul, blocked, route, monkeypatch):
+    """``conv_as_matmul`` / ``conv_blocked_fwd`` pick the conv form as the
+    reference's encoder does: every frontend layer goes through the chosen
+    function and no other."""
+    from ctc_asr_tpu_torch.models import encoder as enc
+    calls = {}
+    for name in ("conv2d_apply", "conv2d_matmul_apply",
+                 "conv2d_blocked_apply"):
+        def counted(*a, _fn=getattr(enc, name), _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(enc, name, counted)
+    cfg = _tiny_cfg(conv_as_matmul=as_matmul, conv_blocked_fwd=blocked)
+    from ctc_asr_tpu_torch.models import init_params as t_init
+    params = t_init(cfg.model, 24, torch.Generator().manual_seed(6))
+    feats = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (2, 15, 24)).astype(np.float32))
+    apply_encoder(params, feats, torch.tensor([15, 7], dtype=torch.int32),
+                  cfg.model)
+    assert calls == {route: len(cfg.model.conv_strides)}
 
 
 @pytest.mark.parametrize("model_kw,feat_dim", [

@@ -177,11 +177,11 @@ def test_kernel_sparse_mel_is_the_filterbank():
     assert ((fb != 0).sum(axis=1) <= 2).all()
 
 
-@pytest.mark.parametrize("n_fft", [400, 32, 4096, 320])
+@pytest.mark.parametrize("n_fft", [32, 4096, 48, 3000])
 def test_geometry_refuses_unsupported_n_fft(n_fft):
-    """Any n_fft the FFT kernel does not take is refused on the host,
-    before any launch, naming the plain frontend's switch; the plain
-    path itself takes it."""
+    """An n_fft outside 64-2048 is taken by neither kernel: refused on the
+    host, before any launch, naming the plain frontend's switch; the
+    plain path itself takes it."""
     cfg = FeatureConfig(n_fft=n_fft)
     with pytest.raises(ValueError, match="features.use_pallas=false"):
         stft_cuda.check_geometry(cfg)
@@ -190,6 +190,59 @@ def test_geometry_refuses_unsupported_n_fft(n_fft):
     x = torch.from_numpy(_signal(1, 4000, seed=1))
     assert stft_cuda.stft_features(x, cfg).shape == \
         tf.plain_features(x, cfg).shape
+
+
+def test_geometry_refuses_a_direct_dft_block_that_does_not_fit():
+    """The direct DFT stages 32 frames' samples, power and log-mels in
+    shared memory: a hop of 100 ms at n_fft=400 needs more than a block's
+    227 KB and is refused; at 60 ms it fits."""
+    wide = FeatureConfig(n_fft=400, hop_ms=100.0)
+    assert stft_cuda.dft_smem_bytes(wide) > stft_cuda.MAX_BLOCK_SMEM
+    with pytest.raises(ValueError, match="features.use_pallas=false"):
+        stft_cuda.check_geometry(wide)
+    assert stft_cuda.check_geometry(FeatureConfig(n_fft=400,
+                                                  hop_ms=60.0)) == "dft"
+
+
+def _dft_kernel_model(x: np.ndarray, cfg: FeatureConfig) -> np.ndarray:
+    """A numpy model of csrc/stft_dft.cu built from ``kernel_constants``:
+    frames against the windowed bases, power, the dense mel product over
+    the nb bins, the log floor and the DCT. [B, S] -> [B, T, F]."""
+    c = stft_cuda.kernel_constants(cfg)
+    frames = tf.frame_signal(torch.from_numpy(x), cfg).double().numpy()
+    power = (frames @ c["cos"]) ** 2 + (frames @ c["sin"]) ** 2
+    feats = np.log(np.maximum(power @ c["mel"], stft_cuda.LOG_FLOOR))
+    return feats @ c["dct"] if c["use_dct"] else feats
+
+
+@pytest.mark.parametrize("n_fft", [400, 320])
+def test_geometry_routes_other_n_fft_to_the_direct_dft(n_fft):
+    """A size that is not a power of two goes to the direct-DFT kernel,
+    whose constants are the reference's windowed DFT bases and filterbank
+    cut to the bins the filters use; its algorithm on them gives the
+    reference's features (and the plain path's). Powers of two keep the
+    FFT."""
+    cfg = FeatureConfig(n_fft=n_fft)
+    assert stft_cuda.check_geometry(cfg) == "dft"
+    assert stft_cuda.check_geometry(FeatureConfig(n_fft=512)) == "fft"
+    c = stft_cuda.kernel_constants(cfg)
+    assert c["route"] == "dft"
+    cos_m, msin_m = jf.dft_matrices(cfg.win_length, n_fft)
+    win = jf.hann_window(cfg.win_length)[:, None]
+    fb = jf.mel_filterbank(n_fft, cfg.n_mels, cfg.sample_rate, cfg.fmin,
+                           cfg.fmax)
+    nb = c["nb"]
+    assert nb == np.nonzero(fb.any(axis=1))[0][-1] + 1
+    np.testing.assert_array_equal(c["cos"], (win * cos_m)[:, :nb])
+    np.testing.assert_array_equal(c["sin"], (win * msin_m)[:, :nb])
+    np.testing.assert_array_equal(c["mel"], fb[:nb])
+    x = _signal(2, 9000, seed=n_fft)
+    want = np.asarray(jf.log_mel_spectrogram(jnp.asarray(x), cfg))
+    got = _dft_kernel_model(x, cfg)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(
+        got, tf.plain_features(torch.from_numpy(x), cfg).numpy(), rtol=TOL,
+        atol=TOL)
 
 
 @pytest.mark.parametrize("mode,with_stats", [

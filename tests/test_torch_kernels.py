@@ -63,18 +63,88 @@ def test_stft_kernel_matches_plain(dev, cfg, B, S, amp, tail):
 
 
 def test_stft_kernel_refuses_n_fft_before_any_launch(dev, monkeypatch):
-    """An n_fft the FFT kernel does not take raises on a CUDA tensor
+    """A geometry neither STFT kernel takes (n_fft outside 64-2048, or a
+    direct-DFT block above the shared memory) raises on a CUDA tensor
     before any launch, naming the plain frontend's switch; the plain
     version never sees the CUDA tensor."""
     def refuse(*a, **k):
         raise AssertionError("the plain version ran on a CUDA tensor")
     monkeypatch.setattr(stft_cuda, "stft_features_plain", refuse)
     x = torch.zeros(2, 9000, device=dev)
-    for n_fft in (400, 4096, 32):
+    for cfg in (FeatureConfig(n_fft=4096), FeatureConfig(n_fft=32),
+                FeatureConfig(n_fft=400, hop_ms=100.0)):
         n0 = stft_cuda.stft_features.launches
         with pytest.raises(ValueError, match="features.use_pallas=false"):
-            stft_cuda.stft_features(x, FeatureConfig(n_fft=n_fft))
+            stft_cuda.stft_features(x, cfg)
         assert stft_cuda.stft_features.launches == n0
+
+
+@pytest.mark.parametrize("cfg,B,S", [
+    (FeatureConfig(n_fft=400), 3, 16000),
+    (FeatureConfig(n_fft=320), 2, 9000),
+    (FeatureConfig(n_fft=400, feature_type="mfcc", n_mels=26, n_mfcc=13), 2,
+     7777),
+    (FeatureConfig(n_fft=400), 2, 300),                 # shorter than W
+])
+def test_stft_direct_dft_matches_plain(dev, cfg, B, S):
+    """An n_fft that is not a power of two launches the direct-DFT kernel
+    (one launch, counted by both counters) and agrees with the plain
+    version."""
+    rng = np.random.default_rng(S)
+    x = torch.from_numpy((rng.standard_normal((B, S)) * 0.3
+                          ).astype(np.float32)).to(dev)
+    want = stft_cuda.stft_features_plain(x, cfg)
+    n0 = stft_cuda.stft_features.launches
+    d0 = stft_cuda.stft_features.dft_launches
+    got = stft_cuda.stft_features(x, cfg)
+    torch.cuda.synchronize()
+    assert stft_cuda.stft_features.launches == n0 + 1
+    assert stft_cuda.stft_features.dft_launches == d0 + 1
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= STFT_TOL
+
+
+@pytest.mark.parametrize("form", ["conv2d_matmul_apply",
+                                  "conv2d_blocked_apply"])
+@pytest.mark.parametrize("B,T", [(128, 798), (16, 350)])
+def test_banded_convs_match_the_2d_conv(dev, form, B, T):
+    """conv_bilstm3's frontend (conv 1 -> clipped ReLU -> conv 2) at the
+    train step's and the serving batch's shapes: the banded form against
+    the 2-D conv, both in f32, then in bf16 against the f32 2-D conv at
+    chip_smoke's limits. Gradients of both kernels and biases, so also of
+    conv 2's input. In f32 only the order of the sums differs: outputs
+    within 1e-4 of the largest; a kernel gradient sums ~2M products
+    (conv 1's gated by the ReLU, where a conv 1 output within rounding of
+    0 may flip), measured 1.1e-3 of its largest at B=128: limit 5e-3."""
+    from chip_smoke import (CONV_GRAD_RTOL, CONV_VALUE_RTOL, _conv_chain,
+                            _rel_err)
+    from ctc_asr_tpu_torch.config import preset
+    from ctc_asr_tpu_torch.models import layers
+    from ctc_asr_tpu_torch.models.encoder import init_params
+    mcfg = preset("conv_bilstm3").model
+    params = init_params(mcfg, 80, torch.Generator().manual_seed(B))
+    x = torch.randn(B, T, 80, 1, generator=torch.Generator().manual_seed(T)
+                    ).to(dev)
+    runs, dy = {}, None
+    for name, fn, dt in (("2-D f32", layers.conv2d_apply, torch.float32),
+                         ("f32", getattr(layers, form), torch.float32),
+                         ("bf16", getattr(layers, form), torch.bfloat16)):
+        leaves = [params[f"frontend/{i}/{k}"].to(dev).requires_grad_()
+                  for i in (0, 1) for k in ("w", "b")]
+        y = _conv_chain(fn, {"w": leaves[0], "b": leaves[1]},
+                        {"w": leaves[2], "b": leaves[3]}, x, mcfg, dt)
+        if dy is None:
+            dy = torch.randn(y.shape, generator=torch.Generator(
+                ).manual_seed(1)).to(dev)
+        runs[name] = (y.detach(), torch.autograd.grad(y, leaves, dy))
+    (want, want_g) = runs["2-D f32"]
+    for name, v_tol, g_tol in (("f32", 1e-4, 5e-3),
+                               ("bf16", CONV_VALUE_RTOL, CONV_GRAD_RTOL)):
+        got, got_g = runs[name]
+        assert got.shape == want.shape
+        assert _rel_err(got, want) <= v_tol, name
+        for leaf, a, b in zip(("w1", "b1", "w2", "b2"), got_g, want_g):
+            assert _rel_err(a, b) <= g_tol, (name, leaf)
 
 
 def _lens_case(T, B, g):

@@ -109,6 +109,63 @@ def test_evaluate_and_transcribe_match_reference(corpus):
         assert ttr.transcribe_file(utt.path) == jtr.transcribe_file(utt.path)
 
 
+def test_evaluate_uploads_ahead_through_device_batches(corpus, monkeypatch):
+    """``evaluate`` draws its batches through ``train.device_batches(...,
+    with_labels=False)`` (the next batch's upload in flight while this one
+    computes), ``max_batches`` caps the loader before that prefetch, and
+    the transcripts and ``per_utt`` are those of a loop that feeds each
+    loader batch straight to the step, in the same order."""
+    from ctc_asr_tpu_torch import evaluate as ev_mod
+    from ctc_asr_tpu_torch import train as tr_mod
+    from ctc_asr_tpu_torch.data import DataLoader, read_manifest
+    from ctc_asr_tpu_torch.metrics import ErrorRateAccumulator
+    from ctc_asr_tpu_torch.text import decode_ids
+    cfg, _, path = corpus
+    params = t_ckpt.load_params(path, cfg)
+    switches, pulled, hyps = [], [], []
+
+    def spy(src, loader, dev, with_labels=True):
+        switches.append(with_labels)
+
+        def counted():
+            for b in src:
+                pulled.append(b.position)
+                yield b
+        for b, arrs in tr_mod.device_batches(counted(), loader, dev,
+                                             with_labels):
+            assert len(arrs) == 2 and all(torch.is_tensor(a) for a in arrs)
+            yield b, arrs
+
+    def record(ids):
+        hyps.append(decode_ids(ids))
+        return hyps[-1]
+    monkeypatch.setattr(ev_mod, "device_batches", spy)
+    monkeypatch.setattr(ev_mod, "decode_ids", record)
+    got = ev_mod.evaluate(cfg, params, "cpu", log_samples=0)
+    assert switches == [False] and len(pulled) == 2
+
+    step = ev_mod.make_eval_step(cfg, "cpu")
+    decoder = ev_mod.make_decoder(cfg)
+    acc, want_hyps = ErrorRateAccumulator(), []
+    loader = DataLoader(read_manifest(cfg.data.eval_manifest), cfg.data,
+                        cfg.features, drop_last=False)
+    for batch in loader.iter_epoch(0):
+        ids, lens = decoder(*step(params, batch.samples,
+                                  batch.sample_lengths))
+        for i in range(batch.valid):
+            want_hyps.append(decode_ids(ids[i, :lens[i]].numpy()))
+            acc.add(batch.transcripts[i], want_hyps[-1])
+    assert hyps == want_hyps
+    assert got["per_utt"] == list(acc.utt_records)
+
+    pulled.clear()
+    hyps.clear()
+    one = ev_mod.evaluate(cfg, params, "cpu", max_batches=1, log_samples=0)
+    assert len(pulled) == 1                  # nothing read past the cap
+    assert hyps == want_hyps[:len(hyps)] and len(hyps) == one["utterances"]
+    assert one["per_utt"] == got["per_utt"][:len(hyps)]
+
+
 def test_cli_evaluate_and_transcribe(corpus, tmp_path, capsys):
     from ctc_asr_tpu.data import read_manifest
     from ctc_asr_tpu_torch import cli
