@@ -114,7 +114,24 @@ Phases (any failure exits non-zero; no phase is skipped):
    with ``--data.feature_cache`` (K1 must not launch, K4 must; WER from
    the f16 cache against WER from wavs), and ``--train.profile_dir``
    (the trace must name the GRU kernel).
-9. Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+9. Data parallelism across processes (``ctc_asr_tpu_torch.parallel``),
+   in two forms the one card allows (NCCL puts no two ranks on one
+   GPU). (a) NCCL at world size 1, the group formed here: the B=128 x
+   8 s LSTM step through the DP step must equal the single-process step
+   bit for bit (loss, gradient norm, every parameter after the update),
+   and the all-reduce of the ~17 M-value gradient buffer is timed.
+   (b) Two processes sharing the card in a gloo group: the script
+   starts itself twice as a worker (``--dp-worker``), both building the
+   kernels cold into one directory together; full-width
+   ``conv_bilstm3`` at B=16 a rank, dropout 0, ``cli train`` to step
+   20 and resumed to 40, then ``cli evaluate`` greedy and beam. K1, K2,
+   K3, K6 and K7 (and K8 in the beam evaluation) must launch on each
+   rank, the ranks' parameters must be bit-equal, step 1 must agree
+   with one process at B=32 on the same global batch (loss 1e-3,
+   gradient norm 2e-2), the loss must fall and each evaluation must
+   count the whole corpus. Prints the card's compute mode and the step
+   time of each form beside the one-process step.
+10. Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -1855,12 +1872,11 @@ def phase_train(tmp: str, manifest: str, rnn_type: str = "lstm") -> dict:
     loss = [recs[k]["loss"] for k in range(1, 41)]
     gn = [recs[k]["grad_norm"] for k in range(1, 41)]
     first, last = np.mean(loss[:5]), np.mean(loss[-5:])
+    step_s = float(np.median([recs[k]["step_time_s"] for k in range(25, 41)]))
     log(f"[{tag}] loss steps 1-5 mean {first:.4f}, 36-40 mean {last:.4f}; "
         f"grad_norm {min(gn):.4f}..{max(gn):.4f}; wall {times['wall']:.1f} s "
         f"(first 20 steps incl. first calls {times['half']:.1f} s); step "
-        f"time "
-        f"{np.median([recs[k]['step_time_s'] for k in range(25, 41)]):.4f}"
-        f" s (median, steps 25-40)")
+        f"time {step_s:.4f} s (median, steps 25-40)")
     if not (np.all(np.isfinite(loss)) and np.all(np.isfinite(gn))
             and last < first):
         raise AssertionError(f"loss {loss} grad_norm {gn}")
@@ -1871,7 +1887,8 @@ def phase_train(tmp: str, manifest: str, rnn_type: str = "lstm") -> dict:
     log(f"[{tag}] evaluate on the step-40 checkpoint: wer={res['wer']:.4f} "
         f"cer={res['cer']:.4f} over {res['utterances']} utterances")
     return {"launches": launches, "loss_first": first, "loss_last": last,
-            "train_dir": train_dir, "wer": res["wer"], "cfg": cfg}
+            "train_dir": train_dir, "wer": res["wer"], "cfg": cfg,
+            "step_s": step_s}
 
 
 def phase_gru_slice(tmp: str, manifest: str) -> dict:
@@ -1980,6 +1997,322 @@ def phase_datatools(tmp: str, manifest: str, gru: dict) -> dict:
     if d16 > CACHE_WER_TOL or not np.isfinite(ev["int8"]["wer"]):
         raise AssertionError(f"WER from the cache: {ev}")
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: data parallelism across processes
+# ---------------------------------------------------------------------------
+
+DP_TIMEOUT_S = 600      # the two ranks' whole run; a hang fails the phase
+DP_HALF, DP_STEPS = 20, 40
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _params_digest(params: dict) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median host-clock ms of ``fn`` followed by a synchronize (a gloo
+    collective blocks the host, so a CUDA event would time its wait)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic
+    scatter (the backward of the CTC loss's gather), so that two runs of
+    one step can be held to each other bit for bit (``warn_only``: cuBLAS
+    on one stream needs no workspace setting for that)."""
+    import torch
+    cudnn = torch.backends.cudnn
+    old = (cudnn.deterministic, cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = old[:2]
+        torch.use_deterministic_algorithms(old[2], warn_only=old[3])
+
+
+def _dp_world_one(smi: str) -> dict:
+    """(a) NCCL at world size 1, the group formed here: the LSTM step at
+    B=128 x 8 s through the DP step against the single-process step (and
+    the single-process step against itself, the control) from one state:
+    loss, gradient norm and every parameter after the update, bit for
+    bit; then the all-reduce's device time on the gradients' flat
+    buffer."""
+    import torch
+    import torch.distributed as dist
+    from ctc_asr_tpu_torch import train as train_mod
+    from ctc_asr_tpu_torch.config import preset
+    from ctc_asr_tpu_torch.parallel.dist import TIMEOUT, all_reduce_mean
+    cfg = preset("conv_bilstm3")
+    arrs = _step_batch()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+        world_size=1, rank=0, timeout=TIMEOUT)
+    try:
+        runs = {}
+        with _deterministic():
+            for name, group in (("single", None), ("single again", None),
+                                ("dp", dist.group.WORLD)):
+                st = train_mod.init_train_state(cfg, "cuda")
+                m = train_mod.make_step_fn(cfg, group)(st, *arrs)
+                runs[name] = (m["loss"].cpu(), m["grad_norm"].cpu(),
+                              {k: v.detach().clone()
+                               for k, v in st["params"].items()})
+        leaves = [torch.zeros_like(p) for p in runs["dp"][2].values()]
+        leaves.append(torch.zeros((), device="cuda"))
+        n = sum(t.numel() for t in leaves)
+        mean_ms = cuda_ms(lambda: all_reduce_mean(leaves, dist.group.WORLD),
+                          reps=20)
+        flat = torch.zeros(n, device="cuda")
+        bare_ms = cuda_ms(lambda: dist.all_reduce(flat), reps=20)
+    finally:
+        dist.destroy_process_group()
+
+    def same(a, b):
+        return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                and all(torch.equal(a[2][k], b[2][k]) for k in a[2]))
+    control, equal = same(*map(runs.get, ("single", "single again"))), \
+        same(*map(runs.get, ("single", "dp")))
+    log(f"[dp nccl] world 1, B=128 x 8 s LSTM step: loss "
+        f"{runs['dp'][0].item():.6f} grad_norm {runs['dp'][1].item():.6f}; "
+        f"DP step bit-equal to the single-process step: {equal} (the "
+        f"single-process step against itself: {control})")
+    log(f"[dp nccl] all-reduce of the flat buffer ({n} f32: every gradient "
+        f"and the loss), CUDA events, median of 20: all_reduce_mean (cat, "
+        f"all_reduce, divide) {mean_ms:.4f} ms, the bare all_reduce "
+        f"{bare_ms:.4f} ms; {smi}")
+    if not equal:
+        raise AssertionError("the NCCL world-1 DP step differs from the "
+                             "single-process step")
+    return {"allreduce_ms": mean_ms, "bare_allreduce_ms": bare_ms,
+            "numel": n}
+
+
+def _dp_overrides(manifest: str, train_dir: str) -> dict:
+    return {"data.train_manifest": manifest, "data.eval_manifest": manifest,
+            "data.batch_size": "16", "data.num_buckets": "1",
+            "train.train_dir": train_dir, "train.learning_rate": "3e-4",
+            "train.log_every": "1", "train.sync_every": "4",
+            "train.checkpoint_every": str(DP_HALF), "train.eval_every": "0",
+            "train.total_steps": str(DP_STEPS), "model.dropout": "0"}
+
+
+def dp_worker(argv) -> int:
+    """One rank of (b): ``chip_smoke.py --dp-worker RANK PORT TRAIN_DIR
+    MANIFEST BUILD_DIR OUT``. Builds the kernels into BUILD_DIR (both
+    ranks start cold, together), joins a gloo group of two on the one
+    card, runs ``cli train`` to step 20 and resumed to 40 and ``cli
+    evaluate`` greedy and beam, counting the kernels' launches, and
+    writes its parameters' digest and counts to OUT."""
+    import torch
+    import torch.distributed as dist
+    from ctc_asr_tpu_torch import train as train_mod
+    from ctc_asr_tpu_torch.ops import beam_cuda, build, lstm_cuda, stft_cuda
+    from ctc_asr_tpu_torch.parallel.dist import TIMEOUT, all_reduce_mean
+    rank, port = int(argv[0]), int(argv[1])
+    train_dir, manifest, build_dir, out_path = argv[2:6]
+    tag = f"[dp rank {rank}]"
+    build.BUILD_ROOT = build_dir
+    t0 = time.perf_counter()
+    build.load()
+    log(f"{tag} kernels ready in {time.perf_counter() - t0:.2f} s (cached="
+        f"{build.build_info.get('cached')})")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank, timeout=TIMEOUT)
+    overrides = [f"--{k}={v}"
+                 for k, v in _dp_overrides(manifest, train_dir).items()]
+    args = ["train", "--preset", "conv_bilstm3", "--device=cuda", *overrides]
+    states = []
+    real_train = train_mod.train
+
+    def keep_state(*a, **k):
+        states.append(real_train(*a, **k))
+        return states[-1]
+
+    def run():
+        t = time.perf_counter()
+        out = run_cli(args + [f"--max-steps={DP_HALF}"]) + run_cli(args)
+        return out, time.perf_counter() - t
+
+    try:
+        train_mod.train = keep_state
+        try:
+            (out, wall), launches = _count_launches(run, _GRU_KERNELS)
+        finally:
+            train_mod.train = real_train
+        if f"resumed from step {DP_HALF}" not in out:
+            raise AssertionError(f"{tag} did not resume at step {DP_HALF}")
+        params = states[-1]["params"]
+        leaves = [torch.zeros_like(p) for p in params.values()]
+        leaves.append(torch.zeros((), device="cuda"))
+        ar_ms = _host_ms(lambda: all_reduce_mean(leaves, dist.group.WORLD),
+                         reps=5)
+        log(f"{tag} cli train (40 steps, resumed at 20) in {wall:.1f} s; "
+            f"launches {launches}; gloo all_reduce_mean of the gradients "
+            f"(host-staged) {ar_ms:.2f} ms")
+        evals = {}
+        counters = {"stft": stft_cuda.stft_features,
+                    "lstm_fwd": lstm_cuda.lstm_fwd,
+                    "beam": beam_cuda.beam_search_decode_cuda}
+        for mode in ("greedy", "beam"):
+            for fn in counters.values():
+                fn.launches = 0
+            res = _eval_json(run_cli(
+                ["evaluate", "--preset", "conv_bilstm3", "--ckpt", train_dir,
+                 "--device=cuda", f"--decode.method={mode}", *overrides]))
+            evals[mode] = {"launches": {k: fn.launches
+                                        for k, fn in counters.items()},
+                           "utterances": res["utterances"],
+                           "wer": res["wer"]}
+            log(f"{tag} cli evaluate {mode}: {evals[mode]}")
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump({"launches": launches, "digest": _params_digest(params),
+                   "allreduce_ms": ar_ms, "evals": evals}, f)
+    return 0
+
+
+def phase_dp(tmp: str, manifest: str, one_proc_step_s: float,
+             smi: str) -> dict:
+    """Data parallelism on the one card: (a) the NCCL world-1 step; (b)
+    two processes sharing the card in a gloo group (NCCL puts no two
+    ranks on one GPU), full-width ``conv_bilstm3`` at B=16 a rank,
+    dropout 0: ``cli train`` 20 steps to a checkpoint and resumed to 40,
+    then ``cli evaluate`` greedy and beam, each rank a worker process of
+    this script. K1, K2, K3, K6 and K7 must launch on each rank (K8 in
+    the beam evaluation), the ranks' parameters must be bit-equal, step
+    1 must agree with one process at B=32 on the same global batch, the
+    loss must fall, and the evaluations must count the whole corpus."""
+    import torch
+    from ctc_asr_tpu_torch import checkpoint as ckpt_mod
+    from ctc_asr_tpu_torch import train as train_mod
+    from ctc_asr_tpu_torch.config import apply_overrides, preset
+    from ctc_asr_tpu_torch.data import DataLoader, read_manifest
+    world_one = _dp_world_one(smi)
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    log(f"[dp] compute mode: {mode.strip()}")
+    train_dir = os.path.join(tmp, "train_dp")
+    cfg = apply_overrides(preset("conv_bilstm3"),
+                          _dp_overrides(manifest, train_dir))
+    state = train_mod.init_train_state(cfg, "cuda")
+    ckpt_mod.save_checkpoint(train_dir + "/ckpt", 0,
+                             train_mod.state_to_flat(cfg, state))
+    # one process at B=32 on the two ranks' first batches, same state
+    firsts = [next(DataLoader(read_manifest(manifest), cfg.data,
+                              cfg.features, shard_idx=r,
+                              num_shards=2).iter_epoch(0)) for r in range(2)]
+    arrs = [torch.from_numpy(np.concatenate([getattr(b, f) for b in firsts]))
+            .cuda() for f in ("samples", "sample_lengths", "labels",
+                              "label_lengths")]
+    ref = train_mod.make_step_fn(cfg)(state, *arrs)
+    ref = {k: float(ref[k]) for k in ("loss", "grad_norm")}
+    corpus = len(DataLoader(read_manifest(manifest), cfg.data, cfg.features,
+                            drop_last=False).global_manifest)
+    del state, arrs
+    torch.cuda.empty_cache()
+
+    port = _free_port()
+    outs = [os.path.join(tmp, f"dp_rank{r}.json") for r in range(2)]
+    build_dir = os.path.join(tmp, "build_dp")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         str(port), train_dir, manifest, build_dir, outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        for line in text.splitlines():
+            if line.startswith(("[dp", "[train] resumed")):
+                log(line if line.startswith("[dp") else f"[dp rank {r}] "
+                    + line)
+        if p.returncode != 0:
+            raise RuntimeError(f"dp rank {r} exited {p.returncode}:\n"
+                               f"{text[-6000:]}")
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+    recs = _read_metrics(train_dir)
+    if sorted(recs) != list(range(1, DP_STEPS + 1)):
+        raise AssertionError(f"metrics for steps {sorted(recs)}")
+    loss = [recs[k]["loss"] for k in range(1, DP_STEPS + 1)]
+    first, last = np.mean(loss[:5]), np.mean(loss[-5:])
+    loss_err = abs(recs[1]["loss"] / ref["loss"] - 1)
+    gn_err = abs(recs[1]["grad_norm"] / ref["grad_norm"] - 1)
+    step_s = float(np.median([recs[k]["step_time_s"]
+                              for k in range(25, DP_STEPS + 1)]))
+    log(f"[dp] two ranks, gloo, one card: {wall:.1f} s for both workers; "
+        f"step 1 loss {recs[1]['loss']:.6f} against one process at B=32 "
+        f"{ref['loss']:.6f} (rel err {loss_err:.3e}, limit "
+        f"{STEP_LOSS_RTOL}); grad_norm {recs[1]['grad_norm']:.6f} against "
+        f"{ref['grad_norm']:.6f} (rel err {gn_err:.3e}, limit "
+        f"{STEP_GNORM_RTOL}); loss steps 1-5 mean {first:.4f}, 36-40 mean "
+        f"{last:.4f}; ranks' parameters bit-equal: "
+        f"{res[0]['digest'] == res[1]['digest']}")
+    log(f"[dp] step ms (host clock, median of steps 25-40, B=16 a rank): two "
+        f"ranks in a gloo group {step_s * 1e3:.2f}, one process (the train "
+        f"phase) {one_proc_step_s * 1e3:.2f}; gloo all-reduce of the "
+        f"gradients (host-staged) {res[0]['allreduce_ms']:.2f}, "
+        f"{res[1]['allreduce_ms']:.2f} ms; NCCL at world 1 "
+        f"{world_one['allreduce_ms']:.4f} ms; {smi}")
+    bad = []
+    if res[0]["digest"] != res[1]["digest"]:
+        bad.append("the ranks' parameters differ")
+    if not (loss_err <= STEP_LOSS_RTOL and gn_err <= STEP_GNORM_RTOL):
+        bad.append(f"step 1 against one process: loss {loss_err}, "
+                   f"grad_norm {gn_err}")
+    if not (np.all(np.isfinite(loss)) and last < first):
+        bad.append(f"loss {loss}")
+    for r, x in enumerate(res):
+        for m, e in x["evals"].items():
+            if e["utterances"] != corpus:
+                bad.append(f"rank {r} {m}: {e['utterances']} utterances of "
+                           f"{corpus}")
+            idle = [k for k, n in e["launches"].items()
+                    if (n > 0) != (k != "beam" or m == "beam")]
+            if idle:
+                bad.append(f"rank {r} {m}: launches {e['launches']}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"world_one": world_one, "step_ms": step_s * 1e3,
+            "launches": [x["launches"] for x in res]}
 
 
 def _eval_json(out: str) -> dict:
@@ -2299,6 +2632,20 @@ def _profile_step(cfg, arrs, tag: str = "profile") -> dict:
             "groups": groups, "peak_gib": peak}
 
 
+def _step_batch() -> list:
+    """The bench geometry's batch on the card: B=128 x 8 s of seeded
+    speech-like samples, ragged lengths, U=96 labels."""
+    import torch
+    B, S, U = 128, 128000, 96
+    rng = np.random.default_rng(11)
+    samples = _speechlike(B, S, seed=12)
+    slens = torch.as_tensor(rng.integers(S // 2, S + 1, B), dtype=torch.int32)
+    slens[0] = S
+    labels = torch.as_tensor(rng.integers(0, 28, (B, U)), dtype=torch.int32)
+    llens = torch.as_tensor(rng.integers(U // 2, U + 1, B), dtype=torch.int32)
+    return [samples, slens.cuda(), labels.cuda(), llens.cuda()]
+
+
 def phase_step(rnn_type: str = "lstm") -> dict:
     """One step at B=128 x 8 s from one random state (dropout 0) of the
     ``conv_bilstm3`` model with the given cell: the kernel path's loss,
@@ -2319,14 +2666,7 @@ def phase_step(rnn_type: str = "lstm") -> dict:
         train=dataclasses.replace(base.train, use_pallas_ctc=False))
     plain32 = dataclasses.replace(plain, model=dataclasses.replace(
         plain.model, compute_dtype="float32"))
-    B, S, U = 128, 128000, 96
-    rng = np.random.default_rng(11)
-    samples = _speechlike(B, S, seed=12)
-    slens = torch.as_tensor(rng.integers(S // 2, S + 1, B), dtype=torch.int32)
-    slens[0] = S
-    labels = torch.as_tensor(rng.integers(0, 28, (B, U)), dtype=torch.int32)
-    llens = torch.as_tensor(rng.integers(U // 2, U + 1, B), dtype=torch.int32)
-    arrs = [samples, slens.cuda(), labels.cuda(), llens.cuda()]
+    arrs = _step_batch()
     state = train_mod.init_train_state(base, "cuda")
     out = {}
     for name, cfg in (("kernel", base), ("plain_f32", plain32),
@@ -2437,6 +2777,7 @@ def main() -> int:
         dec = phase_decode(tmp, sl["manifest"], tr["train_dir"])
         gru = phase_gru_slice(tmp, sl["manifest"])
         phase_datatools(tmp, sl["manifest"], gru)
+        phase_dp(tmp, sl["manifest"], tr["step_s"], dev["smi"])
     step = phase_step()
     gru_step = phase_step("gru")
     tl, dl, gl = tr["launches"], dec["launches"], gru["launches"]
@@ -2512,4 +2853,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2:]))
     sys.exit(main())

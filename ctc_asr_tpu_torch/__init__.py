@@ -32,6 +32,8 @@ Layout
                   ``beam_cuda``)
 - ``csrc``        CUDA C++ sources of those kernels, built at first use
 - ``optim``       global-norm clipping, Adam / AdamW, LR schedules
+- ``parallel``    data parallelism across processes: the process grid,
+                  the ``torch.distributed`` group, the gradient all-reduce
 - ``checkpoint``  the reference's flat-npz checkpoints, read and written
 - ``train`` / ``evaluate`` / ``transcribe`` / ``cli``  the entry points
 """

@@ -30,8 +30,8 @@ import numpy as np
 import torch
 
 from .config import Config, TrainConfig
-
 from .models.encoder import init_shapes
+from .parallel.mesh import process_world
 
 
 def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
@@ -146,10 +146,18 @@ def state_from_flat(flat: dict[str, np.ndarray], cfg: Config):
 
 def save_checkpoint(ckpt_dir: str, step: int, flat: dict[str, np.ndarray],
                     metadata: dict | None = None, keep: int = 5,
-                    is_best: bool = False) -> str:
+                    is_best: bool = False,
+                    process_index: int | None = None) -> str | None:
     """Write ``step_NNNNNNNN.npz`` (atomically, through a temporary file)
     and its ``.json`` sidecar; with ``is_best`` also the ``best`` alias.
-    Keeps the newest ``keep`` step checkpoints (``checkpoint.py:56-94``)."""
+    Keeps the newest ``keep`` step checkpoints (``checkpoint.py:56-94``).
+    Only process 0 writes (``process_index``, by default this process's
+    rank in the formed ``torch.distributed`` group); the others return
+    None."""
+    if process_index is None:
+        process_index = process_world()[1]
+    if process_index != 0:
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     base = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = base + ".tmp.npz"

@@ -38,6 +38,14 @@ from the newest checkpoint in ``train.train_dir`` and evaluates every
 ``train.eval_every`` steps when ``data.eval_manifest`` is set.
 ``--device`` defaults to ``cuda``, and asking for CUDA where there is
 none raises.
+
+Data parallelism: start ``train`` or ``evaluate`` once a process with
+``--mesh.coordinator_address=HOST:PORT --mesh.num_processes=N
+--mesh.process_id=R``; the processes form a ``torch.distributed`` group
+(NCCL with ``--device=cuda``, on card ``R % device_count``; gloo with
+``--device=cpu``), each trains or decodes its shard of the manifest, and
+process 0 writes the metrics, the checkpoints and ``--dump-utts``.
+``transcribe`` runs in one process.
 """
 
 from __future__ import annotations
@@ -94,20 +102,31 @@ def cmd_train(argv):
     cfg = _load_cfg(args, overrides)
 
     from .evaluate import evaluate
+    from .parallel import initialize_distributed
     from .train import train
 
+    formed = initialize_distributed(cfg.mesh, args.device)
     eval_fn = None
     if cfg.data.eval_manifest:
-        def eval_fn(state):       # evaluate() refuses a parallel regime
+        def eval_fn(state):       # on every rank, each on its shard
             params = {k: v.detach() for k, v in state["params"].items()}
             res = evaluate(cfg, params, args.device, log_samples=2)
             res.pop("per_utt", None)
             res.pop("device", None)
             return res
-    state = train(cfg, args.device, max_steps=args.max_steps,
-                  eval_fn=eval_fn)
+    try:
+        state = train(cfg, args.device, max_steps=args.max_steps,
+                      eval_fn=eval_fn)
+    finally:
+        if formed:
+            _leave_group()
     print(f"[train] done at step {state['step']}")
     return 0
+
+
+def _leave_group() -> None:
+    import torch.distributed as dist
+    dist.destroy_process_group()
 
 
 def cmd_evaluate(argv):
@@ -121,13 +140,20 @@ def cmd_evaluate(argv):
 
     from .checkpoint import load_params, resolve_checkpoint
     from .evaluate import evaluate
-    from .train import check_single_process
+    from .parallel import initialize_distributed
+    from .train import check_regime
 
-    check_single_process(cfg)
-    params = load_params(args.ckpt, cfg, args.device)
-    res = evaluate(cfg, params, args.device)
+    formed = initialize_distributed(cfg.mesh, args.device)
+    try:
+        rank = check_regime(cfg).rank
+        params = load_params(args.ckpt, cfg, args.device)
+        res = evaluate(cfg, params, args.device)
+    finally:
+        if formed:
+            _leave_group()
     per_utt = res.pop("per_utt")
-    if args.dump_utts:
+    # the records are gathered: process 0's dump is the whole corpus
+    if args.dump_utts and rank == 0:
         with open(args.dump_utts, "w") as f:
             json.dump({"ckpt": resolve_checkpoint(args.ckpt),
                        "per_utt": per_utt}, f)
@@ -143,8 +169,7 @@ def cmd_transcribe(argv):
     cfg = _load_cfg(args, overrides)
 
     from .checkpoint import load_params
-    from .train import check_single_process
-    from .transcribe import Transcriber
+    from .transcribe import Transcriber, check_single_process
 
     check_single_process(cfg)
     tr = Transcriber(cfg, load_params(args.ckpt, cfg, args.device),

@@ -9,9 +9,9 @@ the other. CLI ``--section.key=value`` overrides apply on top.
 The ``use_pallas*`` flags keep their names: in the port they select the
 hand-written CUDA kernel (true) or its plain PyTorch version (false).
 The one field the port does not read (``precompile``: eager PyTorch
-compiles nothing per shape) is kept so that configs round-trip; of ``mesh``
-it reads only enough to refuse the parallel regimes it does not have
-(``train.check_single_process``).
+compiles nothing per shape) is kept so that configs round-trip. Of
+``mesh`` it reads the data axis and the multi-process settings, and
+refuses the regimes it does not have yet (``train.check_regime``).
 """
 
 from __future__ import annotations
@@ -194,9 +194,14 @@ class DecodeConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh / parallelism of the reference (data, model and
-    sequence axes, multi-host coordination). The port is single-device
-    and reads none of it."""
+    """Device mesh / parallelism (data, model and sequence axes,
+    multi-host coordination). The port runs one process a device and
+    reads the data axis: ``coordinator_address``, ``num_processes`` and
+    ``process_id`` form the ``torch.distributed`` group
+    (``parallel.initialize_distributed``: NCCL on CUDA, gloo on the CPU)
+    and ``data_axis`` must agree with its size (``parallel.build_mesh``).
+    ``model_axis > 1``, ``shard_model`` and ``seq_axis > 1`` raise
+    (ROADMAP.md A8)."""
 
     data_axis: int = -1  # -1 = all remaining devices on the data axis
     model_axis: int = 1

@@ -1,10 +1,13 @@
 """Evaluation driver: params -> eval-manifest decode -> corpus WER/CER.
 
-Counterpart of ``ctc_asr_tpu/evaluate.py`` (single process) and of
+Counterpart of ``ctc_asr_tpu/evaluate.py`` and of
 ``train.make_eval_step``: samples -> features -> encoder -> greedy or
 beam decode on the device (beam with optional char-LM fusion, and
 word-LM N-best rescoring on the host), with the reference's
-steady-state RTF accounting.
+steady-state RTF accounting. In a formed ``torch.distributed`` group
+each process decodes its own shard of the manifest and the
+per-utterance records are gathered into one corpus
+(``ctc_asr_tpu/evaluate.py:123-130``, ``:206-228``).
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ from .features import extract_features
 from .metrics import ErrorRateAccumulator
 from .models.encoder import apply_encoder
 from .ops.dispatch import resolve_device
+from .parallel.dist import current_group, gather_records
+from .parallel.mesh import loader_shard
 from .text import decode_ids
-from .train import check_single_process, device_batches
+from .train import check_regime, device_batches
 
 
 def make_eval_step(cfg: Config, device: str | torch.device = "cuda"):
@@ -123,11 +128,19 @@ def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
     ``rtf`` is wall time per second of audio over every batch except
     the first of each length bucket (which pays first-call costs);
     ``rtf_incl_compile`` includes them. Raises for a parallel regime the
-    port does not have (``train.check_single_process``)."""
-    check_single_process(cfg)
+    port does not have (``train.check_regime``).
+
+    In a formed group every process calls it: each decodes its strided
+    shard (every utterance once, ``drop_last=False``), and the corpus
+    metrics, the bootstrap CI and ``per_utt`` describe the whole corpus,
+    its records in process-major order (rank 0's shard first, ROADMAP.md
+    C2); the times and ``audio_seconds`` stay this process's."""
+    mesh = check_regime(cfg)
     if loader is None:
+        shard_idx, num_shards = loader_shard(mesh)
         loader = DataLoader(read_manifest(cfg.data.eval_manifest), cfg.data,
-                            cfg.features, drop_last=False)
+                            cfg.features, shard_idx=shard_idx,
+                            num_shards=num_shards, drop_last=False)
     eval_step = make_eval_step(cfg, device)
     rescorer = None
     if cfg.decode.word_lm_path and cfg.decode.method == "beam":
@@ -172,6 +185,12 @@ def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
             seen_buckets.add(batch.bucket_id)
         t_prev = now
     wall = time.perf_counter() - t0
+    group = current_group()
+    if group is not None:
+        merged = ErrorRateAccumulator()
+        for rec in gather_records(acc.utt_records, group):
+            merged.add_record(*rec)
+        acc = merged
     out = acc.summary()
     out.update(acc.bootstrap_ci())
     out["per_utt"] = list(acc.utt_records)

@@ -14,14 +14,24 @@ the loader cursor.
 
 Eager PyTorch compiles nothing per batch shape, so ``train.precompile``
 has nothing to do here and is ignored. ``train.profile_dir`` wraps the
-loop in a ``torch.profiler`` trace (``utils.profiling``). The mesh,
-multi-process and sequence-parallel regimes are not ported yet
-(ROADMAP.md A7/A8) and raise.
+loop in a ``torch.profiler`` trace (``utils.profiling``).
+
+Data parallelism across processes (the multi-process branch of
+``ctc_asr_tpu/train.py:284-361``): when a ``torch.distributed`` group is
+formed (``parallel.initialize_distributed``), every process runs the
+same loop on its loader shard (``parallel.loader_shard``), the step
+averages the gradients and the loss over the group with one
+``all_reduce`` before the same clip and Adam update on every rank, the
+replicas start equal (rank 0's state broadcast after init or restore),
+and only process 0 writes metrics and checkpoints. The tensor- and
+sequence-parallel regimes are not ported yet (ROADMAP.md A8) and raise.
 
 State: ``{"params": {k: tensor}, "opt_state": {...}, "step": int,
 "generators": {"dropout": Generator, "specaugment": Generator}}`` on
-the device; the generators are seeded from ``train.seed`` for a fresh
-run and restored from the checkpoint on resume.
+the device; in one process the generators are seeded from
+``train.seed`` for a fresh run and restored from the checkpoint on
+resume; with several, each rank's are seeded anew at every step from
+(``train.seed``, step, rank).
 """
 
 from __future__ import annotations
@@ -30,16 +40,20 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import checkpoint as ckpt_mod
 from .config import Config
 from .data import DataLoader, read_manifest
 from .features import extract_features, spec_augment
-from .metrics import MetricsWriter, ThroughputMeter
+from .metrics import MetricsWriter, NullMetricsWriter, ThroughputMeter
 from .models.encoder import apply_encoder, init_params
 from .ops.ctc_cuda import ctc_loss
 from .ops.dispatch import resolve_device
 from .optim import Adam
+from .parallel.dist import (all_reduce_mean, broadcast_state, current_group,
+                            reseed_for_rank)
+from .parallel.mesh import ProcessMesh, build_mesh, check_ported, loader_shard
 from .utils.profiling import maybe_trace
 
 _GENERATORS = ("dropout", "specaugment")
@@ -96,16 +110,30 @@ def state_to_flat(cfg: Config, state: dict) -> dict:
         cfg.train, cfg.train.seed)
 
 
-def make_step_fn(cfg: Config):
+def make_step_fn(cfg: Config, group=None):
     """``(state, samples, sample_lens, labels, label_lens) -> metrics``:
     one train step on the state's device, updating ``state`` in place.
     Inputs are tensors on that device; metrics are 0-d device tensors
-    (and ``lr`` a float) so the step needs no host round trip."""
+    (and ``lr`` a float) so the step needs no host round trip.
+
+    With a ``torch.distributed`` ``group`` it is the data-parallel step
+    (the ``data_axis`` branch of ``ctc_asr_tpu/train.py:114-150``): the
+    local loss and gradients are averaged over the group by one
+    ``all_reduce`` (``parallel.dist.all_reduce_mean``: the pmean of the
+    shards' means, as the reference takes it, so a shard with an
+    infeasible row weighs as much as one without) before the norm, the
+    clip and Adam, which then agree on every rank; with more than one
+    rank each rank's generators are seeded anew at every step
+    (``parallel.dist.reseed_for_rank``)."""
     tcfg = cfg.train
     opt = Adam(tcfg)
+    world = 1 if group is None else dist.get_world_size(group)
+    rank = 0 if group is None else dist.get_rank(group)
 
     def step_fn(state, samples, sample_lengths, labels, label_lengths):
         gens = state["generators"]
+        if world > 1:
+            reseed_for_rank(gens, tcfg.seed, state["step"], rank)
         with torch.no_grad():
             feats, flens = extract_features(samples, sample_lengths,
                                             cfg.features)
@@ -122,6 +150,9 @@ def make_step_fn(cfg: Config):
                         use_kernel=tcfg.use_pallas_ctc)
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))
+        if group is not None:
+            *avg, loss = all_reduce_mean([*grads.values(), loss], group)
+            grads = dict(zip(grads, avg))
         lr = opt.schedule(state["step"])
         gnorm = opt.step(params, grads, state["opt_state"])
         state["step"] += 1
@@ -157,19 +188,17 @@ def device_batches(src, loader: DataLoader | None, dev: torch.device,
         yield pending
 
 
-def check_single_process(cfg: Config) -> None:
-    """Raise for a parallel regime the port does not have yet: more than
-    one process, a coordinator, or a model or sequence axis. Training,
-    evaluation and transcription call it first, so that such a config
-    never runs as if it were one process (the reference branches on
-    these settings: ``ctc_asr_tpu/evaluate.py:133-148``, ``:206-228``)."""
-    m = cfg.mesh
-    if m.num_processes > 1 or m.coordinator_address or m.model_axis > 1 \
-            or m.seq_axis > 1:
-        raise NotImplementedError(
-            "the port runs on one device in one process; the mesh, "
-            "multi-process and sequence-parallel regimes are not ported "
-            "yet (ROADMAP.md A7/A8)")
+def check_regime(cfg: Config) -> ProcessMesh:
+    """The process grid this run takes part in, from the formed
+    ``torch.distributed`` group (one process without one). Raises first
+    for a regime the port does not have yet (a model axis,
+    ``shard_model``, a sequence axis: ROADMAP.md A8), then when
+    ``mesh.num_processes > 1`` but no group of that size is formed.
+    Training and evaluation call it before any work, so that such a
+    config never runs as if it were something else (the reference
+    branches on these settings: ``ctc_asr_tpu/evaluate.py:123-148``)."""
+    check_ported(cfg.mesh)
+    return build_mesh(cfg.mesh)
 
 
 def train(cfg: Config, device="cuda", max_steps: int | None = None,
@@ -180,17 +209,28 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
     ``eval_fn(state) -> dict`` runs every ``train.eval_every`` steps;
     ``max_steps`` overrides ``train.total_steps``. Resumes from the
     newest checkpoint under ``train.train_dir/ckpt`` when one exists
-    (written by either package)."""
-    check_single_process(cfg)
+    (written by either package).
+
+    In a formed ``torch.distributed`` group every process calls it: the
+    loader takes this rank's shard, every rank restores the same
+    checkpoint and then takes rank 0's state, the step is the
+    data-parallel one, and ranks other than 0 write no metrics (unless
+    a ``writer`` is given) and no checkpoints. ``eval_fn`` runs on every
+    rank."""
+    mesh = check_regime(cfg)
+    group = current_group()
     tcfg = cfg.train
     dev = resolve_device(device)
     total = max_steps if max_steps is not None else tcfg.total_steps
     if loader is None:
+        shard_idx, num_shards = loader_shard(mesh)
         loader = DataLoader(read_manifest(cfg.data.train_manifest), cfg.data,
-                            cfg.features)
+                            cfg.features, shard_idx=shard_idx,
+                            num_shards=num_shards)
     own_writer = writer is None
     if own_writer:
-        writer = MetricsWriter(tcfg.train_dir)
+        writer = MetricsWriter(tcfg.train_dir) if mesh.rank == 0 \
+            else NullMetricsWriter()
     ckpt_dir = tcfg.train_dir + "/ckpt"
     flat, meta = ckpt_mod.restore_latest(ckpt_dir)
     if flat is not None:
@@ -201,7 +241,9 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
         print(f"[train] resumed from step {state['step']}", flush=True)
     else:
         state = init_train_state(cfg, dev)
-    step_fn = make_step_fn(cfg)
+    if group is not None:
+        broadcast_state(state, group)
+    step_fn = make_step_fn(cfg, group)
     meter = ThroughputMeter()
     best_wer = meta.get("best_wer", float("inf"))
 
@@ -211,6 +253,10 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
         heartbeat = Heartbeat(tcfg.heartbeat_seconds).start()
 
     def save(step, batch, is_best=False):
+        if mesh.rank != 0:
+            # the replicas are equal and process 0 writes them: the
+            # others skip even the copy of their state to the host
+            return
         ckpt_mod.save_checkpoint(
             ckpt_dir, step, state_to_flat(cfg, state),
             metadata={"loader": {"epoch": batch.epoch,
@@ -263,6 +309,9 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
                 if step == total or (tcfg.checkpoint_every > 0 and
                                      step % tcfg.checkpoint_every == 0):
                     save(step, batch)
+        if group is not None:
+            # no rank returns before process 0's last checkpoint is written
+            dist.barrier(group)
     finally:
         it.close()
         if heartbeat is not None:

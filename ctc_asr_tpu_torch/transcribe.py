@@ -45,3 +45,18 @@ class Transcriber:
     def transcribe_file(self, path: str) -> str:
         samples, _ = audio_mod.read_wav(path, self.cfg.features.sample_rate)
         return self.transcribe_samples(samples)
+
+
+def check_single_process(cfg: Config) -> None:
+    """Raise for any parallel regime: transcription runs in one process,
+    as the reference's does (it has no multi-process path), so a config
+    that names more than one process, a coordinator, or a model or
+    sequence axis is refused rather than run as one process."""
+    m = cfg.mesh
+    if m.num_processes > 1 or m.coordinator_address or m.model_axis > 1 \
+            or m.shard_model or m.seq_axis > 1:
+        raise NotImplementedError(
+            "transcribe runs in one process on one device, as the "
+            "reference's does: drop the mesh settings (--mesh.*); data "
+            "parallelism is for train and evaluate, tensor and sequence "
+            "parallelism are not ported yet (ROADMAP.md A8)")

@@ -50,7 +50,8 @@ def test_walk_finds_the_whole_port():
                      "data.native_io", "data.feature_cache", "data.generate",
                      "utils.heartbeat", "utils.tb_events", "utils.profiling",
                      "ops.lm", "ops.beam", "ops.beam_cuda", "ops.gru_cuda",
-                     "ops.build", "models.encoder", "models.rnn"):
+                     "ops.build", "models.encoder", "models.rnn",
+                     "parallel", "parallel.mesh", "parallel.dist"):
         assert f"ctc_asr_tpu_torch.{expected}" in names
 
 

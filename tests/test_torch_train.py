@@ -333,13 +333,25 @@ def test_nan_trap_raises(corpus, tmp_path):
 
 
 def test_unported_regimes_raise(corpus, tmp_path):
-    cfg = _cfg(corpus, train_dir=str(tmp_path))
-    for mesh in (dict(seq_axis=2), dict(model_axis=2), dict(num_processes=2),
-                 dict(coordinator_address="localhost:1234")):
+    """The model and sequence axes raise before any work, naming A8;
+    ``num_processes=2`` with no process group formed raises; a
+    coordinator alone is one process, as in the reference (its
+    ``initialize_distributed`` is a no-op without ``num_processes > 1``)."""
+    cfg = _cfg(corpus, train_dir=str(tmp_path / "run"))
+    for mesh in (dict(seq_axis=2), dict(model_axis=2),
+                 dict(shard_model=True)):
         bad = dataclasses.replace(cfg, mesh=dataclasses.replace(
             cfg.mesh, **mesh))
-        with pytest.raises(NotImplementedError, match="A7/A8"):
+        with pytest.raises(NotImplementedError, match="A8"):
             t_train.train(bad, "cpu", max_steps=1)
+    bad = dataclasses.replace(cfg, mesh=dataclasses.replace(
+        cfg.mesh, num_processes=2))
+    with pytest.raises(RuntimeError, match="no.*is formed"):
+        t_train.train(bad, "cpu", max_steps=1)
+    assert not os.path.exists(tmp_path / "run")
+    alone = dataclasses.replace(cfg, mesh=dataclasses.replace(
+        cfg.mesh, coordinator_address="localhost:1234"))
+    assert t_train.train(alone, "cpu", max_steps=1)["step"] == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             t_train.train(cfg, "cuda", max_steps=1)
@@ -347,9 +359,11 @@ def test_unported_regimes_raise(corpus, tmp_path):
 
 def test_unported_regimes_raise_in_evaluate_and_transcribe(corpus, tmp_path):
     """``evaluate`` (and with it the train-time ``eval_fn`` of ``cli
-    train``), ``cli evaluate`` and ``cli transcribe`` refuse the parallel
-    regimes the port does not have before they load or decode anything,
-    where the reference would split the corpus across processes; the
+    train``) and ``cli evaluate`` refuse the model and sequence axes
+    (naming A8) and ``num_processes=2`` with no group formed before they
+    load or decode anything; a coordinator alone is one process, so ``cli
+    evaluate`` goes on to the (missing) checkpoint. ``cli transcribe``
+    runs in one process and refuses every mesh setting; the
     single-process config evaluates."""
     from ctc_asr_tpu_torch.evaluate import evaluate
     cfg = _cfg(corpus)
@@ -357,17 +371,23 @@ def test_unported_regimes_raise_in_evaluate_and_transcribe(corpus, tmp_path):
         cfg.data, eval_manifest=corpus))
     wav = read_manifest(corpus)[0].path
     missing = str(tmp_path / "no_such_checkpoint.npz")
-    for mesh in (dict(seq_axis=2), dict(model_axis=2), dict(num_processes=2),
-                 dict(coordinator_address="localhost:1234")):
+    for mesh, err, match in (
+            (dict(seq_axis=2), NotImplementedError, "A8"),
+            (dict(model_axis=2), NotImplementedError, "A8"),
+            (dict(num_processes=2), RuntimeError, "no.*is formed"),
+            (dict(coordinator_address="localhost:1234"), FileNotFoundError,
+             "no_such_checkpoint")):
         bad = dataclasses.replace(cfg, mesh=dataclasses.replace(
             cfg.mesh, **mesh))
-        with pytest.raises(NotImplementedError, match="A7/A8"):
-            evaluate(bad, None, "cpu")
+        if err is not FileNotFoundError:
+            with pytest.raises(err, match=match):
+                evaluate(bad, None, "cpu")
         flags = [f"--mesh.{k}={v}" for k, v in mesh.items()]
-        for argv in (["evaluate", "--ckpt", missing],
-                     ["transcribe", "--ckpt", missing, wav]):
-            with pytest.raises(NotImplementedError, match="A7/A8"):
-                cli.main(argv + ["--device=cpu"] + flags)
+        with pytest.raises(err, match=match):
+            cli.main(["evaluate", "--ckpt", missing, "--device=cpu"] + flags)
+        with pytest.raises(NotImplementedError, match="one process"):
+            cli.main(["transcribe", "--ckpt", missing, wav, "--device=cpu"]
+                     + flags)
     params = t_train.init_train_state(cfg, "cpu")["params"]
     with torch.no_grad():
         res = evaluate(cfg, params, "cpu", max_batches=1, log_samples=0)
