@@ -131,7 +131,26 @@ Phases (any failure exits non-zero; no phase is skipped):
    gradient norm 2e-2), the loss must fall and each evaluation must
    count the whole corpus. Prints the card's compute mode and the step
    time of each form beside the one-process step.
-10. Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+10. Tensor parallelism (``--mesh.model_axis=2 --mesh.shard_model=true``)
+   in two processes sharing the card in a gloo group (``--tp-worker``):
+   full-width ``conv_bilstm3`` at B=16, dropout 0, ``cli train`` to step
+   10 and resumed to 20; step 1 against one process on the same batch
+   (loss 1e-3, gradient norm 2e-2), the replicated leaves bit-equal
+   across the ranks, the loss falling, K1, K6 and K7 launching on each
+   rank and K2 to K5 not (the reference's TP kernel policy); ``cli
+   evaluate`` in one process on the TP checkpoint; the step time of two
+   ranks and of one process, and of a step's gate gather. The same two
+   ranks then decode B=16 x 175 frames with the order-4 char LM's table
+   row-sharded over them at ``lm_fusion_960h``'s beam of 64: the ids must
+   equal the replicated-table plain decoder's; ms a batch.
+11. Sequence parallelism in one process over ``["cuda:0", "cuda:0"]``:
+   full-width ``conv_bilstm3`` at f32 with the plain recurrence, B=16 x
+   56320 samples: K1 on one extended chunk ([16, 28400] samples) against
+   its plain version; the SP step against the unsharded step (loss 1e-3,
+   gradient norm 2e-2, every leaf's cosine >= 0.999); the SP eval step's
+   argmax agreement >= 99.5%; K1, K6 and K7 launching in three SP train
+   steps, K2 to K5 not; both steps' times.
+12. Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -2197,6 +2216,34 @@ def dp_worker(argv) -> int:
     return 0
 
 
+def _run_workers(flag: str, argvs: list, timeout: int, prefix: str) -> list:
+    """Start this script once a rank (``flag`` and its arguments), wait
+    for all within ``timeout``, kill them all if one hangs, echo their
+    ``prefix`` lines; raises if one failed."""
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, *a],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a in argvs]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        for line in text.splitlines():
+            if line.startswith((prefix, "[train] resumed")):
+                log(line if line.startswith(prefix)
+                    else f"{prefix} rank {r}] " + line)
+        if p.returncode != 0:
+            raise RuntimeError(f"{flag} rank {r} exited {p.returncode}:\n"
+                               f"{text[-6000:]}")
+    return texts
+
+
 def phase_dp(tmp: str, manifest: str, one_proc_step_s: float,
              smi: str) -> dict:
     """Data parallelism on the one card: (a) the NCCL world-1 step; (b)
@@ -2242,29 +2289,10 @@ def phase_dp(tmp: str, manifest: str, one_proc_step_s: float,
     outs = [os.path.join(tmp, f"dp_rank{r}.json") for r in range(2)]
     build_dir = os.path.join(tmp, "build_dp")
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
-         str(port), train_dir, manifest, build_dir, outs[r]],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    texts = []
-    try:
-        for p in procs:
-            texts.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+    _run_workers("--dp-worker", [
+        [str(r), str(port), train_dir, manifest, build_dir, outs[r]]
+        for r in range(2)], DP_TIMEOUT_S, "[dp")
     wall = time.perf_counter() - t0
-    for r, (p, text) in enumerate(zip(procs, texts)):
-        for line in text.splitlines():
-            if line.startswith(("[dp", "[train] resumed")):
-                log(line if line.startswith("[dp") else f"[dp rank {r}] "
-                    + line)
-        if p.returncode != 0:
-            raise RuntimeError(f"dp rank {r} exited {p.returncode}:\n"
-                               f"{text[-6000:]}")
     res = []
     for o in outs:
         with open(o) as f:
@@ -2313,6 +2341,388 @@ def phase_dp(tmp: str, manifest: str, one_proc_step_s: float,
         raise AssertionError("; ".join(bad))
     return {"world_one": world_one, "step_ms": step_s * 1e3,
             "launches": [x["launches"] for x in res]}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: tensor parallelism and the row-sharded LM lookup
+# ---------------------------------------------------------------------------
+
+TP_TIMEOUT_S = 600      # the two ranks' whole run; a hang fails the phase
+TP_HALF, TP_STEPS = 10, 20
+TP_DECODE_B, TP_DECODE_T = 16, 175
+
+
+def _tp_overrides(manifest: str, train_dir: str) -> dict:
+    return {"data.train_manifest": manifest, "data.eval_manifest": manifest,
+            "data.batch_size": "16", "data.num_buckets": "1",
+            "train.train_dir": train_dir, "train.learning_rate": "3e-4",
+            "train.log_every": "1", "train.sync_every": "4",
+            "train.checkpoint_every": str(TP_HALF), "train.eval_every": "0",
+            "train.total_steps": str(TP_STEPS), "model.dropout": "0",
+            "mesh.model_axis": "2", "mesh.shard_model": "true"}
+
+
+def _tp_decode_case():
+    """The sharded-LM decode's input: seeded logits at B=16 x 175 frames
+    and ragged lengths, on the card."""
+    import torch
+    logits = _beam_logits(TP_DECODE_B, TP_DECODE_T, seed=31)
+    lens = torch.as_tensor(np.random.default_rng(32).integers(
+        TP_DECODE_T // 2, TP_DECODE_T + 1, TP_DECODE_B), dtype=torch.int32)
+    lens[0] = TP_DECODE_T
+    return logits, lens.cuda()
+
+
+def tp_worker(argv) -> int:
+    """One rank of phase 10: ``chip_smoke.py --tp-worker RANK PORT
+    TRAIN_DIR MANIFEST BUILD_DIR LM OUT``. Builds the kernels into
+    BUILD_DIR, joins a gloo group of two on the one card, runs ``cli
+    train --mesh.model_axis=2 --mesh.shard_model=true`` to step 10 and
+    resumed to 20 (K1, K6 and K7 must launch, K2 to K5 must not), times
+    a step's gather, then decodes B=16 x 175 frames with the row-sharded
+    char LM of LM at ``lm_fusion_960h``'s beam, and writes its replicated
+    leaves' digest, counts, ids and times to OUT."""
+    import torch
+    import torch.distributed as dist
+    from ctc_asr_tpu_torch import train as train_mod
+    from ctc_asr_tpu_torch.config import apply_overrides, preset
+    from ctc_asr_tpu_torch.ops import build
+    from ctc_asr_tpu_torch.ops import lm as lm_mod
+    from ctc_asr_tpu_torch.parallel.decode_dist import (
+        make_sharded_lm_beam_decoder)
+    from ctc_asr_tpu_torch.parallel.dist import (TIMEOUT, gather_columns,
+                                                 grid_groups)
+    from ctc_asr_tpu_torch.parallel.mesh import build_mesh
+    from ctc_asr_tpu_torch.parallel.tp import sharded_keys
+    rank, port = int(argv[0]), int(argv[1])
+    train_dir, manifest, build_dir, lm_path, out_path = argv[2:7]
+    tag = f"[tp rank {rank}]"
+    build.BUILD_ROOT = build_dir
+    build.load()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank, timeout=TIMEOUT)
+    overrides = _tp_overrides(manifest, train_dir)
+    args = ["train", "--preset", "conv_bilstm3", "--device=cuda",
+            *[f"--{k}={v}" for k, v in overrides.items()]]
+    states = []
+    real_train = train_mod.train
+
+    def keep_state(*a, **k):
+        states.append(real_train(*a, **k))
+        return states[-1]
+
+    def run():
+        t = time.perf_counter()
+        out = run_cli(args + [f"--max-steps={TP_HALF}"]) + run_cli(args)
+        return out, time.perf_counter() - t
+
+    try:
+        train_mod.train = keep_state
+        try:
+            (out, wall), launches = _count_launches(
+                run, _LSTM_KERNELS + _GRU_KERNELS)
+        finally:
+            train_mod.train = real_train
+        if f"resumed from step {TP_HALF}" not in out:
+            raise AssertionError(f"{tag} did not resume at step {TP_HALF}")
+        cfg = apply_overrides(preset("conv_bilstm3"), overrides)
+        mesh = build_mesh(cfg.mesh)
+        groups = grid_groups(mesh)
+        sharded = sharded_keys(cfg, mesh)
+        params = states[-1]["params"]
+        rep = {k: v for k, v in params.items() if k not in sharded}
+        shapes = {k: list(v.shape) for k, v in params.items()
+                  if k in sharded}
+        H = cfg.model.rnn_units
+        hp = torch.randn((2, 16, 4 * H // 2), device="cuda")
+        gather_ms = _host_ms(lambda: gather_columns(hp, groups.model), 20)
+        log(f"{tag} cli train (20 steps, resumed at 10) in {wall:.1f} s; "
+            f"launches {launches}; gather of a step's gates [2, 16, "
+            f"{4 * H // 2}] f32 over gloo (host-staged) {gather_ms:.3f} ms")
+        lm = lm_mod.load_lm(lm_path)
+        dcfg = preset("lm_fusion_960h")
+        decode, place = make_sharded_lm_beam_decoder(dcfg, groups.model, lm)
+        table = place(torch.device("cuda"))
+        logits, lens = _tp_decode_case()
+        ids, out_lens = decode(logits, lens, table)
+        decode_ms = _host_ms(lambda: decode(logits, lens, table), 3)
+        log(f"{tag} sharded-LM decode, B={TP_DECODE_B} x {TP_DECODE_T}, "
+            f"beam {dcfg.decode.beam_width}, table rows {table.shape[0]} of "
+            f"{lm['table'].shape[0]}: {decode_ms:.1f} ms a batch")
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump({"launches": launches, "digest": _params_digest(rep),
+                   "shapes": shapes, "gather_ms": gather_ms,
+                   "decode_ms": decode_ms, "ids": ids.cpu().tolist(),
+                   "lens": out_lens.cpu().tolist()}, f)
+    return 0
+
+
+def phase_tp(tmp: str, manifest: str, smi: str) -> dict:
+    """Tensor parallelism on the one card: two processes in a gloo group
+    (NCCL puts no two ranks on one GPU), ``--mesh.model_axis=2
+    --mesh.shard_model=true``, full-width ``conv_bilstm3`` at B=16,
+    dropout 0, each rank a worker process of this script: ``cli train``
+    10 steps to a checkpoint and resumed to 20, then the row-sharded
+    char-LM decode. Step 1 must agree with one process on the same batch
+    (the same plain recurrence), the replicated leaves must be bit-equal
+    across the ranks, the loss must fall, K1, K6 and K7 must launch on
+    each rank and K2 to K5 must not; the decode's ids must equal the
+    replicated-table plain decoder's; ``cli evaluate`` in one process
+    must read the TP checkpoint."""
+    import torch
+    from ctc_asr_tpu_torch import checkpoint as ckpt_mod
+    from ctc_asr_tpu_torch import train as train_mod
+    from ctc_asr_tpu_torch.config import apply_overrides, preset
+    from ctc_asr_tpu_torch.data import DataLoader, read_manifest
+    from ctc_asr_tpu_torch.ops import lm as lm_mod
+    from ctc_asr_tpu_torch.ops.beam import beam_search_decode
+    from ctc_asr_tpu_torch.parallel.tp import hybrid_config
+    train_dir = os.path.join(tmp, "train_tp")
+    overrides = _tp_overrides(manifest, train_dir)
+    cfg = apply_overrides(preset("conv_bilstm3"), overrides)
+    state = train_mod.init_train_state(cfg, "cuda")
+    ckpt_mod.save_checkpoint(train_dir + "/ckpt", 0,
+                             train_mod.state_to_flat(cfg, state))
+    # one process on the model group's first batch, same state, same
+    # (plain) recurrence
+    first = next(DataLoader(read_manifest(manifest), cfg.data,
+                            cfg.features).iter_epoch(0))
+    arrs = [torch.from_numpy(np.ascontiguousarray(getattr(first, f))).cuda()
+            for f in ("samples", "sample_lengths", "labels",
+                      "label_lengths")]
+    one = {}
+    for name, c in (("plain", hybrid_config(cfg)), ("kernel", cfg)):
+        st = train_mod.init_train_state(c, "cuda")
+        with torch.no_grad():
+            for k, v in state["params"].items():
+                st["params"][k].copy_(v)
+        step = train_mod.make_step_fn(c)
+        m = step(st, *arrs)
+        one[name] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        one[name]["ms"] = _host_ms(lambda: step(st, *arrs), 3)
+    corpus = len(DataLoader(read_manifest(manifest), cfg.data, cfg.features,
+                            drop_last=False).global_manifest)
+    lm_path = os.path.join(tmp, "tp_char_lm.npz")
+    lm_mod.save_lm(lm_path, lm_mod.train_char_lm(
+        [u.transcript for u in read_manifest(manifest)], order=4))
+    del state, arrs
+    torch.cuda.empty_cache()
+
+    port = _free_port()
+    outs = [os.path.join(tmp, f"tp_rank{r}.json") for r in range(2)]
+    build_dir = os.path.join(tmp, "build_tp")
+    t0 = time.perf_counter()
+    _run_workers("--tp-worker", [
+        [str(r), str(port), train_dir, manifest, build_dir, lm_path, outs[r]]
+        for r in range(2)], TP_TIMEOUT_S, "[tp")
+    wall = time.perf_counter() - t0
+    res = []
+    for o in outs:
+        with open(o) as f:
+            res.append(json.load(f))
+    recs = _read_metrics(train_dir)
+    if sorted(recs) != list(range(1, TP_STEPS + 1)):
+        raise AssertionError(f"metrics for steps {sorted(recs)}")
+    loss = [recs[k]["loss"] for k in range(1, TP_STEPS + 1)]
+    head, tail = np.mean(loss[:5]), np.mean(loss[-5:])
+    ref = one["plain"]
+    loss_err = abs(recs[1]["loss"] / ref["loss"] - 1)
+    gn_err = abs(recs[1]["grad_norm"] / ref["grad_norm"] - 1)
+    step_s = float(np.median([recs[k]["step_time_s"]
+                              for k in range(TP_HALF + 3, TP_STEPS + 1)]))
+    # the replicated-table plain decoder on the same logits
+    dcfg = preset("lm_fusion_960h").decode
+    lm = lm_mod.load_lm(lm_path)
+    logits, lens = _tp_decode_case()
+
+    def replicated():
+        return beam_search_decode(
+            logits, lens, beam_width=dcfg.beam_width, lm_table=lm["table"],
+            lm_weight=dcfg.lm_weight, word_bonus=dcfg.word_bonus,
+            init_ctx=lm_mod.initial_context(int(lm["order"])),
+            lm_vocab=lm_mod.V)
+
+    want_ids, want_lens = replicated()
+    rep_ms = _host_ms(replicated, 3)
+    ids_equal = all(r["ids"] == want_ids.cpu().tolist()
+                    and r["lens"] == want_lens.cpu().tolist() for r in res)
+    ev = _eval_json(run_cli(["evaluate", "--preset", "conv_bilstm3",
+                             "--ckpt", train_dir, "--device=cuda",
+                             f"--data.eval_manifest={manifest}",
+                             "--data.batch_size=16",
+                             "--data.num_buckets=1"]))
+    log(f"[tp] two ranks, model axis 2, gloo, one card: {wall:.1f} s for "
+        f"both workers; sharded leaves {res[0]['shapes']['rnn/0/fwd/wh']} "
+        f"of rnn/0/fwd/wh a rank; step 1 loss {recs[1]['loss']:.6f} against "
+        f"one process (plain recurrence) {ref['loss']:.6f} (rel err "
+        f"{loss_err:.3e}, limit {STEP_LOSS_RTOL}); grad_norm "
+        f"{recs[1]['grad_norm']:.6f} against {ref['grad_norm']:.6f} (rel err "
+        f"{gn_err:.3e}, limit {STEP_GNORM_RTOL}); loss steps 1-5 mean "
+        f"{head:.4f}, 16-20 mean {tail:.4f}; replicated leaves bit-equal "
+        f"across the ranks: {res[0]['digest'] == res[1]['digest']}")
+    log(f"[tp] step ms at B=16 (host clock): two ranks, model axis 2 "
+        f"{step_s * 1e3:.2f} (median of steps {TP_HALF + 3}-{TP_STEPS}); one "
+        f"process, plain recurrence {one['plain']['ms']:.2f}, kernel path "
+        f"{one['kernel']['ms']:.2f} (median of 3); a step's gate gather "
+        f"{res[0]['gather_ms']:.3f}, {res[1]['gather_ms']:.3f} ms (x "
+        f"{3 * TP_DECODE_T} a forward); {smi}")
+    log(f"[tp decode] row-sharded char LM (order {int(lm['order'])}, "
+        f"{lm['table'].shape[0]} rows, half a rank), B={TP_DECODE_B} x "
+        f"{TP_DECODE_T}, beam {dcfg.beam_width}: ids equal to the "
+        f"replicated-table plain decoder's: {ids_equal}; ms a batch (host "
+        f"clock, median of 3): sharded {res[0]['decode_ms']:.1f}, "
+        f"{res[1]['decode_ms']:.1f}, replicated (one process) {rep_ms:.1f}; "
+        f"{smi}")
+    log(f"[tp] cli evaluate, one process, on the TP checkpoint: wer="
+        f"{ev['wer']:.4f} over {ev['utterances']} utterances")
+    bad = []
+    if res[0]["digest"] != res[1]["digest"]:
+        bad.append("the ranks' replicated leaves differ")
+    if not (loss_err <= STEP_LOSS_RTOL and gn_err <= STEP_GNORM_RTOL):
+        bad.append(f"step 1 against one process: loss {loss_err}, "
+                   f"grad_norm {gn_err}")
+    if not (np.all(np.isfinite(loss)) and tail < head):
+        bad.append(f"loss {loss}")
+    if not ids_equal:
+        bad.append("sharded-LM ids differ from the replicated decoder's")
+    if ev["utterances"] != corpus or not np.isfinite(ev["wer"]):
+        bad.append(f"cli evaluate on the TP checkpoint: {ev}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"launches": [x["launches"] for x in res], "step_ms": step_s * 1e3,
+            "one_ms": one, "gather_ms": res[0]["gather_ms"],
+            "decode_ms": res[0]["decode_ms"], "replicated_ms": rep_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: sequence parallelism
+# ---------------------------------------------------------------------------
+
+SP_B, SP_S, SP_U = 16, 56320, 48
+
+
+def phase_sp(smi: str) -> dict:
+    """Sequence parallelism in one process over ``["cuda:0", "cuda:0"]``
+    (one card, two time chunks), full-width ``conv_bilstm3`` at f32
+    compute with the plain recurrence, B=16 x 56320 samples: K1 on one
+    extended chunk against its plain version; the SP step's loss,
+    gradient norm and per-leaf gradient cosines against the unsharded
+    step; the SP eval step's argmax against the unsharded one; K1, K6
+    and K7 launching in three SP train steps (K2 to K5 not); the step
+    times of both."""
+    import torch
+    from ctc_asr_tpu_torch import train as train_mod
+    from ctc_asr_tpu_torch.config import preset
+    from ctc_asr_tpu_torch.evaluate import make_eval_step
+    from ctc_asr_tpu_torch.ops import stft_cuda
+    from ctc_asr_tpu_torch.ops.ctc_cuda import ctc_loss
+    from ctc_asr_tpu_torch.optim import global_norm
+    from ctc_asr_tpu_torch.parallel import seqpar
+    base = preset("conv_bilstm3")
+    cfg = dataclasses.replace(
+        base, model=dataclasses.replace(
+            base.model, compute_dtype="float32", use_pallas_rnn=False,
+            dropout=0.0),
+        train=dataclasses.replace(base.train, specaugment=False))
+    devices = [torch.device("cuda", 0)] * 2
+    rng = np.random.default_rng(41)
+    samples = _speechlike(SP_B, SP_S, seed=42)
+    slens = torch.as_tensor(rng.integers(SP_S // 2, SP_S + 1, SP_B),
+                            dtype=torch.int32)
+    slens[0] = SP_S
+    labels = torch.as_tensor(rng.integers(0, 28, (SP_B, SP_U)),
+                             dtype=torch.int32)
+    llens = torch.as_tensor(rng.integers(SP_U // 2, SP_U + 1, SP_B),
+                            dtype=torch.int32)
+    arrs = [samples, slens.cuda(), labels.cuda(), llens.cuda()]
+    # K1 on the first chunk extended by the second's halo
+    fc = cfg.features
+    ext = samples[:, :SP_S // 2 + fc.win_length - fc.hop_length].contiguous()
+    got = stft_cuda.stft_features(ext, fc)
+    want = stft_cuda.stft_features_plain(ext, fc)
+    k1_err = (got - want).abs().max().item()
+    k1_ms = cuda_ms(lambda: stft_cuda.stft_features(ext, fc), reps=20)
+    k1_plain_ms = cuda_ms(lambda: stft_cuda.stft_features_plain(ext, fc),
+                          reps=20)
+    log(f"[sp] K1 on one extended chunk {list(ext.shape)} -> "
+        f"{list(got.shape)}: max abs err against the plain version "
+        f"{k1_err:.3e} (limit {STFT_TOL}); {k1_ms:.4f} ms, plain "
+        f"{k1_plain_ms:.4f} ms (CUDA events, median of 20); {smi}")
+    # one step's gradients both ways from one state
+    state = train_mod.init_train_state(cfg, "cuda")
+    params = state["params"]
+    chunks, sl, lab, ll = seqpar.sp_batch_put(devices, arrs)
+    logits, lens = seqpar.sp_encoder(params, chunks, sl, cfg, train=True,
+                                     generators=state["generators"])
+    loss = ctc_loss(logits, lens, lab, ll,
+                    use_kernel=cfg.train.use_pallas_ctc)
+    g_sp = dict(zip(params, torch.autograd.grad(loss, list(
+        params.values()))))
+    loss_ref, g_ref = _step_grads(cfg, params, arrs)
+    loss_err = abs(loss.item() / loss_ref.item() - 1)
+    gn_sp, gn_ref = global_norm(g_sp).item(), global_norm(g_ref).item()
+    gn_err = abs(gn_sp / gn_ref - 1)
+    cos = {k: torch.nn.functional.cosine_similarity(
+        g_sp[k].flatten().double(), g_ref[k].flatten().double(),
+        dim=0).item() for k in g_ref}
+    worst = min(cos, key=cos.get)
+    # eval: the argmax over the unsharded array's frames
+    fixed = {k: v.detach() for k, v in params.items()}
+    sp_logits, sp_lens = seqpar.make_sp_eval_step(cfg, devices)(
+        fixed, samples, arrs[1])
+    ref_logits, ref_lens = make_eval_step(cfg, "cuda")(fixed, samples,
+                                                       arrs[1])
+    T = ref_logits.shape[1]
+    valid = (torch.arange(T, device="cuda")[None, :] < ref_lens[:, None])
+    agree = ((sp_logits[:, :T].argmax(-1) == ref_logits.argmax(-1))
+             & valid).sum().item() / valid.sum().item()
+    lens_equal = torch.equal(sp_lens.cpu(), ref_lens.cpu())
+    log(f"[sp] B={SP_B} x {SP_S} samples, two chunks on one card, f32, "
+        f"plain recurrence: loss {loss.item():.5f} against unsharded "
+        f"{loss_ref.item():.5f} (rel err {loss_err:.3e}, limit "
+        f"{STEP_LOSS_RTOL}); grad_norm {gn_sp:.5f} against {gn_ref:.5f} "
+        f"(rel err {gn_err:.3e}, limit {STEP_GNORM_RTOL}); min per-leaf "
+        f"cosine {cos[worst]:.6f} at {worst} (limit {STEP_MIN_COSINE}); eval "
+        f"argmax agreement {agree:.5f} (limit {ARGMAX_AGREEMENT}) over "
+        f"{T} frames, lengths equal: {lens_equal}")
+    del g_sp, g_ref, logits, loss
+    # the main path: three SP train steps, counted
+    st = train_mod.init_train_state(cfg, "cuda")
+    sp_step = seqpar.make_sp_train_step(cfg, devices)
+    ms, launches = _count_launches(
+        lambda: [sp_step(st, *arrs) for _ in range(3)],
+        _LSTM_KERNELS + _GRU_KERNELS)
+    losses = [float(m["loss"]) for m in ms]
+    log(f"[sp] kernel launches during 3 SP train steps: {launches}; "
+        f"losses {losses}")
+    times: dict = {}
+    for name in ("sp", "unsharded", "unsharded", "sp"):
+        st = train_mod.init_train_state(cfg, "cuda")
+        step = (seqpar.make_sp_train_step(cfg, devices) if name == "sp"
+                else train_mod.make_step_fn(cfg))
+        step(st, *arrs)
+        times.setdefault(name, []).append(
+            _host_ms(lambda: step(st, *arrs), 2))
+    log(f"[sp] step ms at B={SP_B} x 3.52 s, f32, plain recurrence (host "
+        f"clock, median of 2, sp, unsharded, unsharded, sp): SP over two "
+        f"chunks {times['sp']}, unsharded {times['unsharded']}; {smi}")
+    bad = []
+    if not k1_err <= STFT_TOL:
+        bad.append(f"K1 on an SP chunk: {k1_err}")
+    if not (loss_err <= STEP_LOSS_RTOL and gn_err <= STEP_GNORM_RTOL
+            and cos[worst] >= STEP_MIN_COSINE):
+        bad.append(f"SP step against unsharded: loss {loss_err} gnorm "
+                   f"{gn_err} cosine {cos[worst]}")
+    if not (agree >= ARGMAX_AGREEMENT and lens_equal):
+        bad.append(f"SP eval: agreement {agree}, lengths equal {lens_equal}")
+    if not np.all(np.isfinite(losses)):
+        bad.append(f"SP losses {losses}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"launches": launches, "k1_err": k1_err, "k1_ms": k1_ms,
+            "k1_plain_ms": k1_plain_ms, "times": times}
 
 
 def _eval_json(out: str) -> dict:
@@ -2778,9 +3188,12 @@ def main() -> int:
         gru = phase_gru_slice(tmp, sl["manifest"])
         phase_datatools(tmp, sl["manifest"], gru)
         phase_dp(tmp, sl["manifest"], tr["step_s"], dev["smi"])
+        tp = phase_tp(tmp, sl["manifest"], dev["smi"])
+    sp = phase_sp(dev["smi"])
     step = phase_step()
     gru_step = phase_step("gru")
     tl, dl, gl = tr["launches"], dec["launches"], gru["launches"]
+    tpl, spl = tp["launches"][0], sp["launches"]
     k3_yardsticks = k2.pop("bwd")
     # launches: the train run's (for K4/K5 the GRU train run's), the
     # serving run's, the decode run's and the GRU train run's, each
@@ -2790,19 +3203,25 @@ def main() -> int:
          "source": "ctc_asr_tpu_torch/csrc/stft.cu",
          "replaces": "ctc_asr_tpu/ops/stft_pallas.py:102",
          "launches": tl["stft"], "serve_launches": sl["launches"]["stft"],
-         "decode_launches": dl["stft"], "gru_launches": gl["stft"], **k1},
+         "decode_launches": dl["stft"], "gru_launches": gl["stft"],
+         "tp_launches": tpl["stft"], "sp_launches": spl["stft"],
+         "sp_chunk_max_abs_err": sp["k1_err"], "sp_chunk_ms": sp["k1_ms"],
+         "sp_chunk_plain_ms": sp["k1_plain_ms"], **k1},
         {"name": "lstm_fwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/lstm_fwd.cu",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:199",
          "launches": tl["lstm_fwd"], "serve_launches": sl["launches"]["lstm"],
-         "decode_launches": dl["lstm_fwd"],
+         "decode_launches": dl["lstm_fwd"], "tp_launches": tpl["lstm_fwd"],
+         "sp_launches": spl["lstm_fwd"],
          **k2, **{"residual_" + k: v
                   for k, v in k23["lstm_fwd_res"].items()
                   if k != "max_abs_err"}},
         {"name": "lstm_bwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/lstm_bwd.cu",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:247",
-         "launches": tl["lstm_bwd"], **k23["lstm_bwd"], **k3_yardsticks},
+         "launches": tl["lstm_bwd"], "tp_launches": tpl["lstm_bwd"],
+         "sp_launches": spl["lstm_bwd"], **k23["lstm_bwd"],
+         **k3_yardsticks},
         {"name": "gru_fwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/gru_fwd.cu",
          "kernel": "gru_fwd_persistent_kernel",
@@ -2819,12 +3238,15 @@ def main() -> int:
          "source": "ctc_asr_tpu_torch/csrc/ctc.cu",
          "replaces": "ctc_asr_tpu/ops/ctc_pallas.py:97",
          "launches": tl["ctc_alpha"], "gru_launches": gl["ctc_alpha"],
+         "tp_launches": tpl["ctc_alpha"], "sp_launches": spl["ctc_alpha"],
          **k67["ctc_alpha"]},
         {"name": "ctc_beta_grad", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/ctc.cu",
          "replaces": "ctc_asr_tpu/ops/ctc_pallas.py:149",
          "launches": tl["ctc_beta_grad"],
-         "gru_launches": gl["ctc_beta_grad"], **k67["ctc_beta_grad"]},
+         "gru_launches": gl["ctc_beta_grad"],
+         "tp_launches": tpl["ctc_beta_grad"],
+         "sp_launches": spl["ctc_beta_grad"], **k67["ctc_beta_grad"]},
         {"name": "beam_search", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/beam.cu",
          "replaces": "ctc_asr_tpu/ops/beam_pallas.py:107",
@@ -2855,4 +3277,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(sys.argv[2:]))
     sys.exit(main())

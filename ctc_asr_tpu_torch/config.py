@@ -9,9 +9,9 @@ the other. CLI ``--section.key=value`` overrides apply on top.
 The ``use_pallas*`` flags keep their names: in the port they select the
 hand-written CUDA kernel (true) or its plain PyTorch version (false).
 The one field the port does not read (``precompile``: eager PyTorch
-compiles nothing per shape) is kept so that configs round-trip. Of
-``mesh`` it reads the data axis and the multi-process settings, and
-refuses the regimes it does not have yet (``train.check_regime``).
+compiles nothing per shape) is kept so that configs round-trip. It
+reads every field of ``mesh`` and refuses what the reference refuses
+(``train.check_regime``).
 """
 
 from __future__ import annotations
@@ -195,13 +195,14 @@ class DecodeConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """Device mesh / parallelism (data, model and sequence axes,
-    multi-host coordination). The port runs one process a device and
-    reads the data axis: ``coordinator_address``, ``num_processes`` and
-    ``process_id`` form the ``torch.distributed`` group
-    (``parallel.initialize_distributed``: NCCL on CUDA, gloo on the CPU)
-    and ``data_axis`` must agree with its size (``parallel.build_mesh``).
-    ``model_axis > 1``, ``shard_model`` and ``seq_axis > 1`` raise
-    (ROADMAP.md A8)."""
+    multi-host coordination). The port runs one process a device:
+    ``coordinator_address``, ``num_processes`` and ``process_id`` form
+    the ``torch.distributed`` group (``parallel.initialize_distributed``:
+    NCCL on CUDA, gloo on the CPU), laid out as ``data_axis`` x
+    ``model_axis`` processes (``parallel.build_mesh``); ``shard_model``
+    shards the wide leaves over the model axis (``parallel.tp``).
+    ``seq_axis > 1`` is sequence parallelism in one process over that
+    many devices (``parallel.seqpar``)."""
 
     data_axis: int = -1  # -1 = all remaining devices on the data axis
     model_axis: int = 1

@@ -7,7 +7,11 @@ word-LM N-best rescoring on the host), with the reference's
 steady-state RTF accounting. In a formed ``torch.distributed`` group
 each process decodes its own shard of the manifest and the
 per-utterance records are gathered into one corpus
-(``ctc_asr_tpu/evaluate.py:123-130``, ``:206-228``).
+(``ctc_asr_tpu/evaluate.py:123-130``, ``:206-228``), under a model axis
+too: each process evaluates its ``(rank, world)`` shard with the full
+parameters, as the reference does. With ``mesh.seq_axis > 1`` (one
+process) the encoder runs sequence-parallel (``parallel.seqpar``) and
+the decoders take the gathered logits (``evaluate.py:133-148``).
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ from .features import extract_features
 from .metrics import ErrorRateAccumulator
 from .models.encoder import apply_encoder
 from .ops.dispatch import resolve_device
+from .parallel import seqpar
 from .parallel.dist import current_group, gather_records
-from .parallel.mesh import loader_shard
 from .text import decode_ids
 from .train import check_regime, device_batches
 
@@ -127,8 +131,8 @@ def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
 
     ``rtf`` is wall time per second of audio over every batch except
     the first of each length bucket (which pays first-call costs);
-    ``rtf_incl_compile`` includes them. Raises for a parallel regime the
-    port does not have (``train.check_regime``).
+    ``rtf_incl_compile`` includes them. Raises for what the reference
+    refuses (``train.check_regime``).
 
     In a formed group every process calls it: each decodes its strided
     shard (every utterance once, ``drop_last=False``), and the corpus
@@ -136,12 +140,17 @@ def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
     its records in process-major order (rank 0's shard first, ROADMAP.md
     C2); the times and ``audio_seconds`` stay this process's."""
     mesh = check_regime(cfg)
+    if cfg.mesh.seq_axis > 1:
+        eval_step = seqpar.make_sp_eval_step(
+            cfg, seqpar.sp_devices(cfg.mesh.seq_axis, device))
+    else:
+        eval_step = make_eval_step(cfg, device)
     if loader is None:
-        shard_idx, num_shards = loader_shard(mesh)
+        # by process, not by data row: every process decodes its own
+        # utterances with the full parameters, under a model axis too
         loader = DataLoader(read_manifest(cfg.data.eval_manifest), cfg.data,
-                            cfg.features, shard_idx=shard_idx,
-                            num_shards=num_shards, drop_last=False)
-    eval_step = make_eval_step(cfg, device)
+                            cfg.features, shard_idx=mesh.rank,
+                            num_shards=mesh.world, drop_last=False)
     rescorer = None
     if cfg.decode.word_lm_path and cfg.decode.method == "beam":
         decoder, rescorer = make_nbest_decoder(cfg)

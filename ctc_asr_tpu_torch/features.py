@@ -191,6 +191,18 @@ def normalize_features(feats: torch.Tensor, frame_lengths: torch.Tensor,
     return out * maskf
 
 
+def decode_wire(samples: torch.Tensor) -> torch.Tensor:
+    """Raw samples as f32: int16 wire samples scaled by 1/WIRE_SCALE,
+    uint8 mu-law expanded, anything else cast."""
+    if samples.dtype == torch.int16:
+        return samples.to(torch.float32) * (1.0 / WIRE_SCALE)
+    if samples.dtype == torch.uint8:
+        y = samples.to(torch.float32) * (1.0 / 127.5) - 1.0
+        return torch.sign(y) * (
+            torch.exp(torch.abs(y) * float(np.log1p(ULAW_MU))) - 1.0) / ULAW_MU
+    return samples.to(torch.float32)
+
+
 def extract_features(samples: torch.Tensor, sample_lengths: torch.Tensor,
                      cfg: FeatureConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched frontend: [B, S], [B] -> ([B, T, F] f32, [B] int32).
@@ -205,14 +217,7 @@ def extract_features(samples: torch.Tensor, sample_lengths: torch.Tensor,
             return (samples.to(torch.float32) * (1.0 / FEATURE_INT8_SCALE),
                     sample_lengths.to(torch.int32))
         return samples.to(torch.float32), sample_lengths.to(torch.int32)
-    if samples.dtype == torch.int16:
-        samples = samples.to(torch.float32) * (1.0 / WIRE_SCALE)
-    elif samples.dtype == torch.uint8:
-        y = samples.to(torch.float32) * (1.0 / 127.5) - 1.0
-        samples = torch.sign(y) * (
-            torch.exp(torch.abs(y) * float(np.log1p(ULAW_MU))) - 1.0) / ULAW_MU
-    else:
-        samples = samples.to(torch.float32)
+    samples = decode_wire(samples)
     if cfg.use_pallas:
         from .ops.stft_cuda import stft_features
         feats = stft_features(samples.contiguous(), cfg)
@@ -275,17 +280,19 @@ def compute_dataset_stats(manifest, data_cfg, feat_cfg, out_path: str,
 # ---------------------------------------------------------------------------
 
 def axis_masks(u_w: torch.Tensor, u_s: torch.Tensor, length: int,
-               max_width: torch.Tensor, limit: torch.Tensor) -> torch.Tensor:
+               max_width: torch.Tensor, limit: torch.Tensor,
+               pos_start: int = 0) -> torch.Tensor:
     """[B, length] bool: union of the spans of ``u_w``/``u_s`` [B, n]
     (``features._axis_masks``). max_width/limit [B]: per-row maximum
     width and exclusive upper bound for span placement; width-0 spans
-    mask nothing."""
+    mask nothing. ``pos_start`` is the global index of position 0 (a
+    time shard's offset under sequence parallelism)."""
     maxw = torch.minimum(max_width.float(), limit.float())[:, None]
     w = torch.floor(u_w * (maxw + 1.0))                   # [B, n] in [0, maxw]
     lim = limit.float()[:, None]
     s = torch.floor(u_s * torch.clamp_min(lim - w + 1.0, 1.0))
-    pos = torch.arange(length, dtype=torch.float32,
-                       device=u_w.device)[None, None, :]
+    pos = (float(pos_start) + torch.arange(
+        length, dtype=torch.float32, device=u_w.device))[None, None, :]
     spans = (pos >= s[..., None]) & (pos < (s + w)[..., None])
     return spans.any(dim=1)
 

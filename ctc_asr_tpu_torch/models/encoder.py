@@ -107,23 +107,35 @@ def _layer(params: dict, prefix: str) -> dict:
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
 
 
+def _frontend_layer(fn, params: dict, prefix: str, x: torch.Tensor, tp):
+    layer = _layer(params, prefix)
+    if tp is not None and tp.shards(prefix + "w"):
+        return tp.column_parallel(fn, layer, x)
+    return fn(layer, x)
+
+
 def apply_encoder(params: dict, feats: torch.Tensor,
                   frame_lengths: torch.Tensor, cfg: ModelConfig,
                   train: bool = False,
-                  generator: torch.Generator | None = None):
+                  generator: torch.Generator | None = None, tp=None):
     """feats [B, T, F], frame_lengths [B] -> (logits [B, T', C] f32,
     lens [B] int32). The LSTM and GRU recurrences go through the CUDA
     kernel wrappers when ``cfg.use_pallas_rnn`` (the reference's kernel
     switch); the vanilla cell has no kernel and runs its plain recurrence.
     ``train`` applies dropout at ``cfg.dropout`` with masks drawn from
-    ``generator`` (on the features' device)."""
+    ``generator`` (on the features' device).
+
+    ``tp`` (a ``parallel.tp.TensorParallel``) makes it the
+    tensor-parallel encoder: ``params`` then hold this rank's columns of
+    the leaves ``tp`` shards, and those layers run column-parallel."""
     cdt = getattr(torch, cfg.compute_dtype)
     rate = cfg.dropout if train else 0.0
     if cfg.frontend == "dense":
         x = feats
         for i in range(cfg.dense_layers):
-            x = clipped_relu(dense_apply(_layer(params, f"frontend/{i}/"), x,
-                                         cdt), cfg.relu_clip)
+            x = clipped_relu(_frontend_layer(
+                lambda p, v: dense_apply(p, v, cdt), params,
+                f"frontend/{i}/", x, tp), cfg.relu_clip)
             x = dropout(x, rate, generator)
         out_lens = frame_lengths.to(torch.int32)
     elif cfg.frontend == "conv":
@@ -135,8 +147,9 @@ def apply_encoder(params: dict, feats: torch.Tensor,
         x = feats[..., None]                         # [B, T, F, 1] NHWC
         with record_function(FRONTEND_RANGE):
             for i, strides in enumerate(cfg.conv_strides):
-                x = clipped_relu(conv_fn(_layer(params, f"frontend/{i}/"),
-                                         x, strides, cdt), cfg.relu_clip)
+                x = clipped_relu(_frontend_layer(
+                    lambda p, v: conv_fn(p, v, strides, cdt), params,
+                    f"frontend/{i}/", x, tp), cfg.relu_clip)
                 x = dropout(x, rate, generator)
         Bc, Tc, Fc, Cc = x.shape
         x = x.reshape(Bc, Tc, Fc * Cc)               # NHWC flatten order
@@ -153,16 +166,19 @@ def apply_encoder(params: dict, feats: torch.Tensor,
     width = (2 if cfg.bidirectional else 1) * cfg.rnn_units
     for i in range(cfg.rnn_layers):
         layer = _layer(params, f"rnn/{i}/")
+        wx = f"rnn/{i}/fwd/wx" if cfg.bidirectional else f"rnn/{i}/wx"
+        rec = {} if tp is None or not tp.shards(wx) else \
+            {"recurrence": tp.recurrence}
 
-        def body(layer, inp, mask):
+        def body(layer, inp, mask, rec=rec):
             if cfg.bidirectional:
                 y = birnn_apply({"fwd": _layer(layer, "fwd/"),
                                  "bwd": _layer(layer, "bwd/")}, inp,
                                 out_lens, cdt, use_kernel=cfg.use_pallas_rnn,
-                                rnn_type=cfg.rnn_type)
+                                rnn_type=cfg.rnn_type, **rec)
             else:
                 y = rnn_apply(layer, inp, out_lens, cfg.rnn_type, cdt,
-                              use_kernel=cfg.use_pallas_rnn)
+                              use_kernel=cfg.use_pallas_rnn, **rec)
             return dropout(y, rate, mask=mask)
 
         mask = (dropout_mask((x.shape[0], x.shape[1], width), rate,

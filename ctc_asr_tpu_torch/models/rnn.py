@@ -57,6 +57,46 @@ def vanilla_seq_plain(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
     return torch.stack(hs, 1) if T else h.new_zeros((nd, 0, B, H))
 
 
+def init_carry(rnn_type: str, shape, device) -> tuple:
+    """The zero state of a cell: (h, c) for the LSTM, (h,) otherwise."""
+    h = torch.zeros(shape, dtype=torch.float32, device=device)
+    return (h, torch.zeros_like(h)) if rnn_type == "lstm" else (h,)
+
+
+def cell_step(rnn_type: str, xg: torch.Tensor, hp: torch.Tensor,
+              carry: tuple, m: torch.Tensor):
+    """One masked step of a cell from its whole gate rows: ``xg = x @ wx
+    + b`` and ``hp = h @ wh`` [..., G] f32, ``carry`` from
+    ``init_carry``, ``m`` the window mask [..., 1] -> (carry, masked h).
+    The arithmetic of ``lstm_fwd_plain`` / ``gru_fwd_plain`` /
+    ``vanilla_seq_plain`` (and of the reference's scan cells): gate
+    orders LSTM i, f, g, o and GRU r, z, n; outside the window the state
+    carries through and the output is 0. The tensor- and
+    sequence-parallel recurrences share it."""
+    h = carry[0]
+    H = h.shape[-1]
+    if rnn_type == "lstm":
+        gi, gf, gg, go = (xg + hp).split(H, dim=-1)
+        gi, gf, go = torch.sigmoid(gi), torch.sigmoid(gf), torch.sigmoid(go)
+        c_new = gf * carry[1] + gi * torch.tanh(gg)
+        h_new = go * torch.tanh(c_new)
+        c = m * c_new + (1.0 - m) * carry[1]
+        h = m * h_new + (1.0 - m) * h
+        return (h, c), h * m
+    if rnn_type == "gru":
+        xr, xz, xn = xg.split(H, dim=-1)
+        hr, hz, hn = hp.split(H, dim=-1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        h_new = (1.0 - z) * torch.tanh(xn + r * hn) + z * h
+    elif rnn_type == "rnn":
+        h_new = torch.tanh(xg + hp)
+    else:
+        raise ValueError(f"unknown rnn_type {rnn_type!r}")
+    h = m * h_new + (1.0 - m) * h
+    return (h,), h * m
+
+
 _KERNEL_SEQ = {"lstm": (lstm_seq, LstmSeq), "gru": (gru_seq, GruSeq)}
 _PLAIN_SEQ = {"lstm": lstm_seq_plain, "gru": gru_seq_plain,
               "rnn": vanilla_seq_plain}
@@ -89,15 +129,18 @@ def _recurrence(xd: torch.Tensor, wx: torch.Tensor, b: torch.Tensor,
 
 def rnn_apply(params: dict, x: torch.Tensor, lengths: torch.Tensor,
               rnn_type: str, compute_dtype=torch.bfloat16,
-              use_kernel: bool = False) -> torch.Tensor:
+              use_kernel: bool = False,
+              recurrence=_recurrence) -> torch.Tensor:
     """One unidirectional layer of ``rnn_type``: params {"wx", "wh",
-    "b"}; x [T, B, F] -> [T, B, H]."""
+    "b"}; x [T, B, F] -> [T, B, H]. ``recurrence`` computes the layer
+    from direction-major inputs (``_recurrence``, or the column-parallel
+    ``parallel.tp.TensorParallel.recurrence``)."""
     T, B, _ = x.shape
     lens = lengths.to(torch.int32)
     start = torch.zeros((1, B), dtype=torch.int32, device=x.device)
-    out = _recurrence(x[None], params["wx"][None], params["b"][None],
-                      params["wh"][None], start, lens[None],
-                      compute_dtype, use_kernel, rnn_type)
+    out = recurrence(x[None], params["wx"][None], params["b"][None],
+                     params["wh"][None], start, lens[None],
+                     compute_dtype, use_kernel, rnn_type)
     return out[0]
 
 
@@ -125,17 +168,19 @@ def vanilla_apply(params: dict, x: torch.Tensor, lengths: torch.Tensor,
 
 def birnn_apply(params: dict, x: torch.Tensor, lengths: torch.Tensor,
                 compute_dtype=torch.bfloat16, use_kernel: bool = False,
-                rnn_type: str = "lstm") -> torch.Tensor:
+                rnn_type: str = "lstm",
+                recurrence=_recurrence) -> torch.Tensor:
     """params {"fwd": {...}, "bwd": {...}}; x [T, B, F] -> [T, B, 2H]
-    (forward half, then the backward half in natural time)."""
+    (forward half, then the backward half in natural time); both
+    directions go through one ``recurrence`` call (see ``rnn_apply``)."""
     T, B, _ = x.shape
     lens = lengths.to(torch.int32)
     start = torch.stack([torch.zeros_like(lens), T - lens])
     end = torch.stack([lens, torch.full_like(lens, T)])
     fwd, bwd = params["fwd"], params["bwd"]
-    out = _recurrence(torch.stack([x, torch.flip(x, (0,))]),
-                      torch.stack([fwd["wx"], bwd["wx"]]),
-                      torch.stack([fwd["b"], bwd["b"]]),
-                      torch.stack([fwd["wh"], bwd["wh"]]),
-                      start, end, compute_dtype, use_kernel, rnn_type)
+    out = recurrence(torch.stack([x, torch.flip(x, (0,))]),
+                     torch.stack([fwd["wx"], bwd["wx"]]),
+                     torch.stack([fwd["b"], bwd["b"]]),
+                     torch.stack([fwd["wh"], bwd["wh"]]),
+                     start, end, compute_dtype, use_kernel, rnn_type)
     return torch.cat([out[0], torch.flip(out[1], (0,))], dim=-1)

@@ -118,15 +118,19 @@ def beam_search_decode(logits: torch.Tensor, logit_lengths: torch.Tensor,
                        lm_weight: float = 0.0, word_bonus: float = 0.0,
                        init_ctx: int = 0, lm_vocab: int = 28,
                        max_decode_len: int | None = None,
-                       return_nbest: bool = False):
+                       return_nbest: bool = False,
+                       lm_ctx_size: int | None = None):
     """[B, T, C] logits -> (ids [B, U] int32, lengths [B] int32), or with
     ``return_nbest`` the whole beam best-first
     (ids [B, K, U], lengths [B, K], scores [B, K] f32) for host-side
     N-best rescoring (``ops.lm.rescore_nbest_batch``).
 
-    ``lm_table`` is a dense ``[n_ctx, V]`` array of char-LM log-probs;
-    the context id updates as ``(ctx * lm_vocab + c) % n_ctx``. Runs on
-    the device of ``logits``."""
+    ``lm_table`` is a dense ``[n_ctx, V]`` array of char-LM log-probs, or
+    a callable ``ctx [B, K] -> rows [B, K, C - 1]`` (the row-sharded
+    lookup of ``parallel.decode_dist``; ``ops/beam.py:85-89`` of the
+    reference), which then needs ``lm_ctx_size`` = n_ctx. The context id
+    updates as ``(ctx * lm_vocab + c) % n_ctx``. Runs on the device of
+    ``logits``."""
     B, T, C = logits.shape
     if blank_id != C - 1:
         raise ValueError("beam search assumes blank is the last class")
@@ -135,8 +139,15 @@ def beam_search_decode(logits: torch.Tensor, logit_lengths: torch.Tensor,
     U = decode_buffer_len(T, max_decode_len)
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     lens = logit_lengths.to(dev).long()
-    table = None if lm_table is None else padded_lm_table(lm_table, Cr, dev)
-    n_ctx = 1 if table is None else table.shape[0]
+    if callable(lm_table):
+        if lm_ctx_size is None:
+            raise ValueError("a callable lm_table needs lm_ctx_size")
+        lookup, n_ctx = lm_table, lm_ctx_size
+    elif lm_table is not None:
+        table = padded_lm_table(lm_table, Cr, dev)
+        lookup, n_ctx = table.__getitem__, table.shape[0]
+    else:
+        lookup, n_ctx = None, 1
 
     f32 = dict(dtype=torch.float32, device=dev)
     i64 = dict(dtype=torch.int64, device=dev)
@@ -194,8 +205,8 @@ def beam_search_decode(logits: torch.Tensor, logit_lengths: torch.Tensor,
                             match.transpose(1, 2).to(torch.int32))
 
         # ---- ranking scores -------------------------------------------
-        if table is not None:
-            ext_lm = lm[:, :, None] + table[ctx]
+        if lookup is not None:
+            ext_lm = lm[:, :, None] + lookup(ctx)
             ext_ctx = (ctx[:, :, None] * lm_vocab + chars[None, None, :]) \
                 % n_ctx
         else:

@@ -87,11 +87,15 @@ class Adam:
 
     @torch.no_grad()
     def step(self, params: dict[str, torch.Tensor],
-             grads: dict[str, torch.Tensor], state: dict) -> torch.Tensor:
+             grads: dict[str, torch.Tensor], state: dict,
+             gnorm: torch.Tensor | None = None) -> torch.Tensor:
         """Update ``params`` and ``state`` in place from ``grads``;
-        returns the global norm of the unclipped gradients."""
+        returns the global norm of the unclipped gradients. ``gnorm``,
+        when given, is that norm computed by the caller (the
+        tensor-parallel step's, over every rank's shards)."""
         c = self.cfg
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         if c.grad_clip_norm > 0:
             grads = clip_by_global_norm(grads, c.grad_clip_norm, gnorm)
         count = state["count"] + 1

@@ -23,8 +23,15 @@ same loop on its loader shard (``parallel.loader_shard``), the step
 averages the gradients and the loss over the group with one
 ``all_reduce`` before the same clip and Adam update on every rank, the
 replicas start equal (rank 0's state broadcast after init or restore),
-and only process 0 writes metrics and checkpoints. The tensor- and
-sequence-parallel regimes are not ported yet (ROADMAP.md A8) and raise.
+and only process 0 writes metrics and checkpoints.
+
+Tensor parallelism (``--mesh.model_axis=M --mesh.shard_model=true``
+over ``data x M`` processes, ``parallel.tp``): the ranks of a model
+group read the same batches and hold column shards of the wide leaves;
+checkpoints are written with full leaves, gathered over rank 0's model
+group. Sequence parallelism (``--mesh.seq_axis=N``, one process,
+``parallel.seqpar``): the step shards the time axis of one batch over N
+devices.
 
 State: ``{"params": {k: tensor}, "opt_state": {...}, "step": int,
 "generators": {"dropout": Generator, "specaugment": Generator}}`` on
@@ -52,8 +59,11 @@ from .ops.ctc_cuda import ctc_loss
 from .ops.dispatch import resolve_device
 from .optim import Adam
 from .parallel.dist import (all_reduce_mean, broadcast_state, current_group,
-                            reseed_for_rank)
-from .parallel.mesh import ProcessMesh, build_mesh, check_ported, loader_shard
+                            gather_state, grid_groups, reseed_for_row,
+                            shard_state)
+from .parallel import seqpar
+from .parallel.mesh import ProcessMesh, build_mesh, loader_shard
+from .parallel.tp import TensorParallel, hybrid_config, sharded_keys
 from .utils.profiling import maybe_trace
 
 _GENERATORS = ("dropout", "specaugment")
@@ -110,7 +120,8 @@ def state_to_flat(cfg: Config, state: dict) -> dict:
         cfg.train, cfg.train.seed)
 
 
-def make_step_fn(cfg: Config, group=None):
+def make_step_fn(cfg: Config, group=None, mesh: ProcessMesh | None = None,
+                 groups=None):
     """``(state, samples, sample_lens, labels, label_lens) -> metrics``:
     one train step on the state's device, updating ``state`` in place.
     Inputs are tensors on that device; metrics are 0-d device tensors
@@ -122,26 +133,31 @@ def make_step_fn(cfg: Config, group=None):
     ``all_reduce`` (``parallel.dist.all_reduce_mean``: the pmean of the
     shards' means, as the reference takes it, so a shard with an
     infeasible row weighs as much as one without) before the norm, the
-    clip and Adam, which then agree on every rank; with more than one
-    rank each rank's generators are seeded anew at every step
-    (``parallel.dist.reseed_for_rank``)."""
+    clip and Adam, which then agree on every rank. With more than one
+    data row (``mesh``; without one, each rank is a row) each rank's
+    generators are seeded anew at every step from its row
+    (``parallel.dist.reseed_for_row``).
+
+    On a tensor-parallel ``mesh`` it is the step of
+    ``make_sharded_train_step`` with ``shard_model``
+    (``ctc_asr_tpu/parallel/dist.py:231-270``, ``_make_tp_step_fn``);
+    ``groups`` are the mesh's (``parallel.dist.grid_groups``), formed here
+    when not given."""
+    if mesh is not None and mesh.tensor_parallel:
+        return _make_tp_step_fn(cfg, mesh, groups or grid_groups(mesh))
     tcfg = cfg.train
     opt = Adam(tcfg)
-    world = 1 if group is None else dist.get_world_size(group)
-    rank = 0 if group is None else dist.get_rank(group)
+    if mesh is None:
+        rows = 1 if group is None else dist.get_world_size(group)
+        row = 0 if group is None else dist.get_rank(group)
+    else:
+        rows, row = mesh.data, mesh.data_row
 
     def step_fn(state, samples, sample_lengths, labels, label_lengths):
         gens = state["generators"]
-        if world > 1:
-            reseed_for_rank(gens, tcfg.seed, state["step"], rank)
-        with torch.no_grad():
-            feats, flens = extract_features(samples, sample_lengths,
-                                            cfg.features)
-            if tcfg.specaugment:
-                feats = spec_augment(feats, flens, tcfg.sa_time_masks,
-                                     tcfg.sa_time_ratio, tcfg.sa_freq_masks,
-                                     tcfg.sa_freq_width,
-                                     gens["specaugment"])
+        if rows > 1:
+            reseed_for_row(gens, tcfg.seed, state["step"], row)
+        feats, flens = _train_features(cfg, gens, samples, sample_lengths)
         params = state["params"]
         logits, logit_lens = apply_encoder(params, feats, flens, cfg.model,
                                            train=True,
@@ -155,6 +171,77 @@ def make_step_fn(cfg: Config, group=None):
             grads = dict(zip(grads, avg))
         lr = opt.schedule(state["step"])
         gnorm = opt.step(params, grads, state["opt_state"])
+        state["step"] += 1
+        return {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
+
+    return step_fn
+
+
+def _train_features(cfg: Config, gens: dict, samples, sample_lengths):
+    """Features from the raw samples and SpecAugment, with no gradient."""
+    tcfg = cfg.train
+    with torch.no_grad():
+        feats, flens = extract_features(samples, sample_lengths,
+                                        cfg.features)
+        if tcfg.specaugment:
+            feats = spec_augment(feats, flens, tcfg.sa_time_masks,
+                                 tcfg.sa_time_ratio, tcfg.sa_freq_masks,
+                                 tcfg.sa_freq_width, gens["specaugment"])
+    return feats, flens
+
+
+def _make_tp_step_fn(cfg: Config, mesh: ProcessMesh, groups):
+    """The tensor-parallel step. The kernel policy is ``_hybrid_cfg``'s
+    (``parallel.tp.hybrid_config``): K1 and the CTC kernels on the data
+    shard, the plain recurrences column-parallel (``parallel.tp``).
+
+    - The loss is the mean over the data group (``pmean(loss, 'data')``,
+      ``dist.py:222``); it is equal across a model group by
+      construction.
+    - A sharded leaf's gradient is averaged over the data group (the
+      ranks holding the same columns).
+    - A replicated leaf's gradient is averaged over the whole world: it
+      is equal across a model group by construction, so that is the mean
+      over the data group, and it makes the model ranks' copies agree
+      bit for bit.
+    - The global norm is ``sqrt(sum over the model group of the sharded
+      leaves' squares + the replicated leaves' squares)``; the clip and
+      Adam then update the local shards."""
+    hcfg = hybrid_config(cfg)
+    tcfg = cfg.train
+    opt = Adam(tcfg)
+    sharded = sharded_keys(cfg, mesh)
+    tp = TensorParallel(groups.model, sharded)
+
+    def step_fn(state, samples, sample_lengths, labels, label_lengths):
+        gens = state["generators"]
+        if mesh.data > 1:
+            reseed_for_row(gens, tcfg.seed, state["step"], mesh.data_row)
+        feats, flens = _train_features(hcfg, gens, samples, sample_lengths)
+        params = state["params"]
+        logits, logit_lens = apply_encoder(params, feats, flens, hcfg.model,
+                                           train=True,
+                                           generator=gens["dropout"], tp=tp)
+        loss = ctc_loss(logits, logit_lens, labels, label_lengths,
+                        use_kernel=tcfg.use_pallas_ctc)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        shard = [k for k in grads if k in sharded]
+        rep = [k for k in grads if k not in sharded]
+        if mesh.data > 1:
+            grads.update(zip(shard, all_reduce_mean(
+                [grads[k] for k in shard], groups.data)))
+        *avg, loss = all_reduce_mean([*(grads[k] for k in rep), loss],
+                                     groups.world)
+        grads.update(zip(rep, avg))
+        with torch.no_grad():
+            sq = sum((torch.sum(grads[k].float() ** 2) for k in shard),
+                     torch.zeros((), device=loss.device))
+            dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=groups.model)
+            gnorm = torch.sqrt(sq + sum(torch.sum(grads[k].float() ** 2)
+                                        for k in rep))
+        lr = opt.schedule(state["step"])
+        gnorm = opt.step(params, grads, state["opt_state"], gnorm)
         state["step"] += 1
         return {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
 
@@ -190,14 +277,13 @@ def device_batches(src, loader: DataLoader | None, dev: torch.device,
 
 def check_regime(cfg: Config) -> ProcessMesh:
     """The process grid this run takes part in, from the formed
-    ``torch.distributed`` group (one process without one). Raises first
-    for a regime the port does not have yet (a model axis,
-    ``shard_model``, a sequence axis: ROADMAP.md A8), then when
-    ``mesh.num_processes > 1`` but no group of that size is formed.
-    Training and evaluation call it before any work, so that such a
-    config never runs as if it were something else (the reference
-    branches on these settings: ``ctc_asr_tpu/evaluate.py:123-148``)."""
-    check_ported(cfg.mesh)
+    ``torch.distributed`` group (one process without one). Raises for
+    what the reference refuses (sequence parallelism with more than one
+    process) and when ``mesh.num_processes > 1`` but no group of that
+    size is formed. Training and evaluation call it before any work, so
+    that such a config never runs as if it were something else (the
+    reference branches on these settings: ``ctc_asr_tpu/train.py:297-331``,
+    ``ctc_asr_tpu/evaluate.py:123-148``)."""
     return build_mesh(cfg.mesh)
 
 
@@ -216,12 +302,18 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
     checkpoint and then takes rank 0's state, the step is the
     data-parallel one, and ranks other than 0 write no metrics (unless
     a ``writer`` is given) and no checkpoints. ``eval_fn`` runs on every
-    rank."""
+    rank. On a tensor-parallel mesh the state holds this rank's columns
+    of the wide leaves (the returned state too), a checkpoint holds the
+    full leaves, and ``eval_fn`` is given the full parameters. With
+    ``mesh.seq_axis > 1`` (one process) the step is the
+    sequence-parallel one over ``parallel.seqpar.sp_devices``."""
     mesh = check_regime(cfg)
     group = current_group()
     tcfg = cfg.train
     dev = resolve_device(device)
     total = max_steps if max_steps is not None else tcfg.total_steps
+    sp_devices = (seqpar.sp_devices(cfg.mesh.seq_axis, dev)
+                  if cfg.mesh.seq_axis > 1 else None)
     if loader is None:
         shard_idx, num_shards = loader_shard(mesh)
         loader = DataLoader(read_manifest(cfg.data.train_manifest), cfg.data,
@@ -243,7 +335,16 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
         state = init_train_state(cfg, dev)
     if group is not None:
         broadcast_state(state, group)
-    step_fn = make_step_fn(cfg, group)
+    groups, sharded = None, frozenset()
+    if mesh.tensor_parallel:
+        groups = grid_groups(mesh)
+        sharded = sharded_keys(cfg, mesh)
+        shard_state(state, mesh, sharded)
+        step_fn = make_step_fn(cfg, group, mesh, groups)
+    elif sp_devices is not None:
+        step_fn = seqpar.make_sp_train_step(cfg, sp_devices)
+    else:
+        step_fn = make_step_fn(cfg, group, mesh)
     meter = ThroughputMeter()
     best_wer = meta.get("best_wer", float("inf"))
 
@@ -252,13 +353,22 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
         from .utils.heartbeat import Heartbeat
         heartbeat = Heartbeat(tcfg.heartbeat_seconds).start()
 
+    def full_state():
+        # under TP a collective of the model group: its ranks all call it
+        return gather_state(state, sharded, groups.model) if sharded \
+            else state
+
     def save(step, batch, is_best=False):
+        if mesh.data_row != 0:
+            # the replicas are equal and process 0 writes them: the other
+            # rows skip even the copy of their state to the host; row 0's
+            # other ranks take part in the gather of the shards
+            return
+        full = full_state()
         if mesh.rank != 0:
-            # the replicas are equal and process 0 writes them: the
-            # others skip even the copy of their state to the host
             return
         ckpt_mod.save_checkpoint(
-            ckpt_dir, step, state_to_flat(cfg, state),
+            ckpt_dir, step, state_to_flat(cfg, full),
             metadata={"loader": {"epoch": batch.epoch,
                                  "position": batch.position + 1,
                                  "seed": cfg.data.seed},
@@ -299,7 +409,7 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
                     t_last = now
                 if eval_fn is not None and tcfg.eval_every > 0 \
                         and step % tcfg.eval_every == 0:
-                    eval_metrics = eval_fn(state)
+                    eval_metrics = eval_fn(full_state())
                     writer.write(step, **{f"eval_{k}": v
                                           for k, v in eval_metrics.items()})
                     wer = eval_metrics.get("wer", float("inf"))

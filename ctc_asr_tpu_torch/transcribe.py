@@ -57,6 +57,5 @@ def check_single_process(cfg: Config) -> None:
             or m.shard_model or m.seq_axis > 1:
         raise NotImplementedError(
             "transcribe runs in one process on one device, as the "
-            "reference's does: drop the mesh settings (--mesh.*); data "
-            "parallelism is for train and evaluate, tensor and sequence "
-            "parallelism are not ported yet (ROADMAP.md A8)")
+            "reference's does: drop the mesh settings (--mesh.*); data, "
+            "tensor and sequence parallelism are for train and evaluate")

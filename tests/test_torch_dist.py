@@ -545,23 +545,34 @@ def test_dp_step_at_world_one_is_the_single_process_step(corpus):
     (dict(), 1, 1), (dict(), 4, 4), (dict(data_axis=4), 4, 4),
     (dict(data_axis=2), 4, "mesh 2x1 != 4 devices"),
     (dict(model_axis=3), 4, "4 devices not divisible by model axis 3"),
-    (dict(model_axis=2), 4, "A8"), (dict(shard_model=True), 2, "A8"),
-    (dict(seq_axis=2), 2, "A8"),
+    # the regimes of ROADMAP.md A8, under the ids they had when the port
+    # refused them all: now built, or refused as the reference refuses
+    pytest.param(dict(model_axis=2, shard_model=True), 4, 2,
+                 id="mesh5-4-A8"),
+    pytest.param(dict(shard_model=True), 2, 2, id="mesh6-2-A8"),
+    pytest.param(dict(seq_axis=2), 2,
+                 "seq_axis=2 is not supported with multi-process",
+                 id="mesh7-2-A8"),
     (dict(num_processes=2), 1, "no.*is formed"),
     (dict(num_processes=4), 2, "has 2"),
 ])
 def test_build_mesh_sizes_and_refusals(mesh, world, want):
+    """The grid's sizes, and what the reference refuses: a model axis
+    that does not divide the processes, a mesh that does not tile them,
+    sequence parallelism with more than one process. Under a model axis
+    the ranks of one data row read the same loader shard."""
     from ctc_asr_tpu_torch.config import MeshConfig
     from ctc_asr_tpu_torch.parallel import build_mesh, loader_shard
     cfg = MeshConfig(**mesh)
     if isinstance(want, int):
+        model = max(1, cfg.model_axis)
         for rank in range(world):
             m = build_mesh(cfg, world, rank)
-            assert m.data == want
-            assert loader_shard(m) == (rank, world)
+            assert (m.data, m.model) == (want, model)
+            assert loader_shard(m) == (rank // model, want)
+            assert m.tensor_parallel == (cfg.shard_model and model > 1)
         return
-    err = NotImplementedError if want == "A8" else (
-        RuntimeError if "formed" in want or "has" in want else ValueError)
+    err = RuntimeError if "formed" in want or "has" in want else ValueError
     with pytest.raises(err, match=want):
         build_mesh(cfg, world, 0)
 

@@ -51,7 +51,9 @@ def test_walk_finds_the_whole_port():
                      "utils.heartbeat", "utils.tb_events", "utils.profiling",
                      "ops.lm", "ops.beam", "ops.beam_cuda", "ops.gru_cuda",
                      "ops.build", "models.encoder", "models.rnn",
-                     "parallel", "parallel.mesh", "parallel.dist"):
+                     "parallel", "parallel.mesh", "parallel.dist",
+                     "parallel.tp", "parallel.seqpar",
+                     "parallel.decode_dist"):
         assert f"ctc_asr_tpu_torch.{expected}" in names
 
 

@@ -333,35 +333,50 @@ def test_nan_trap_raises(corpus, tmp_path):
 
 
 def test_unported_regimes_raise(corpus, tmp_path):
-    """The model and sequence axes raise before any work, naming A8;
-    ``num_processes=2`` with no process group formed raises; a
-    coordinator alone is one process, as in the reference (its
-    ``initialize_distributed`` is a no-op without ``num_processes > 1``)."""
+    """What the reference refuses raises before any work: sequence
+    parallelism with more than one process, a model axis that does not
+    divide the processes (one here), ``num_processes=2`` with no process
+    group formed. The regimes themselves run: ``shard_model`` on a model
+    axis of one process, ``seq_axis=2`` in one process over two CPU
+    shards, and a coordinator alone is one process, as in the reference
+    (its ``initialize_distributed`` is a no-op without ``num_processes >
+    1``)."""
     cfg = _cfg(corpus, train_dir=str(tmp_path / "run"))
-    for mesh in (dict(seq_axis=2), dict(model_axis=2),
-                 dict(shard_model=True)):
+    for mesh, err, match in (
+            (dict(seq_axis=2, num_processes=2), ValueError,
+             "seq_axis=2 is not supported with multi-process"),
+            (dict(model_axis=2), ValueError,
+             "1 devices not divisible by model axis 2"),
+            (dict(model_axis=2, shard_model=True), ValueError,
+             "not divisible by model axis 2"),
+            (dict(num_processes=2), RuntimeError, "no.*is formed")):
         bad = dataclasses.replace(cfg, mesh=dataclasses.replace(
             cfg.mesh, **mesh))
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(err, match=match):
             t_train.train(bad, "cpu", max_steps=1)
-    bad = dataclasses.replace(cfg, mesh=dataclasses.replace(
-        cfg.mesh, num_processes=2))
-    with pytest.raises(RuntimeError, match="no.*is formed"):
-        t_train.train(bad, "cpu", max_steps=1)
     assert not os.path.exists(tmp_path / "run")
-    alone = dataclasses.replace(cfg, mesh=dataclasses.replace(
-        cfg.mesh, coordinator_address="localhost:1234"))
-    assert t_train.train(alone, "cpu", max_steps=1)["step"] == 1
+    for i, mesh in enumerate((dict(coordinator_address="localhost:1234"),
+                              dict(shard_model=True), dict(seq_axis=2))):
+        ok = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, **mesh), train=dataclasses.replace(
+                cfg.train, train_dir=str(tmp_path / f"ok{i}")))
+        assert t_train.train(ok, "cpu", max_steps=1)["step"] == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             t_train.train(cfg, "cuda", max_steps=1)
+        seq = dataclasses.replace(cfg, mesh=dataclasses.replace(
+            cfg.mesh, seq_axis=2))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            t_train.train(seq, "cuda", max_steps=1)
 
 
 def test_unported_regimes_raise_in_evaluate_and_transcribe(corpus, tmp_path):
     """``evaluate`` (and with it the train-time ``eval_fn`` of ``cli
-    train``) and ``cli evaluate`` refuse the model and sequence axes
-    (naming A8) and ``num_processes=2`` with no group formed before they
-    load or decode anything; a coordinator alone is one process, so ``cli
+    train``) and ``cli evaluate`` refuse what the reference refuses
+    (sequence parallelism with more than one process, a model axis that
+    does not divide the processes) and ``num_processes=2`` with no group
+    formed before they load or decode anything; a coordinator alone is
+    one process and ``seq_axis=2`` runs in one process, so ``cli
     evaluate`` goes on to the (missing) checkpoint. ``cli transcribe``
     runs in one process and refuses every mesh setting; the
     single-process config evaluates."""
@@ -372,11 +387,13 @@ def test_unported_regimes_raise_in_evaluate_and_transcribe(corpus, tmp_path):
     wav = read_manifest(corpus)[0].path
     missing = str(tmp_path / "no_such_checkpoint.npz")
     for mesh, err, match in (
-            (dict(seq_axis=2), NotImplementedError, "A8"),
-            (dict(model_axis=2), NotImplementedError, "A8"),
+            (dict(seq_axis=2, num_processes=2), ValueError,
+             "not supported with multi-process"),
+            (dict(model_axis=2), ValueError, "not divisible by model axis"),
             (dict(num_processes=2), RuntimeError, "no.*is formed"),
             (dict(coordinator_address="localhost:1234"), FileNotFoundError,
-             "no_such_checkpoint")):
+             "no_such_checkpoint"),
+            (dict(seq_axis=2), FileNotFoundError, "no_such_checkpoint")):
         bad = dataclasses.replace(cfg, mesh=dataclasses.replace(
             cfg.mesh, **mesh))
         if err is not FileNotFoundError:
