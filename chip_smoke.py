@@ -150,7 +150,20 @@ Phases (any failure exits non-zero; no phase is skipped):
    gradient norm 2e-2, every leaf's cosine >= 0.999); the SP eval step's
    argmax agreement >= 99.5%; K1, K6 and K7 launching in three SP train
    steps, K2 to K5 not; both steps' times.
-12. Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and
+12. The accuracy ladder's runner (``ctc_asr_tpu_torch.scripts.
+   run_ladder_hard``) in process at full width and tiny scale: 64 / 16 /
+   32 utterances of the hard corpus, B=16, 2% of the step budgets,
+   ``--rungs pr1`` and then ``--rungs ds2,ds3 --specaug-ab``, each
+   counted from 0. K1 (MFCC in the first run, mel in the second), K2,
+   K3, K6 and K7 must launch in both, K8 in the second, K4 and K5 in
+   neither; the records and sidecars must carry the reference's record
+   keys and sidecar names (``docs/results/ladder_hard_r4``). Phases 3
+   and 5 also hold K2 and K3 at the ladder's B=32 shapes (nd=1, H=256,
+   T=734; nd=2, H=800, T=367), K1 at its B=32 x 7.36 s batches (pr1's
+   MFCC, 26 of 80 mels, and the conv rungs' log-mel) and K6 / K7 at
+   pr1's B=32, T'=734, U=72 (S=145).
+13. Prints a ``{"kernels": [...]}`` line (each kernel's launches on every
+   path, ``ladder_launches`` among them), the ``nvidia-smi`` line, and
    last ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -163,6 +176,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -429,6 +443,11 @@ def phase_stft() -> dict:
              ("mfcc B=4 x 1.5 s", FeatureConfig(feature_type="mfcc",
                                                 n_mfcc=13, n_mels=40), 4,
               24000, 1.0),
+             # the ladder's batches at its longest bucket (7.36 s): pr1's
+             # MFCC (26 of 80 mels) and the conv rungs' log-mel
+             ("mfcc 26 of 80 B=32 x 7.36 s (ladder pr1)",
+              preset("pr1_mfcc_uni").features, 32, 117760, 1.0),
+             ("mel B=32 x 7.36 s (ladder ds2 / ds3)", mel, 32, 117760, 1.0),
              # the decode slice's batches (evaluate) and requests (transcribe)
              ("mel B=16 x 3.52 s", mel, 16, 56320, 1.0),
              ("mel B=1 x 3.52 s", mel, 1, 56320, 1.0),
@@ -642,6 +661,13 @@ def phase_lstm() -> dict:
         # one step: no barrier, no product
         ("bi nd=2 B=128 T=1 H=512", 2, 1, 128, 512,
          np.concatenate([[1, 0], np.ones(126, np.int64)]), None),
+        # the ladder's batch of 32 at its longest bucket (7.36 s: 734
+        # frames, 367 after the conv stride): pr1's uni-LSTM-256 and
+        # ds3's BiLSTM-800
+        ("uni nd=1 B=32 T=734 H=256 ragged", 1, 734, 32, 256,
+         np.concatenate([[734, 1], rng.integers(300, 735, 30)]), "_b32_h256"),
+        ("bi nd=2 B=32 T=367 H=800 ragged", 2, 367, 32, 800,
+         np.concatenate([[367, 1], rng.integers(150, 368, 30)]), "_b32_h800"),
     ]
     for label, nd, T, B, H, lens, key in cases:
         args = _lstm_inputs(nd, T, B, H, lens, seed=nd)
@@ -786,11 +812,13 @@ def _ctc_small_cases() -> tuple[float, float]:
     return worst_alpha, worst
 
 
-def phase_ctc() -> dict:
+def _ctc_case(B: int, T: int, U: int, seed: int) -> dict:
+    """K6 and K7 against their plain versions at [T, B, S = 2U + 1], with
+    their times, device times, bounds and ``ctc_loss``'s times; raises on
+    any disagreement. Returns {kernel: entry}."""
     import torch
     from ctc_asr_tpu_torch.ops import ctc_cuda
-    small_alpha_err, small_err = _ctc_small_cases()
-    lpz, skip, lens, ends = _ctc_inputs(128, 399, 96, 29, seed=7)
+    lpz, skip, lens, ends = _ctc_inputs(B, T, U, 29, seed=seed)
     alphas, nll = ctc_cuda.ctc_alpha(lpz, skip, lens, ends)
     grad = ctc_cuda.ctc_beta_grad(lpz, alphas, skip, lens, ends, nll)
     palphas, pnll = ctc_cuda.ctc_alpha_plain(lpz, skip, lens, ends)
@@ -798,7 +826,7 @@ def phase_ctc() -> dict:
                                          pnll)
     torch.cuda.synchronize()
     feas = pnll < 1e29
-    lib_fwd, lib_bwd = _library_ctc_ms(128, 399, 96, 29, seed=7)
+    lib_fwd, lib_bwd = _library_ctc_ms(B, T, U, 29, seed=seed)
     T, B, S = lpz.shape
     alpha_err = (alphas - palphas).abs().max().item()
     nll_err = ((nll - pnll).abs() / pnll.abs())[feas].max().item()
@@ -812,7 +840,7 @@ def phase_ctc() -> dict:
             "library_ms": lib_fwd,
             **bound(4 * (2 * T * B * S + B * S), 12 * T * B * S, PEAK_F32),
             "max_abs_err": (nll - pnll)[feas].abs().max().item(),
-            "alpha_max_abs_err": max(alpha_err, small_alpha_err),
+            "alpha_max_abs_err": alpha_err,
             "ms": cuda_ms(lambda: ctc_cuda.ctc_alpha(lpz, skip, lens, ends),
                           reps=20),
             "device_ms": _device_ms(lambda: ctc_cuda.ctc_alpha(
@@ -822,7 +850,7 @@ def phase_ctc() -> dict:
         "ctc_beta_grad": {
             "library_ms": lib_bwd,
             **bound(4 * (3 * T * B * S + B * S), 14 * T * B * S, PEAK_F32),
-            "max_abs_err": max(grad_err, small_err),
+            "max_abs_err": grad_err,
             "ms": cuda_ms(lambda: ctc_cuda.ctc_beta_grad(
                 lpz, alphas, skip, lens, ends, nll), reps=20),
             "device_ms": _device_ms(lambda: ctc_cuda.ctc_beta_grad(
@@ -830,22 +858,43 @@ def phase_ctc() -> dict:
             "plain_ms": cuda_ms(lambda: ctc_cuda.ctc_beta_grad_plain(
                 lpz, alphas, skip, lens, ends, nll), reps=3, warmup=1)},
     }
-    log(f"[K6/K7 ctc] B=128 T=399 U=96 S=193: alpha max abs err="
+    log(f"[K6/K7 ctc] B={B} T={T} U={U} S={S}: alpha max abs err="
         f"{alpha_err:.3e} (equal bits required) nll rel err={nll_err:.3e} "
         f"(tol {CTC_NLL_RTOL}) grad max abs err={grad_err:.3e} (tol "
         f"{CTC_GRAD_ATOL}) grad finite={finite} infeasible row "
         f"nll={nll[-1].item():.3e}")
     for k, v in res.items():
-        log(f"[K6/K7 ctc] {k}: kernel {v['ms']:.4f} ms (device "
+        log(f"[K6/K7 ctc] B={B} T={T} {k}: kernel {v['ms']:.4f} ms (device "
             f"{v['device_ms']:.4f} ms) plain "
             f"{v['plain_ms']:.4f} ms bound {v['bound_ms']:.4f} ms by "
             f"{v['bound_by']} (chain of {T} steps) ctc_loss "
             f"{v['library_ms']:.4f} ms")
     if not (alpha_err == 0.0 and nll_err <= CTC_NLL_RTOL
             and grad_err <= CTC_GRAD_ATOL and finite and infeasible_ok):
-        raise AssertionError(f"K6/K7: alpha err {alpha_err}, nll err "
-                             f"{nll_err}, grad err {grad_err}, finite "
-                             f"{finite}, infeasible {infeasible_ok}")
+        raise AssertionError(f"K6/K7 at B={B} T={T} U={U}: alpha err "
+                             f"{alpha_err}, nll err {nll_err}, grad err "
+                             f"{grad_err}, finite {finite}, infeasible "
+                             f"{infeasible_ok}")
+    return res
+
+
+def phase_ctc() -> dict:
+    """K6 / K7 at the train step's B=128, T'=399, U=96 (the kernels
+    line's times) and at the ladder's longest: pr1 has no conv stride, so
+    B=32 reaches T'=734 frames with U <= 72 (S <= 145)."""
+    small_alpha_err, small_err = _ctc_small_cases()
+    res = _ctc_case(128, 399, 96, seed=7)
+    ladder = _ctc_case(32, 734, 72, seed=11)
+    for k, v in res.items():
+        v["ladder_case"] = {"shape": "B=32 T=734 U=72 S=145", **ladder[k]}
+    res["ctc_alpha"]["alpha_max_abs_err"] = max(
+        res["ctc_alpha"]["alpha_max_abs_err"], small_alpha_err,
+        ladder["ctc_alpha"]["alpha_max_abs_err"])
+    res["ctc_alpha"]["max_abs_err"] = max(
+        res["ctc_alpha"]["max_abs_err"], ladder["ctc_alpha"]["max_abs_err"])
+    res["ctc_beta_grad"]["max_abs_err"] = max(
+        res["ctc_beta_grad"]["max_abs_err"], small_err,
+        ladder["ctc_beta_grad"]["max_abs_err"])
     return res
 
 
@@ -859,8 +908,11 @@ def phase_lstm_train() -> dict:
     rng = np.random.default_rng(3)
     # B=16 is cli train's batch: it plans 16 units a block for both
     # kernels, where B=128 at H=512 plans 32 (K3's stacked product)
+    # B=32 at the ladder's longest bucket: pr1's uni-LSTM-256, ds3's
+    # BiLSTM-800
     cases = [("", 2, 399, 128, 512), ("_h800", 2, 399, 128, 800),
-             (None, 2, 200, 16, 512), (None, 2, 1, 128, 512)]
+             (None, 2, 200, 16, 512), (None, 2, 1, 128, 512),
+             ("_b32_h256", 1, 734, 32, 256), ("_b32_h800", 2, 367, 32, 800)]
     out = {"lstm_fwd_res": {"max_abs_err": 0.0},
            "lstm_bwd": {"max_abs_err": 0.0, "max_rel_err": 0.0,
                         "design": "persistent"}}
@@ -2725,6 +2777,100 @@ def phase_sp(smi: str) -> dict:
             "k1_plain_ms": k1_plain_ms, "times": times}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the accuracy ladder's runner
+# ---------------------------------------------------------------------------
+
+LADDER_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                          "results", "ladder_hard_r4")
+LADDER_ARGS = ["--n-train", "64", "--n-dev", "16", "--n-test", "32",
+               "--batch", "16", "--steps-scale", "0.02", "--lm-weights", "0.6"]
+
+
+def _ladder_counters() -> dict:
+    from ctc_asr_tpu_torch.ops import beam_cuda
+    c = _train_counters()
+    c["beam"] = (beam_cuda.beam_search_decode_cuda, "launches")
+    return c
+
+
+def _decode_kind(decode: str) -> str:
+    """A record's decode string without the selected weights' values."""
+    return re.sub(r"=[0-9.]+", "=", decode)
+
+
+def phase_ladder(tmp: str) -> dict:
+    """``run_ladder_hard`` in process at full width and tiny scale (64 /
+    16 / 32 utterances of the hard corpus, B=16, 2% of the step budgets):
+    ``--rungs pr1`` (MFCC, uni-LSTM-256), then ``--rungs ds2,ds3
+    --specaug-ab`` on the same corpus, each counted from 0. K1, K2, K3,
+    K6 and K7 must launch in both, K8 in the second, K4 and K5 in
+    neither; the records and sidecars must carry the reference's
+    record keys and sidecar names (``docs/results/ladder_hard_r4``)."""
+    from ctc_asr_tpu_torch.scripts import run_ladder_hard
+    out = os.path.join(tmp, "ladder")
+    arch = os.path.join(tmp, "ladder_archive")
+    counters = _ladder_counters()
+    runs, records = {}, []
+    t0 = time.perf_counter()
+    for tag, rungs in (("pr1", ["--rungs", "pr1"]),
+                       ("ds2+ds3", ["--rungs", "ds2,ds3", "--specaug-ab"])):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            records += run_ladder_hard.main(
+                ["--out", out, "--archive", arch, "--device", "cuda",
+                 *LADDER_ARGS, *rungs])
+        runs[tag] = {k: getattr(fn, attr) for k, (fn, attr)
+                     in counters.items()}
+        log(f"[ladder] {tag}: {time.perf_counter() - t1:.1f} s, kernel "
+            f"launches {runs[tag]}")
+    bad = []
+    for tag, launches in runs.items():
+        want = [k for k in launches if k not in _GRU_KERNELS
+                and (k != "beam" or tag != "pr1")]
+        idle = [k for k in want if launches[k] <= 0]
+        stray = [k for k in launches if k not in want and launches[k] > 0]
+        if idle or stray:
+            bad.append(f"{tag}: never launched {idle}, off the path but "
+                       f"launched {stray}")
+    with open(os.path.join(LADDER_REF, "ladder_results.jsonl")) as f:
+        ref = [json.loads(line) for line in f]
+    ref = [r for r in ref if not r["rung"].startswith(
+        "deepspeech_beam+specaug")]
+    shape = [(r["rung"], _decode_kind(r["decode"]), sorted(r))
+             for r in records]
+    want = [(r["rung"], _decode_kind(r["decode"]), sorted(r)) for r in ref]
+    if shape != want:
+        bad.append(f"records {shape} against the reference's {want}")
+    names = sorted(os.listdir(os.path.join(arch, "per_utt")))
+    ref_names = sorted(n for n in os.listdir(os.path.join(LADDER_REF,
+                                                          "per_utt"))
+                       if not n.startswith("deepspeech_beam+specaug"))
+    if names != ref_names:
+        bad.append(f"sidecars {names} against the reference's {ref_names}")
+    for n in names:
+        with open(os.path.join(arch, "per_utt", n)) as f:
+            pu = json.load(f)["per_utt"]
+        if len(pu) != 32 or any(len(u) != 4 for u in pu):
+            bad.append(f"sidecar {n}: {len(pu)} utterances")
+    with open(os.path.join(arch, "ladder_results.jsonl")) as f:
+        archived = [json.loads(line) for line in f]
+    if archived != records:   # both runs share --out: one archive
+        bad.append(f"the archive holds {len(archived)} records, the runs "
+                   f"made {len(records)}")
+    wers = [r["test_wer"] for r in records]
+    if not all(np.isfinite(wers)):
+        bad.append(f"test WERs {wers}")
+    log(f"[ladder] {len(records)} records, {len(names)} sidecars of 32 "
+        f"utterances; test WER {wers}; {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    total = {k: runs["pr1"][k] + runs["ds2+ds3"][k] for k in counters}
+    return {"launches": total, "mfcc_stft": runs["pr1"]["stft"]}
+
+
 def _eval_json(out: str) -> dict:
     return json.loads(out[out.index("\n{") + 1:])
 
@@ -3189,6 +3335,7 @@ def main() -> int:
         phase_datatools(tmp, sl["manifest"], gru)
         phase_dp(tmp, sl["manifest"], tr["step_s"], dev["smi"])
         tp = phase_tp(tmp, sl["manifest"], dev["smi"])
+        lad = phase_ladder(tmp)
     sp = phase_sp(dev["smi"])
     step = phase_step()
     gru_step = phase_step("gru")
@@ -3196,8 +3343,9 @@ def main() -> int:
     tpl, spl = tp["launches"][0], sp["launches"]
     k3_yardsticks = k2.pop("bwd")
     # launches: the train run's (for K4/K5 the GRU train run's), the
-    # serving run's, the decode run's and the GRU train run's, each
-    # counted from 0 over its own run
+    # serving run's, the decode run's, the GRU train run's, the TP, SP and
+    # ladder runs', each counted from 0 over its own run
+    ll = lad["launches"]
     kernels = [
         {"name": "stft_mel", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/stft.cu",
@@ -3206,13 +3354,15 @@ def main() -> int:
          "decode_launches": dl["stft"], "gru_launches": gl["stft"],
          "tp_launches": tpl["stft"], "sp_launches": spl["stft"],
          "sp_chunk_max_abs_err": sp["k1_err"], "sp_chunk_ms": sp["k1_ms"],
-         "sp_chunk_plain_ms": sp["k1_plain_ms"], **k1},
+         "sp_chunk_plain_ms": sp["k1_plain_ms"],
+         "ladder_launches": ll["stft"],
+         "ladder_mfcc_launches": lad["mfcc_stft"], **k1},
         {"name": "lstm_fwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/lstm_fwd.cu",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:199",
          "launches": tl["lstm_fwd"], "serve_launches": sl["launches"]["lstm"],
          "decode_launches": dl["lstm_fwd"], "tp_launches": tpl["lstm_fwd"],
-         "sp_launches": spl["lstm_fwd"],
+         "sp_launches": spl["lstm_fwd"], "ladder_launches": ll["lstm_fwd"],
          **k2, **{"residual_" + k: v
                   for k, v in k23["lstm_fwd_res"].items()
                   if k != "max_abs_err"}},
@@ -3220,18 +3370,21 @@ def main() -> int:
          "source": "ctc_asr_tpu_torch/csrc/lstm_bwd.cu",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:247",
          "launches": tl["lstm_bwd"], "tp_launches": tpl["lstm_bwd"],
-         "sp_launches": spl["lstm_bwd"], **k23["lstm_bwd"],
+         "sp_launches": spl["lstm_bwd"], "ladder_launches": ll["lstm_bwd"],
+         **k23["lstm_bwd"],
          **k3_yardsticks},
         {"name": "gru_fwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/gru_fwd.cu",
          "kernel": "gru_fwd_persistent_kernel",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:474",
-         "launches": gl["gru_fwd"], **k45["gru_fwd"]},
+         "launches": gl["gru_fwd"], "ladder_launches": ll["gru_fwd"],
+         **k45["gru_fwd"]},
         {"name": "gru_bwd", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/gru_bwd.cu",
          "kernel": "gru_bwd_persistent_kernel",
          "replaces": "ctc_asr_tpu/ops/lstm_pallas.py:511",
-         "launches": gl["gru_bwd"], **k45["gru_bwd"],
+         "launches": gl["gru_bwd"], "ladder_launches": ll["gru_bwd"],
+         **k45["gru_bwd"],
          "db_err_vs_f64": k5_f64["kernel"],
          "plain_db_err_vs_f64": k5_f64["plain"]},
         {"name": "ctc_alpha", "route": "cuda",
@@ -3239,18 +3392,19 @@ def main() -> int:
          "replaces": "ctc_asr_tpu/ops/ctc_pallas.py:97",
          "launches": tl["ctc_alpha"], "gru_launches": gl["ctc_alpha"],
          "tp_launches": tpl["ctc_alpha"], "sp_launches": spl["ctc_alpha"],
-         **k67["ctc_alpha"]},
+         "ladder_launches": ll["ctc_alpha"], **k67["ctc_alpha"]},
         {"name": "ctc_beta_grad", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/ctc.cu",
          "replaces": "ctc_asr_tpu/ops/ctc_pallas.py:149",
          "launches": tl["ctc_beta_grad"],
          "gru_launches": gl["ctc_beta_grad"],
          "tp_launches": tpl["ctc_beta_grad"],
-         "sp_launches": spl["ctc_beta_grad"], **k67["ctc_beta_grad"]},
+         "sp_launches": spl["ctc_beta_grad"],
+         "ladder_launches": ll["ctc_beta_grad"], **k67["ctc_beta_grad"]},
         {"name": "beam_search", "route": "cuda",
          "source": "ctc_asr_tpu_torch/csrc/beam.cu",
          "replaces": "ctc_asr_tpu/ops/beam_pallas.py:107",
-         "launches": dl["beam"], **k8},
+         "launches": dl["beam"], "ladder_launches": ll["beam"], **k8},
     ]
     log(f"[step] train step ms at B=128 x 8 s: LSTM kernel path "
         f"{step['kernel_ms']:.1f}, plain path {step['plain_ms']:.1f}; GRU "

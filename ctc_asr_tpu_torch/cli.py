@@ -182,8 +182,11 @@ def cmd_transcribe(argv):
 def cmd_compare(argv):
     """Paired-bootstrap comparison of two systems evaluated on the SAME
     manifest: `cli compare a.json b.json` where each file is an
-    `evaluate --dump-utts` dump. Reports the corpus-WER delta (A - B),
-    its 95% CI, and p(A better) (metrics.paired_bootstrap)."""
+    `evaluate --dump-utts` dump or a ladder per_utt sidecar. Reports the
+    corpus-WER delta (A - B), its 95% CI, and p(A better)
+    (metrics.paired_bootstrap). Raises when the two disagree on any
+    utterance's reference word and character counts (wc, cc): then the
+    utterances or their order differ and no delta means anything."""
     p = argparse.ArgumentParser(prog="compare")
     p.add_argument("a")
     p.add_argument("b")
@@ -194,6 +197,10 @@ def cmd_compare(argv):
     for path in (args.a, args.b):
         with open(path) as f:
             recs.append(json.load(f)["per_utt"])
+    counts = [[(u[1], u[3]) for u in rs] for rs in recs]
+    if counts[0] != counts[1]:
+        raise ValueError(f"{args.a} and {args.b}: the per-utterance "
+                         f"(wc, cc) differ (another split or order)")
     out = paired_bootstrap(recs[0], recs[1], n_resamples=args.resamples)
     print(json.dumps(out, indent=2))
     lo, hi = out["wer_delta_ci95"]

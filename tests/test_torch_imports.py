@@ -53,7 +53,9 @@ def test_walk_finds_the_whole_port():
                      "ops.build", "models.encoder", "models.rnn",
                      "parallel", "parallel.mesh", "parallel.dist",
                      "parallel.tp", "parallel.seqpar",
-                     "parallel.decode_dist"):
+                     "parallel.decode_dist", "scripts",
+                     "scripts.run_ladder_hard", "scripts.analyze_ladder",
+                     "scripts.continue_rung"):
         assert f"ctc_asr_tpu_torch.{expected}" in names
 
 
