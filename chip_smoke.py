@@ -162,9 +162,28 @@ Phases (any failure exits non-zero; no phase is skipped):
    T=734; nd=2, H=800, T=367), K1 at its B=32 x 7.36 s batches (pr1's
    MFCC, 26 of 80 mels, and the conv rungs' log-mel) and K6 / K7 at
    pr1's B=32, T'=734, U=72 (S=145).
-13. Prints a ``{"kernels": [...]}`` line (each kernel's launches on every
-   path, ``ladder_launches`` among them), the ``nvidia-smi`` line, and
-   last ``{"ok": true, "device": {...}}``.
+13. The OOV rung and settler (``scripts.run_oov``) at full width on a
+   tiny r4big (``run_ladder_hard --rungs ds2sa,ds3sa`` as in phase 12,
+   each arm's last checkpoint named ``step_00008000.npz``), on 32 / 16 /
+   32 utterances: K1, K2 and K8 must launch in ``run_oov``, K3 to K7
+   not; its 19 records and 11 sidecars must carry the reference's keys,
+   labels and names (``docs/results/oov_r5``).
+14. The five round-1 synth runners (``scripts.run_synth_e2e``, ``_ds2``,
+   ``_lm``, ``_ds3``, ``_holdout``) at full width on their default
+   corpora, 20-40 steps each, counted together: K1, K2, K3, K6, K7 and
+   K8 must launch, K4 and K5 not; each returns the reference's JSON
+   keys, and in e2e the plain beam search and K8 give the same WER.
+   Phase 3 also holds each kernel at these runners' own batches against
+   its plain version: K1 at e2e's MFCC (26 of 40 mels, B=8 x
+   1.71 s) and ds3's log-mel (B=8 x 2.79 s); K2 and K3 at nd=1, B=8,
+   T=171, H=256 (e2e), nd=2, B=16, T=135, H=256 (ds2) and nd=2, B=8,
+   T=140, H=800 (ds3); K8 at beam 16 (e2e B=8 x 171, ds2 B=16 x 135,
+   holdout B=16 x 189, acoustic; synth_lm's order-3 fusion with the beam
+   emitted for its N-best) and at beam 64 (ds3, B=8 x 140).
+15. Prints a ``{"kernels": [...]}`` line (each kernel's launches on every
+   path, ``ladder_launches``, ``oov_launches`` and ``synth_launches``
+   among them), the ``nvidia-smi`` line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -448,6 +467,12 @@ def phase_stft() -> dict:
              ("mfcc 26 of 80 B=32 x 7.36 s (ladder pr1)",
               preset("pr1_mfcc_uni").features, 32, 117760, 1.0),
              ("mel B=32 x 7.36 s (ladder ds2 / ds3)", mel, 32, 117760, 1.0),
+             # the synth runners' longest batches: e2e's MFCC (26 of 40
+             # mels) at B=8 x 1.71 s, ds3's log-mel at B=8 x 2.79 s
+             ("mfcc 26 of 40 B=8 x 1.71 s (synth e2e)",
+              FeatureConfig(feature_type="mfcc", n_mfcc=26, n_mels=40), 8,
+              27360, 1.0),
+             ("mel B=8 x 2.79 s (synth ds3)", mel, 8, 44640, 1.0),
              # the decode slice's batches (evaluate) and requests (transcribe)
              ("mel B=16 x 3.52 s", mel, 16, 56320, 1.0),
              ("mel B=1 x 3.52 s", mel, 1, 56320, 1.0),
@@ -668,6 +693,16 @@ def phase_lstm() -> dict:
          np.concatenate([[734, 1], rng.integers(300, 735, 30)]), "_b32_h256"),
         ("bi nd=2 B=32 T=367 H=800 ragged", 2, 367, 32, 800,
          np.concatenate([[367, 1], rng.integers(150, 368, 30)]), "_b32_h800"),
+        # the synth runners' batches at their longest utterance: e2e's
+        # uni-LSTM-256 (dense frontend, 171 frames), ds2's BiLSTM-256 at
+        # B=16 and ds3's BiLSTM-800 at B=8 (2.7 / 2.79 s after the conv
+        # stride)
+        ("uni nd=1 B=8 T=171 H=256 ragged (synth e2e)", 1, 171, 8, 256,
+         np.concatenate([[171, 1], rng.integers(18, 172, 6)]), "_synth_e2e"),
+        ("bi nd=2 B=16 T=135 H=256 ragged (synth ds2)", 2, 135, 16, 256,
+         np.concatenate([[135, 1], rng.integers(22, 136, 14)]), "_synth_ds2"),
+        ("bi nd=2 B=8 T=140 H=800 ragged (synth ds3)", 2, 140, 8, 800,
+         np.concatenate([[140, 1], rng.integers(18, 141, 6)]), "_synth_ds3"),
     ]
     for label, nd, T, B, H, lens, key in cases:
         args = _lstm_inputs(nd, T, B, H, lens, seed=nd)
@@ -900,8 +935,9 @@ def phase_ctc() -> dict:
 
 def phase_lstm_train() -> dict:
     """K2 in residual mode and K3 at the train step's shape, at the ds3
-    width, at cli train's batch of 16 and at T=1, each held to the plain
-    versions; two runs must give equal bits."""
+    width, at cli train's batch of 16, at T=1, at the ladder's and at the
+    synth runners' batches, each held to the plain versions; two runs
+    must give equal bits."""
     import torch
     from ctc_asr_tpu_torch.ops import lstm_cuda
     dev = torch.device("cuda")
@@ -910,9 +946,13 @@ def phase_lstm_train() -> dict:
     # kernels, where B=128 at H=512 plans 32 (K3's stacked product)
     # B=32 at the ladder's longest bucket: pr1's uni-LSTM-256, ds3's
     # BiLSTM-800
+    # the synth runners' batches: e2e's uni-LSTM-256 at B=8, ds2's
+    # BiLSTM-256 at B=16, ds3's BiLSTM-800 at B=8
     cases = [("", 2, 399, 128, 512), ("_h800", 2, 399, 128, 800),
              (None, 2, 200, 16, 512), (None, 2, 1, 128, 512),
-             ("_b32_h256", 1, 734, 32, 256), ("_b32_h800", 2, 367, 32, 800)]
+             ("_b32_h256", 1, 734, 32, 256), ("_b32_h800", 2, 367, 32, 800),
+             ("_synth_e2e", 1, 171, 8, 256), ("_synth_ds2", 2, 135, 16, 256),
+             ("_synth_ds3", 2, 140, 8, 800)]
     out = {"lstm_fwd_res": {"max_abs_err": 0.0},
            "lstm_bwd": {"max_abs_err": 0.0, "max_rel_err": 0.0,
                         "design": "persistent"}}
@@ -1362,7 +1402,8 @@ def _beam_logits(B: int, T: int, seed: int):
 
 def phase_beam() -> dict:
     """K8 against its plain version on seeded logits at B=128, T=400 in
-    four modes, then at the decode path's own shapes."""
+    four modes, then at the decode path's and the synth runners' own
+    shapes."""
     import torch
     from ctc_asr_tpu_torch.ops import beam_cuda
     B, T, C, K = 128, 400, 29, 64
@@ -1422,19 +1463,48 @@ def phase_beam() -> dict:
                           "bound_by")})
     # one request, as ``cli transcribe`` gives it, then the decode path's
     # own shapes: a batch of ``evaluate`` (B=16, 175 frames, the whole
-    # beam emitted for rescoring) and a ~1 s request; every row full
-    kw = dict(fused, lm_table=tables[4], beam_width=K, max_decode_len=T)
-    shapes = [("B=1 T=400 order-4 fusion", logits[:1], lens[:1], False),
+    # beam emitted for rescoring) and a ~1 s request; every row full.
+    # Then the synth runners' batches at their longest utterance, ragged:
+    # e2e (B=8, 171 frames), ds2 and holdout (B=16, 135 / 189 frames) at
+    # beam 16, synth_lm's order-3 fusion with the whole beam emitted for
+    # its N-best rescoring, and ds3 at beam 64 (B=8, 140 frames)
+    tables[3] = torch.log_softmax(
+        2 * torch.randn(28 ** 2, 28, generator=g, device="cuda"), dim=-1)
+    full = dict(fused, lm_order=4, beam_width=K)
+    synth = dict(beam_width=16, lm_order=None)
+    shapes = [("B=1 T=400 order-4 fusion", logits[:1], lens[:1], full,
+               False, False),
               ("B=16 T=175 order-4 fusion, N-best emit",
-               _beam_logits(16, 175, 10), None, True),
+               _beam_logits(16, 175, 10), None, full, True, False),
               ("B=1 T=100 order-4 fusion", _beam_logits(1, 100, 11), None,
-               False)]
+               full, False, False),
+              ("B=8 T=171 K=16 acoustic (synth e2e)",
+               _beam_logits(8, 171, 12), 171, synth, False, True),
+              ("B=16 T=135 K=16 acoustic (synth ds2)",
+               _beam_logits(16, 135, 13), 135, synth, False, True),
+              ("B=16 T=189 K=16 acoustic (synth holdout)",
+               _beam_logits(16, 189, 14), 189, synth, False, True),
+              ("B=16 T=135 K=16 order-3 fusion, N-best emit (synth lm)",
+               _beam_logits(16, 135, 15), 135,
+               dict(lm_weight=0.6, word_bonus=0.5, lm_order=3,
+                    beam_width=16), True, True),
+              ("B=8 T=140 K=64 acoustic (synth ds3)",
+               _beam_logits(8, 140, 16), 140,
+               dict(beam_width=K, lm_order=None), False, True)]
     res["shapes"] = {}
-    for label, lg, ln, nbest_emit in shapes:
+    for label, lg, ln, mode, nbest_emit, time_plain in shapes:
         Bs, Ts = lg.shape[:2]
         if ln is None:
             ln = torch.full((Bs,), Ts, dtype=torch.int32, device="cuda")
-        kw = dict(kw, max_decode_len=Ts)
+        elif isinstance(ln, int):   # ragged: row 0 full, row 1 one frame
+            r = np.random.default_rng(ln)
+            ln_np = r.integers(Ts // 8, Ts + 1, Bs).astype(np.int32)
+            ln_np[0], ln_np[1] = Ts, 1
+            ln = torch.from_numpy(ln_np).cuda()
+        mode = dict(mode)
+        order, Ks = mode.pop("lm_order"), mode["beam_width"]
+        table = tables.get(order)
+        kw = dict(mode, lm_table=table, max_decode_len=Ts)
         agree = beam_agreement(
             beam_cuda.beam_search_decode_cuda(lg, ln, return_nbest=True,
                                               **kw),
@@ -1442,14 +1512,20 @@ def phase_beam() -> dict:
                                                **kw))
         ms = cuda_ms(lambda: beam_cuda.beam_search_decode_cuda(
             lg, ln, return_nbest=nbest_emit, **kw), reps=10)
-        bd = _beam_bound(ln.cpu().numpy(), Bs, K, C, Ts,
-                         K if nbest_emit else 1, tables[4].numel() * 4)
+        plain_ms = cuda_ms(lambda: beam_cuda.beam_search_decode_plain(
+            lg, ln, return_nbest=nbest_emit, **kw), reps=2, warmup=0) \
+            if time_plain else None
+        bd = _beam_bound(ln.cpu().numpy(), Bs, Ks, C, Ts,
+                         Ks if nbest_emit else 1,
+                         0 if table is None else table.numel() * 4)
         log(f"[K8 beam] {label}: rows excused {agree['excused']}, score rel "
             f"err {agree['max_rel_err']:.3e}; kernel {ms:.4f} ms = "
-            f"{1e3 * ms / Ts:.2f} µs a step; bound {bd['bound_ms']:.4f} ms "
-            f"by {bd['bound_by']}")
+            f"{1e3 * ms / Ts:.2f} µs a step; plain "
+            + (f"{plain_ms:.1f} ms" if time_plain else "not timed")
+            + f"; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
         res["shapes"][label] = {"ms": ms, "us_per_step": 1e3 * ms / Ts,
-                                **agree, **bd}
+                                "plain_ms": plain_ms, **agree, **bd}
+        res["max_abs_err"] = max(res["max_abs_err"], agree["max_abs_err"])
     res["ms_b1"] = res["shapes"]["B=1 T=400 order-4 fusion"]["ms"]
     return res
 
@@ -2787,6 +2863,26 @@ LADDER_ARGS = ["--n-train", "64", "--n-dev", "16", "--n-test", "32",
                "--batch", "16", "--steps-scale", "0.02", "--lm-weights", "0.6"]
 
 
+def _zero(counters: dict) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def _read(counters: dict) -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+
+def _path_check(tag: str, launches: dict, want: tuple) -> list:
+    """Kernels of the path that never launched, and kernels off it that
+    did."""
+    idle = [k for k in want if launches[k] <= 0]
+    stray = [k for k in launches if k not in want and launches[k] > 0]
+    if idle or stray:
+        return [f"{tag}: never launched {idle}, off the path but launched "
+                f"{stray}"]
+    return []
+
+
 def _ladder_counters() -> dict:
     from ctc_asr_tpu_torch.ops import beam_cuda
     c = _train_counters()
@@ -2815,26 +2911,20 @@ def phase_ladder(tmp: str) -> dict:
     t0 = time.perf_counter()
     for tag, rungs in (("pr1", ["--rungs", "pr1"]),
                        ("ds2+ds3", ["--rungs", "ds2,ds3", "--specaug-ab"])):
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
+        _zero(counters)
         t1 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             records += run_ladder_hard.main(
                 ["--out", out, "--archive", arch, "--device", "cuda",
                  *LADDER_ARGS, *rungs])
-        runs[tag] = {k: getattr(fn, attr) for k, (fn, attr)
-                     in counters.items()}
+        runs[tag] = _read(counters)
         log(f"[ladder] {tag}: {time.perf_counter() - t1:.1f} s, kernel "
             f"launches {runs[tag]}")
     bad = []
     for tag, launches in runs.items():
-        want = [k for k in launches if k not in _GRU_KERNELS
-                and (k != "beam" or tag != "pr1")]
-        idle = [k for k in want if launches[k] <= 0]
-        stray = [k for k in launches if k not in want and launches[k] > 0]
-        if idle or stray:
-            bad.append(f"{tag}: never launched {idle}, off the path but "
-                       f"launched {stray}")
+        bad += _path_check(tag, launches, tuple(
+            k for k in launches if k not in _GRU_KERNELS
+            and (k != "beam" or tag != "pr1")))
     with open(os.path.join(LADDER_REF, "ladder_results.jsonl")) as f:
         ref = [json.loads(line) for line in f]
     ref = [r for r in ref if not r["rung"].startswith(
@@ -2869,6 +2959,150 @@ def phase_ladder(tmp: str) -> dict:
         raise AssertionError("; ".join(bad))
     total = {k: runs["pr1"][k] + runs["ds2+ds3"][k] for k in counters}
     return {"launches": total, "mfcc_stft": runs["pr1"]["stft"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the OOV rung and the settler on a tiny r4big
+# ---------------------------------------------------------------------------
+
+OOV_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                       "results", "oov_r5")
+OOV_ARGS = ["--n-bigtest", "32", "--n-oov-dev", "16", "--n-oov-test", "32",
+            "--lm-sentences", "512"]
+
+
+def _oov_label(rec: dict) -> tuple:
+    if "compare" in rec:
+        return ("compare", rec["compare"], rec["a"], rec["b"])
+    return ("arm", rec["arm"], _decode_kind(rec["decode"]), rec["split"])
+
+
+def phase_oov(tmp: str) -> dict:
+    """``run_oov`` in process at full width on a tiny r4big: ``run_ladder_hard
+    --rungs ds2sa,ds3sa`` (64 / 16 / 32 utterances, B=16, 2% of the step
+    budgets), each arm's last checkpoint copied to ``step_00008000.npz``,
+    then ``run_oov`` on 32 / 16 / 32 utterances and LMs of 512 sentences,
+    counted from 0: K1, K2 and K8 must launch, K3 to K7 not (it trains
+    nothing). The 19 records and the 11 sidecars must carry the
+    reference's keys, labels and names (``docs/results/oov_r5``)."""
+    import shutil
+    from ctc_asr_tpu_torch.scripts import run_ladder_hard, run_oov
+    r4big = os.path.join(tmp, "r4big")
+    out, arch = os.path.join(tmp, "oov"), os.path.join(tmp, "oov_archive")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_ladder_hard.main(["--out", r4big, "--device", "cuda",
+                              *LADDER_ARGS, "--rungs", "ds2sa,ds3sa"])
+    for arm in ("ds2_specaug", "ds3sa"):
+        ckpt = os.path.join(r4big, f"train_{arm}", "ckpt")
+        last = sorted(os.listdir(ckpt))[-1]
+        shutil.copy(os.path.join(ckpt, last),
+                    os.path.join(ckpt, "step_00008000.npz"))
+    t1 = time.perf_counter()
+    counters = _ladder_counters()
+    _zero(counters)
+    with contextlib.redirect_stdout(io.StringIO()):
+        records = run_oov.main(["--r4big", r4big, "--out", out, "--archive",
+                                arch, "--device", "cuda", *OOV_ARGS])
+    launches = _read(counters)
+    t2 = time.perf_counter()
+    log(f"[oov] tiny r4big {t1 - t0:.1f} s; run_oov {t2 - t1:.1f} s, kernel "
+        f"launches {launches}")
+    bad = _path_check("run_oov", launches, ("stft", "lstm_fwd", "beam"))
+    with open(os.path.join(OOV_REF, "oov_results.jsonl")) as f:
+        ref = [json.loads(line) for line in f]
+    shape = [(_oov_label(r), sorted(r)) for r in records]
+    want = [(_oov_label(r), sorted(r)) for r in ref]
+    if shape != want:
+        bad.append(f"records {shape} against the reference's {want}")
+    names = sorted(os.listdir(os.path.join(arch, "per_utt")))
+    ref_names = sorted(os.listdir(os.path.join(OOV_REF, "per_utt")))
+    if names != ref_names:
+        bad.append(f"sidecars {names} against the reference's {ref_names}")
+    for n in names:
+        with open(os.path.join(arch, "per_utt", n)) as f:
+            pu = json.load(f)["per_utt"]
+        if len(pu) != 32 or any(len(u) != 4 for u in pu):
+            bad.append(f"sidecar {n}: {len(pu)} utterances")
+    wers = [r["test_wer"] for r in records if "test_wer" in r]
+    if len(wers) != 11 or not all(np.isfinite(wers)):
+        bad.append(f"test WERs {wers}")
+    log(f"[oov] {len(records)} records, {len(names)} sidecars of 32 "
+        f"utterances; test WER {wers}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the round-1 synth runners
+# ---------------------------------------------------------------------------
+
+SYNTH_RUNS = [
+    ("run_synth_e2e", ["--steps", "40"]),
+    ("run_synth_ds2", ["--steps", "40"]),
+    ("run_synth_lm", []),
+    ("run_synth_ds3", ["--steps", "20"]),
+    ("run_synth_holdout", ["--steps", "40", "--specaugment"]),
+]
+# the reference's JSON keys (scripts/run_synth_*.py)
+SYNTH_KEYS = {
+    "run_synth_e2e": ["train_steps", "train_wall_s"] + [
+        f"{t}_{m}" for t in ("greedy", "beam_xla", "beam_pallas")
+        for m in ("wer", "cer", "rtf")],
+    "run_synth_ds2": ["train_steps", "train_wall_s", "greedy_wer",
+                      "greedy_rtf", "beam_pallas_wer", "beam_pallas_rtf"],
+    "run_synth_lm": [f"{t}_{m}" for t in ("beam", "beam_charlm",
+                                           "beam_rescored")
+                     for m in ("wer", "cer", "rtf")],
+    "run_synth_ds3": ["train_steps", "train_wall_s", "beam64_pallas_wer",
+                      "beam64_rtf"],
+    "run_synth_holdout": ["train_steps", "train_wall_s", "train_utts",
+                          "heldout_utts", "heldout_wer", "heldout_cer",
+                          "beam_rtf", "specaugment"],
+}
+
+
+def phase_synth(tmp: str) -> dict:
+    """The five round-1 synth runners in process at full width and their
+    default corpora, a few tens of steps each (``run_synth_lm`` on
+    ``run_synth_ds2``'s checkpoint), counted from 0 together: K1, K2,
+    K3, K6, K7 and K8 must launch, K4 and K5 not. Each must return the
+    reference's JSON keys; in e2e the plain beam search and K8 must give
+    the same WER and CER (the same beams), and greedy's is reported."""
+    import importlib
+    counters = _ladder_counters()
+    _zero(counters)
+    ds2 = os.path.join(tmp, "synth_ds2")
+    bad, res = [], {}
+    t0 = time.perf_counter()
+    for name, argv in SYNTH_RUNS:
+        mod = importlib.import_module(f"ctc_asr_tpu_torch.scripts.{name}")
+        work = ["--dir", ds2] if name == "run_synth_lm" else [
+            "--out", ds2 if name == "run_synth_ds2"
+            else os.path.join(tmp, name)]
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res[name] = mod.main([*argv, *work, "--device", "cuda"])
+        log(f"[synth] {name} {time.perf_counter() - t1:.1f} s: "
+            f"{json.dumps(res[name])}")
+        if sorted(res[name]) != sorted(SYNTH_KEYS[name]):
+            bad.append(f"{name}: keys {sorted(res[name])}")
+    launches = _read(counters)
+    log(f"[synth] {time.perf_counter() - t0:.1f} s, kernel launches "
+        f"{launches}")
+    bad += _path_check("synth runners", launches,
+                       ("stft", "lstm_fwd", "lstm_bwd", "ctc_alpha",
+                        "ctc_beta_grad", "beam"))
+    e2e = res["run_synth_e2e"]
+    if (e2e["beam_xla_wer"], e2e["beam_xla_cer"]) != (
+            e2e["beam_pallas_wer"], e2e["beam_pallas_cer"]):
+        bad.append(f"e2e: the plain beam and K8 disagree: {e2e}")
+    log(f"[synth] e2e WER greedy {e2e['greedy_wer']}, plain beam "
+        f"{e2e['beam_xla_wer']}, K8 beam {e2e['beam_pallas_wer']}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"launches": launches}
 
 
 def _eval_json(out: str) -> dict:
@@ -3336,6 +3570,8 @@ def main() -> int:
         phase_dp(tmp, sl["manifest"], tr["step_s"], dev["smi"])
         tp = phase_tp(tmp, sl["manifest"], dev["smi"])
         lad = phase_ladder(tmp)
+        ool = phase_oov(tmp)["launches"]
+        syl = phase_synth(tmp)["launches"]
     sp = phase_sp(dev["smi"])
     step = phase_step()
     gru_step = phase_step("gru")
@@ -3406,6 +3642,11 @@ def main() -> int:
          "replaces": "ctc_asr_tpu/ops/beam_pallas.py:107",
          "launches": dl["beam"], "ladder_launches": ll["beam"], **k8},
     ]
+    # the OOV and synth runners' launches, by the counters' names
+    for row in kernels:
+        key = {"stft_mel": "stft", "beam_search": "beam"}.get(row["name"],
+                                                              row["name"])
+        row["oov_launches"], row["synth_launches"] = ool[key], syl[key]
     log(f"[step] train step ms at B=128 x 8 s: LSTM kernel path "
         f"{step['kernel_ms']:.1f}, plain path {step['plain_ms']:.1f}; GRU "
         f"kernel path {gru_step['kernel_ms']:.1f}, plain path "

@@ -148,6 +148,26 @@ def select_lm_weight(cfg, params, dev_manifest: str, char_lm_path: str,
         best_w, best_dev)
 
 
+def select_rescore_alpha(cfg, params, dev_manifest: str, word_lm_path: str,
+                         alphas, device: str, tag: str):
+    """The word-LM rescoring weight with the lowest DEV WER (the first of
+    equals; with alpha = 0 in the grid, rescoring cannot look worse than
+    the beam it rescores on DEV); returns (config with that weight,
+    weight, its DEV WER)."""
+    best_a, best_dev = None, float("inf")
+    for a in alphas:
+        acfg = dc.replace(cfg, decode=dc.replace(
+            cfg.decode, word_lm_path=word_lm_path, rescore_alpha=a))
+        rd = eval_split(acfg, params, dev_manifest, device, log_samples=0)
+        print(f"[{tag}] dev sweep rescore_alpha={a}: wer={rd['wer']:.4f}",
+              flush=True)
+        if rd["wer"] < best_dev:
+            best_dev, best_a = rd["wer"], a
+    return (dc.replace(cfg, decode=dc.replace(
+        cfg.decode, word_lm_path=word_lm_path, rescore_alpha=best_a)),
+        best_a, best_dev)
+
+
 def archive_run(out: str, archive: str) -> None:
     """Copy ``out/ladder_results.jsonl`` (every record written under
     ``out``), the per-utterance sidecars (the inputs to ``cli compare``
@@ -300,21 +320,12 @@ def main(argv=None) -> list:
               "rtf": round(r["rtf"], 5)})
 
         # + word-LM N-best rescoring of the fused beam, its alpha selected
-        # on DEV (alpha = 0 is in the grid: rescoring cannot look worse
-        # than the fused beam on DEV)
-        best_a, best_dev_a = None, float("inf")
-        for a in RESCORE_ALPHAS:
-            acfg = dc.replace(lcfg, decode=dc.replace(
-                lcfg.decode, word_lm_path=word_lm_path, rescore_alpha=a))
-            rd = eval_split(acfg, params, man["dev"], device, log_samples=0)
-            print(f"[ladder] dev sweep rescore_alpha={a}: "
-                  f"wer={rd['wer']:.4f}", flush=True)
-            if rd["wer"] < best_dev_a:
-                best_dev_a, best_a = rd["wer"], a
+        # on DEV
+        wcfg, best_a, best_dev_a = select_rescore_alpha(
+            lcfg, params, man["dev"], word_lm_path, RESCORE_ALPHAS, device,
+            "ladder")
         # TEST twice with one RTF definition (first batch of each bucket
         # excluded, host rescoring included): the second pass is warm
-        wcfg = dc.replace(lcfg, decode=dc.replace(
-            lcfg.decode, word_lm_path=word_lm_path, rescore_alpha=best_a))
         r = eval_split(wcfg, params, man["test"], device, log_samples=0)
         r2 = eval_split(wcfg, params, man["test"], device, log_samples=0)
         emit({"rung": name + "+lm_fusion+rescore",

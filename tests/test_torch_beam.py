@@ -22,6 +22,7 @@ from ctc_asr_tpu.ops.greedy import greedy_decode as j_greedy
 from ctc_asr_tpu_torch.config import Config, DataConfig, DecodeConfig
 from ctc_asr_tpu_torch.ops import beam as t_beam
 from ctc_asr_tpu_torch.ops import beam_cuda
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 SCORE_TOL = 1e-4
 LIVE = -1e29

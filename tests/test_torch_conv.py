@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from ctc_asr_tpu.models import layers as jl
 from ctc_asr_tpu_torch.models import layers as tl
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL, GRAD_TOL = 2e-4, 2e-3
 

@@ -24,6 +24,7 @@ from ctc_asr_tpu.ops.ctc_pallas import ctc_loss_pallas
 from ctc_asr_tpu.ops.ctc_ref import ctc_loss as j_ctc_loss
 from ctc_asr_tpu.ops.ctc_ref import ctc_loss_ref
 from ctc_asr_tpu_torch.ops import ctc_cuda
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 NLL_TOL = 1e-4
 GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4

@@ -36,6 +36,7 @@ from ctc_asr_tpu_torch import features as t_feat
 from ctc_asr_tpu_torch.data import DataLoader, read_manifest
 from ctc_asr_tpu_torch.data import feature_cache as t_fc
 from ctc_asr_tpu_torch.data import generate as t_gen
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 DATA_CFG = DataConfig(batch_size=4, num_buckets=2, num_workers=1,
                       min_audio_seconds=0.1, max_audio_seconds=10.0)

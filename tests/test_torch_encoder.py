@@ -28,6 +28,7 @@ from ctc_asr_tpu_torch.checkpoint import params_from_jax
 from ctc_asr_tpu_torch.models import apply_encoder, init_shapes, layers
 from ctc_asr_tpu_torch.models import output_lengths
 from ctc_asr_tpu_torch.ops.greedy import greedy_decode
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 2e-4
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "tiny_model.npz")

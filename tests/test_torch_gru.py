@@ -30,6 +30,7 @@ from ctc_asr_tpu.models.rnn import rnn_apply as j_rnn
 from ctc_asr_tpu.ops.lstm_pallas import _gru_run_fwd, gru_seq_pallas
 from ctc_asr_tpu_torch.models import rnn as t_rnn
 from ctc_asr_tpu_torch.ops import gru_cuda
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 BF16_RTOL, BF16_ATOL = 1e-2, 2e-3
 DB_TOL = 1e-3

@@ -14,6 +14,8 @@ import pytest
 import ctc_asr_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the child imports the port: one thread, beside other test processes
+_ENV = {**os.environ, "OMP_NUM_THREADS": "1"}
 
 _HOOK = '''
 import importlib, importlib.abc, sys
@@ -55,14 +57,18 @@ def test_walk_finds_the_whole_port():
                      "parallel.tp", "parallel.seqpar",
                      "parallel.decode_dist", "scripts",
                      "scripts.run_ladder_hard", "scripts.analyze_ladder",
-                     "scripts.continue_rung"):
+                     "scripts.continue_rung", "scripts.run_oov",
+                     "scripts.run_synth_ds2", "scripts.run_synth_ds3",
+                     "scripts.run_synth_e2e", "scripts.run_synth_holdout",
+                     "scripts.run_synth_lm"):
         assert f"ctc_asr_tpu_torch.{expected}" in names
 
 
 def test_no_module_imports_jax_or_the_jax_package():
     names = _port_modules() + ["chip_smoke"]
     proc = subprocess.run([sys.executable, "-c", _HOOK, *names], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, env=_ENV,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip() == f"imported {len(names)}"
 
@@ -71,7 +77,7 @@ def test_hook_catches_an_offender():
     """The hook itself works: importing the JAX package under it fails."""
     proc = subprocess.run([sys.executable, "-c", _HOOK, "ctc_asr_tpu.text"],
                           cwd=REPO, capture_output=True, text=True,
-                          timeout=300)
+                          env=_ENV, timeout=300)
     assert proc.returncode != 0
     assert "must not import ctc_asr_tpu" in proc.stderr
 

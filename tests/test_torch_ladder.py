@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_threads import one_thread  # noqa: F401  (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF = os.path.join(REPO, "docs", "results", "ladder_hard_r4")
 H100 = os.path.join(REPO, "ctc_asr_tpu_torch", "results", "ladder_hard_h100")
@@ -46,17 +48,6 @@ RUNGS = [("pr1", "pr1_mfcc_uni", "pr1", 5000, 5e-4),
          ("ds2sa", "conv_bilstm3", "ds2_specaug", 4000, 5e-4),
          ("ds3", "deepspeech_beam", "ds3", 4000, 3e-4),
          ("ds3sa", "deepspeech_beam", "ds3sa", 4000, 3e-4)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The tiny models' ops are too small to share among threads: beside
-    other test processes, a thread pool a process spins far longer than
-    it computes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _load_script(name):

@@ -29,6 +29,7 @@ from ctc_asr_tpu.models.rnn import lstm_apply as j_lstm
 from ctc_asr_tpu.ops.lstm_pallas import _run_fwd, lstm_seq_pallas
 from ctc_asr_tpu_torch.models import rnn as t_rnn
 from ctc_asr_tpu_torch.ops import lstm_cuda
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 BF16_RTOL, BF16_ATOL = 1e-2, 2e-3
 DB_TOL = 1e-3

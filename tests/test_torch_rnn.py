@@ -19,6 +19,7 @@ from ctc_asr_tpu.models.rnn import lstm_apply as j_lstm
 from ctc_asr_tpu.ops.lstm_pallas import lstm_seq_pallas
 from ctc_asr_tpu_torch.models import rnn as t_rnn
 from ctc_asr_tpu_torch.ops import lstm_cuda
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 TOL = 2e-4
 PALLAS_TOL = 2e-3

@@ -40,6 +40,7 @@ from ctc_asr_tpu_torch import train as t_train
 from ctc_asr_tpu_torch.config import from_json
 from ctc_asr_tpu_torch.optim import Adam
 from ctc_asr_tpu_torch.parallel import seqpar as t_sp
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 

@@ -25,6 +25,7 @@ from ctc_asr_tpu.train import init_train_state
 from ctc_asr_tpu_torch import checkpoint as t_ckpt
 from ctc_asr_tpu_torch.ops.dispatch import resolve_device
 from ctc_asr_tpu_torch.ops.greedy import greedy_decode
+from torch_threads import one_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -369,7 +370,7 @@ def test_import_leaves_jax_out():
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=120)
+                   timeout=120, env={**os.environ, "OMP_NUM_THREADS": "1"})
 
 
 def test_cuda_request_raises_without_gpu(corpus):
