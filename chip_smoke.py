@@ -2984,9 +2984,13 @@ def phase_oov(tmp: str) -> dict:
     then ``run_oov`` on 32 / 16 / 32 utterances and LMs of 512 sentences,
     counted from 0: K1, K2 and K8 must launch, K3 to K7 not (it trains
     nothing). The 19 records and the 11 sidecars must carry the
-    reference's keys, labels and names (``docs/results/oov_r5``)."""
+    reference's keys, labels and names (``docs/results/oov_r5``). Then
+    ``diag_oov_boundaries`` decodes the OOV test split with each arm
+    (ds3+SA greedy and beam 64, ds2+SA greedy): its per-utterance
+    records must equal those sidecars."""
     import shutil
-    from ctc_asr_tpu_torch.scripts import run_ladder_hard, run_oov
+    from ctc_asr_tpu_torch.scripts import (diag_oov_boundaries,
+                                           run_ladder_hard, run_oov)
     r4big = os.path.join(tmp, "r4big")
     out, arch = os.path.join(tmp, "oov"), os.path.join(tmp, "oov_archive")
     t0 = time.perf_counter()
@@ -3029,6 +3033,37 @@ def phase_oov(tmp: str) -> dict:
         bad.append(f"test WERs {wers}")
     log(f"[oov] {len(records)} records, {len(names)} sidecars of 32 "
         f"utterances; test WER {wers}")
+    t3 = time.perf_counter()
+    for arm, preset_name, decode in (("ds3sa", "deepspeech_beam", "greedy"),
+                                     ("ds3sa", "deepspeech_beam", "beam64"),
+                                     ("ds2_specaug", "conv_bilstm3",
+                                      "greedy")):
+        tag = {"ds3sa": "ds3sa8000", "ds2_specaug": "ds2sa8000"}[arm]
+        tag = f"oov_{tag}_{'beam' if decode == 'beam64' else 'greedy'}"
+        diag_out = os.path.join(tmp, "diag", tag + ".json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = diag_oov_boundaries.main([
+                "--preset", preset_name, "--ckpt",
+                os.path.join(r4big, f"train_{arm}", "ckpt",
+                             "step_00008000.npz"),
+                "--manifest", os.path.join(out, "oov_test.csv"),
+                "--vocab-manifest", os.path.join(r4big, "corpus",
+                                                 "train.csv"),
+                "--decode", decode, "--sidecar",
+                os.path.join(out, "per_utt", tag + ".json"),
+                "--out", diag_out, "--device", "cuda"])
+        with open(diag_out) as f:
+            summ = json.load(f)["summary"]
+        if rc != 0 or not summ["matches_sidecar"] or summ["utterances"] != 32:
+            bad.append(f"diag_oov_boundaries {tag}: rc {rc}, "
+                       f"{summ['utterances']} utterances, matches the "
+                       f"sidecar: {summ['matches_sidecar']}")
+        log(f"[oov] diag {tag}: records equal the sidecar's "
+            f"{summ['matches_sidecar']}; oov words {summ['oov']['words']}, "
+            f"split {summ['oov']['split_words']}, boundaries dropped "
+            f"{summ['oov']['boundaries_dropped_after']}")
+    log(f"[oov] diag_oov_boundaries, three decodes: "
+        f"{time.perf_counter() - t3:.1f} s")
     if bad:
         raise AssertionError("; ".join(bad))
     return {"launches": launches}
@@ -3549,32 +3584,42 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    dev = phase_device()
-    phase_build()
-    k1 = phase_stft()
-    k2 = phase_lstm()
-    k67 = phase_ctc()
-    k23 = phase_lstm_train()
-    sel_us = phase_select()
-    k8 = phase_beam()
+    t_start = time.perf_counter()
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        name = phase.__name__ + (f"({args[0]})" if phase is phase_step
+                                 else "")
+        log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    dev = timed(phase_device)
+    timed(phase_build)
+    k1 = timed(phase_stft)
+    k2 = timed(phase_lstm)
+    k67 = timed(phase_ctc)
+    k23 = timed(phase_lstm_train)
+    sel_us = timed(phase_select)
+    k8 = timed(phase_beam)
     k8["selection_us"] = sel_us
-    k45 = phase_gru()
-    k5_f64 = phase_gru_f64()
-    conv = phase_conv()
+    k45 = timed(phase_gru)
+    k5_f64 = timed(phase_gru_f64)
+    conv = timed(phase_conv)
     with tempfile.TemporaryDirectory() as tmp:
-        sl = phase_slice(tmp)
-        tr = phase_train(tmp, sl["manifest"])
-        dec = phase_decode(tmp, sl["manifest"], tr["train_dir"])
-        gru = phase_gru_slice(tmp, sl["manifest"])
-        phase_datatools(tmp, sl["manifest"], gru)
-        phase_dp(tmp, sl["manifest"], tr["step_s"], dev["smi"])
-        tp = phase_tp(tmp, sl["manifest"], dev["smi"])
-        lad = phase_ladder(tmp)
-        ool = phase_oov(tmp)["launches"]
-        syl = phase_synth(tmp)["launches"]
-    sp = phase_sp(dev["smi"])
-    step = phase_step()
-    gru_step = phase_step("gru")
+        sl = timed(phase_slice, tmp)
+        tr = timed(phase_train, tmp, sl["manifest"])
+        dec = timed(phase_decode, tmp, sl["manifest"], tr["train_dir"])
+        gru = timed(phase_gru_slice, tmp, sl["manifest"])
+        timed(phase_datatools, tmp, sl["manifest"], gru)
+        timed(phase_dp, tmp, sl["manifest"], tr["step_s"], dev["smi"])
+        tp = timed(phase_tp, tmp, sl["manifest"], dev["smi"])
+        lad = timed(phase_ladder, tmp)
+        ool = timed(phase_oov, tmp)["launches"]
+        syl = timed(phase_synth, tmp)["launches"]
+    sp = timed(phase_sp, dev["smi"])
+    step = timed(phase_step, "lstm")
+    gru_step = timed(phase_step, "gru")
     tl, dl, gl = tr["launches"], dec["launches"], gru["launches"]
     tpl, spl = tp["launches"][0], sp["launches"]
     k3_yardsticks = k2.pop("bwd")
@@ -3661,6 +3706,7 @@ def main() -> int:
         {shape: {name: [e[t]["device_ms"] for t in ("fwd", "fwd_bwd")
                         if t in e] for name, e in forms.items()}
          for shape, forms in conv.items()}))
+    log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -126,7 +126,8 @@ def make_nbest_decoder(cfg: Config):
 
 def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
              loader: DataLoader | None = None,
-             max_batches: int | None = None, log_samples: int = 3) -> dict:
+             max_batches: int | None = None, log_samples: int = 3,
+             on_batch=None) -> dict:
     """Decode the eval manifest; returns the corpus metrics summary.
 
     ``rtf`` is wall time per second of audio over every batch except
@@ -138,7 +139,11 @@ def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
     shard (every utterance once, ``drop_last=False``), and the corpus
     metrics, the bootstrap CI and ``per_utt`` describe the whole corpus,
     its records in process-major order (rank 0's shard first, ROADMAP.md
-    C2); the times and ``audio_seconds`` stay this process's."""
+    C2); the times and ``audio_seconds`` stay this process's.
+
+    ``on_batch(batch, logits, logit_lens, hyps)``, when given, sees each
+    batch's encoder output and the hypotheses of its valid rows
+    (``scripts/diag_oov_boundaries``)."""
     mesh = check_regime(cfg)
     if cfg.mesh.seq_axis > 1:
         eval_step = seqpar.make_sp_eval_step(
@@ -177,14 +182,15 @@ def evaluate(cfg: Config, params, device: str | torch.device = "cuda",
         else:
             ids, lens = decoder(logits, logit_lens)
             ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
-        for i in range(batch.valid):
-            hyp = decode_ids(ids[i, :lens[i]])
-            ref = batch.transcripts[i]
+        hyps = [decode_ids(ids[i, :lens[i]]) for i in range(batch.valid)]
+        for ref, hyp in zip(batch.transcripts, hyps):
             acc.add(ref, hyp)
             if shown < log_samples:
                 print(f"[eval] ref: {ref!r}\n[eval] hyp: {hyp!r}",
                       flush=True)
                 shown += 1
+        if on_batch is not None:
+            on_batch(batch, logits, logit_lens, hyps)
         total_audio += batch.audio_seconds
         now = time.perf_counter()
         if batch.bucket_id in seen_buckets:

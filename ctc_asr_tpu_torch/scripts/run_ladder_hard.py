@@ -74,10 +74,14 @@ def train_lms(out: str, train_manifest: str) -> tuple[str, str]:
 
 
 def rung_cfg(preset_name: str, man: dict, out: str, rung: str, steps: int,
-             batch: int, lr: float, wire: str = "int16", fcache: str = ""):
-    """The preset with the ladder's data, dropout and train settings."""
+             batch: int, lr: float, wire: str = "int16", fcache: str = "",
+             seed: int | None = None):
+    """The preset with the ladder's data, dropout and train settings
+    (``seed``: the train seed, if not the preset's)."""
     from ..config import preset
     cfg = preset(preset_name)
+    if seed is not None:
+        cfg = dc.replace(cfg, train=dc.replace(cfg.train, seed=seed))
     return dc.replace(
         cfg,
         data=dc.replace(cfg.data, train_manifest=man["train"],
@@ -93,14 +97,15 @@ def rung_cfg(preset_name: str, man: dict, out: str, rung: str, steps: int,
 
 
 def eval_split(cfg, params: dict, manifest_path: str, device: str,
-               log_samples: int = 2) -> dict:
-    """``evaluate`` over one split, every utterance in the loader's order."""
+               log_samples: int = 2, on_batch=None) -> dict:
+    """``evaluate`` over one split, every utterance in the loader's order
+    (``on_batch`` as ``evaluate`` takes it)."""
     from ..data import DataLoader, read_manifest
     from ..evaluate import evaluate
     loader = DataLoader(read_manifest(manifest_path), cfg.data,
                         cfg.features, drop_last=False)
     return evaluate(cfg, params, device=device, loader=loader,
-                    log_samples=log_samples)
+                    log_samples=log_samples, on_batch=on_batch)
 
 
 def trained_params(state: dict) -> dict:
@@ -215,6 +220,10 @@ def parse_args(argv=None):
     ap.add_argument("--archive", default=None,
                     help="directory to copy ladder_results.jsonl, the "
                          "sidecars and the loss curves into")
+    ap.add_argument("--train-seed", type=int, default=None,
+                    help="the train seed of every rung (initial weights, "
+                         "dropout and SpecAugment); default the preset's, "
+                         "as the reference trains")
     ap.add_argument("--device", default="cuda", help="cuda or cpu")
     return ap.parse_args(argv)
 
@@ -246,7 +255,7 @@ def main(argv=None) -> list:
 
     def cfg_for(preset_name, rung, steps, lr):
         return rung_cfg(preset_name, man, args.out, rung, steps, args.batch,
-                        lr, args.wire, args.feature_cache)
+                        lr, args.wire, args.feature_cache, args.train_seed)
 
     def train_and_eval(cfg, rung, decode_name):
         """Train, then evaluate DEV and TEST."""

@@ -60,7 +60,8 @@ def test_walk_finds_the_whole_port():
                      "scripts.continue_rung", "scripts.run_oov",
                      "scripts.run_synth_ds2", "scripts.run_synth_ds3",
                      "scripts.run_synth_e2e", "scripts.run_synth_holdout",
-                     "scripts.run_synth_lm"):
+                     "scripts.run_synth_lm",
+                     "scripts.diag_oov_boundaries"):
         assert f"ctc_asr_tpu_torch.{expected}" in names
 
 

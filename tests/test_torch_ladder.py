@@ -93,6 +93,24 @@ def test_rung_cfg_matches_the_reference(rung, preset_name, suffix, steps,
     assert (got.model.dropout, got.data.num_buckets) == (0.1, 2)
 
 
+def test_train_seed_flag_changes_the_seed_alone():
+    """``--train-seed`` (a third seed of an arm) replaces the train seed
+    and nothing else; without it the rung's config is the reference's
+    (``test_rung_cfg_matches_the_reference``)."""
+    from ctc_asr_tpu_torch.scripts import run_ladder_hard as port
+    man = {k: f"/data/{k}.csv" for k in ("train", "dev", "test")}
+    assert port.parse_args(["--out", "/o"]).train_seed is None
+    assert port.parse_args(["--out", "/o", "--train-seed", "44"]
+                           ).train_seed == 44
+    base = port.rung_cfg("deepspeech_beam", man, "/out", "ds3sa", 4000, 32,
+                         3e-4)
+    seeded = port.rung_cfg("deepspeech_beam", man, "/out", "ds3sa", 4000, 32,
+                           3e-4, seed=44)
+    assert seeded.train.seed == 44 and base.train.seed != 44
+    assert dc.asdict(dc.replace(seeded, train=dc.replace(
+        seeded.train, seed=base.train.seed))) == dc.asdict(base)
+
+
 def _narrow(monkeypatch):
     """Presets at test size: a 40 ms hop, one RNN layer of 32 units, a
     dense frontend of 16, convs of 4 channels with a time stride of 2,
