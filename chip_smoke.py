@@ -180,10 +180,23 @@ Phases (any failure exits non-zero; no phase is skipped):
    T=140, H=800 (ds3); K8 at beam 16 (e2e B=8 x 171, ds2 B=16 x 135,
    holdout B=16 x 189, acoustic; synth_lm's order-3 fusion with the beam
    emitted for its N-best) and at beam 64 (ds3, B=8 x 140).
-15. Prints a ``{"kernels": [...]}`` line (each kernel's launches on every
-   path, ``ladder_launches``, ``oov_launches`` and ``synth_launches``
-   among them), the ``nvidia-smi`` line, and last ``{"ok": true,
-   "device": {...}}``.
+15. Reproducibility (``phase_repro``, after phase 8): a run on the card
+   gives the same bits from the same seed. ``cli train`` of
+   ``conv_bilstm3`` at full width, B=16, two length buckets, dropout and
+   SpecAugment on, 20 steps, twice: once with ``--train.precompile=true``
+   (one warm step a bucket shape before step 0) and once with ``false``;
+   every logged loss, gradient norm and rate and every array of the
+   final checkpoint (parameters, Adam moments, generators) must be
+   bit-equal. The same pair with ``--model.rnn_type=gru``. Two runs of
+   three B=128 x 8 s steps from the seed's state, bit-equal, for each
+   cell, with the steps' times; one B=128 x 8 s LSTM step under strict
+   ``torch.use_deterministic_algorithms(True)`` in a child process
+   (``--strict-worker``, ``CUBLAS_WORKSPACE_CONFIG=:4096:8``) must raise
+   nothing.
+16. Prints a ``{"kernels": [...]}`` line (each kernel's launches on every
+   path, ``ladder_launches``, ``oov_launches``, ``synth_launches`` and
+   ``repro_launches`` among them), the ``nvidia-smi`` line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -2182,33 +2195,13 @@ def _host_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """cuDNN's deterministic algorithms and PyTorch's deterministic
-    scatter (the backward of the CTC loss's gather), so that two runs of
-    one step can be held to each other bit for bit (``warn_only``: cuBLAS
-    on one stream needs no workspace setting for that)."""
-    import torch
-    cudnn = torch.backends.cudnn
-    old = (cudnn.deterministic, cudnn.benchmark,
-           torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
-    cudnn.deterministic, cudnn.benchmark = True, False
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        cudnn.deterministic, cudnn.benchmark = old[:2]
-        torch.use_deterministic_algorithms(old[2], warn_only=old[3])
-
-
 def _dp_world_one(smi: str) -> dict:
     """(a) NCCL at world size 1, the group formed here: the LSTM step at
     B=128 x 8 s through the DP step against the single-process step (and
     the single-process step against itself, the control) from one state:
     loss, gradient norm and every parameter after the update, bit for
-    bit; then the all-reduce's device time on the gradients' flat
-    buffer."""
+    bit (the default step is deterministic: ``phase_repro``); then the
+    all-reduce's device time on the gradients' flat buffer."""
     import torch
     import torch.distributed as dist
     from ctc_asr_tpu_torch import train as train_mod
@@ -2221,14 +2214,13 @@ def _dp_world_one(smi: str) -> dict:
         world_size=1, rank=0, timeout=TIMEOUT)
     try:
         runs = {}
-        with _deterministic():
-            for name, group in (("single", None), ("single again", None),
-                                ("dp", dist.group.WORLD)):
-                st = train_mod.init_train_state(cfg, "cuda")
-                m = train_mod.make_step_fn(cfg, group)(st, *arrs)
-                runs[name] = (m["loss"].cpu(), m["grad_norm"].cpu(),
-                              {k: v.detach().clone()
-                               for k, v in st["params"].items()})
+        for name, group in (("single", None), ("single again", None),
+                            ("dp", dist.group.WORLD)):
+            st = train_mod.init_train_state(cfg, "cuda")
+            m = train_mod.make_step_fn(cfg, group)(st, *arrs)
+            runs[name] = (m["loss"].cpu(), m["grad_norm"].cpu(),
+                          {k: v.detach().clone()
+                           for k, v in st["params"].items()})
         leaves = [torch.zeros_like(p) for p in runs["dp"][2].values()]
         leaves.append(torch.zeros((), device="cuda"))
         n = sum(t.numel() for t in leaves)
@@ -3292,23 +3284,27 @@ def phase_decode(tmp: str, manifest: str, train_dir: str) -> dict:
 
 
 def _step_grads(cfg, params, arrs, mark=lambda: None):
-    """(loss, {k: grad}) of one train step's loss on the given path;
+    """(loss, {k: grad}) of one train step's loss on the given path, its
+    convs on cuDNN's deterministic algorithms as in ``make_step_fn``;
     ``mark()`` is called after features, encoder, CTC and backward."""
     import torch
     from ctc_asr_tpu_torch.features import extract_features
     from ctc_asr_tpu_torch.models import apply_encoder
+    from ctc_asr_tpu_torch.models.layers import deterministic_convs
     from ctc_asr_tpu_torch.ops.ctc_cuda import ctc_loss
     samples, slens, labels, llens = arrs
-    with torch.no_grad():
-        feats, flens = extract_features(samples, slens, cfg.features)
-    mark()
-    logits, lens = apply_encoder(params, feats, flens, cfg.model, train=True)
-    mark()
-    loss = ctc_loss(logits, lens, labels, llens,
-                    use_kernel=cfg.train.use_pallas_ctc)
-    mark()
-    grads = torch.autograd.grad(loss, list(params.values()))
-    mark()
+    with deterministic_convs():
+        with torch.no_grad():
+            feats, flens = extract_features(samples, slens, cfg.features)
+        mark()
+        logits, lens = apply_encoder(params, feats, flens, cfg.model,
+                                     train=True)
+        mark()
+        loss = ctc_loss(logits, lens, labels, llens,
+                        use_kernel=cfg.train.use_pallas_ctc)
+        mark()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        mark()
     return loss.detach(), dict(zip(params, grads))
 
 
@@ -3455,6 +3451,164 @@ def _profile_step(cfg, arrs, tag: str = "profile") -> dict:
         raise AssertionError("torch.profiler recorded no device kernel")
     return {"step_ms": step_ms, "split": split, "busy_ms": busy_ms,
             "groups": groups, "peak_gib": peak}
+
+
+REPRO_STEPS = 20
+STRICT_TIMEOUT_S = 300  # the strict-mode child's whole run
+
+
+def _repro_pair(tmp: str, manifest: str, rnn_type: str) -> dict:
+    """Two ``cli train`` runs of ``conv_bilstm3`` at full width with the
+    given cell, B=16, two length buckets, dropout (the preset's 0.05)
+    and SpecAugment on, seed 42, REPRO_STEPS steps each, one with
+    ``--train.precompile=true`` and one with ``false``, counted from 0
+    together. Every logged loss, gradient norm and rate and every array
+    of the final checkpoint (parameters, Adam moments, count, step,
+    generators) must be bit-equal, both buckets trained and the warm-up
+    line printed by the first run alone."""
+    overrides = {"data.train_manifest": manifest, "data.batch_size": "16",
+                 "data.num_buckets": "2", "model.rnn_type": rnn_type,
+                 "train.specaugment": "true", "train.learning_rate": "3e-4",
+                 "train.log_every": "1", "train.sync_every": "4",
+                 "train.eval_every": "0",
+                 "train.checkpoint_every": str(REPRO_STEPS),
+                 "train.total_steps": str(REPRO_STEPS)}
+    runs, warm = {}, {}
+
+    def run():
+        for on in ("true", "false"):
+            tdir = os.path.join(tmp, f"repro_{rnn_type}_{on}")
+            t0 = time.perf_counter()
+            out = run_cli(
+                ["train", "--preset", "conv_bilstm3", "--device=cuda",
+                 f"--train.train_dir={tdir}", f"--train.precompile={on}"]
+                + [f"--{k}={v}" for k, v in overrides.items()])
+            wall = time.perf_counter() - t0
+            m = re.search(r"\[train\] precompiled 2 bucket shapes in "
+                          r"[\d.]+s", out)
+            warm[on] = (m.group(0) if m else None, wall)
+            recs = _read_metrics(tdir)
+            path = os.path.join(tdir, "ckpt", f"step_{REPRO_STEPS:08d}.npz")
+            with np.load(path) as z:
+                runs[on] = ({k: (r["loss"], r["grad_norm"], r["lr"],
+                                 r["bucket"]) for k, r in recs.items()},
+                            {k: z[k] for k in z.files})
+
+    _, launches = _count_launches(
+        run, _GRU_KERNELS if rnn_type == "lstm" else _LSTM_KERNELS)
+    (rec_on, flat_on), (rec_off, flat_off) = runs["true"], runs["false"]
+    diff = sorted(k for k in set(flat_on) | set(flat_off)
+                  if k not in flat_on or k not in flat_off
+                  or not np.array_equal(flat_on[k], flat_off[k]))
+    same_recs = rec_on == rec_off
+    buckets = sorted({r[3] for r in rec_on.values()})
+    log(f"[repro {rnn_type}] cli train x 2, B=16, 2 buckets, dropout 0.05 + "
+        f"SpecAugment, seed 42, {REPRO_STEPS} steps: precompile=true "
+        f"{warm['true'][1]:.1f} s ({warm['true'][0]!r}), precompile=false "
+        f"{warm['false'][1]:.1f} s; buckets trained {buckets}; logged "
+        f"loss / grad_norm / lr bit-equal: {same_recs}; checkpoint arrays "
+        f"{len(flat_on)}, differing: {diff[:8]}; launches {launches}")
+    if not (same_recs and not diff and sorted(rec_on) == list(
+            range(1, REPRO_STEPS + 1)) and buckets == [0, 1]
+            and warm["true"][0] and not warm["false"][0]):
+        raise AssertionError(f"{rnn_type}: the precompile=true and false "
+                             f"runs differ or did not run as set")
+    return launches
+
+
+def _strict_step() -> dict:
+    """One B=128 x 8 s ``conv_bilstm3`` LSTM step from the seed's state:
+    its loss, gradient norm and a digest of the parameters after it."""
+    import torch
+    from ctc_asr_tpu_torch import train as train_mod
+    from ctc_asr_tpu_torch.config import preset
+    cfg = preset("conv_bilstm3")
+    st = train_mod.init_train_state(cfg, "cuda")
+    m = train_mod.make_step_fn(cfg)(st, *_step_batch())
+    torch.cuda.synchronize()
+    return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+            "digest": _params_digest(st["params"])}
+
+
+def strict_worker(argv) -> int:
+    """``--strict-worker``: ``_strict_step`` under
+    ``torch.use_deterministic_algorithms(True)``, which raises at any op
+    of the step that has no deterministic implementation on the card
+    (the parent sets ``CUBLAS_WORKSPACE_CONFIG``, which strict mode asks
+    of cuBLAS)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    print("[repro strict] " + json.dumps(_strict_step()), flush=True)
+    return 0
+
+
+def _step_twice(rnn_type: str) -> tuple:
+    """Two runs of three B=128 x 8 s steps of ``conv_bilstm3`` with the
+    given cell from the seed's state: (bits equal, ms of each timed
+    step, the first step's digest)."""
+    import torch
+    from ctc_asr_tpu_torch import train as train_mod
+    from ctc_asr_tpu_torch.config import preset
+    cfg = preset("conv_bilstm3")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, rnn_type=rnn_type))
+    arrs = _step_batch()
+    digests, ms, first = [], [], None
+    for _ in range(2):
+        st = train_mod.init_train_state(cfg, "cuda")
+        step = train_mod.make_step_fn(cfg)
+        losses = [step(st, *arrs)["loss"]]
+        first = first or _params_digest(st["params"])
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(st, *arrs)["loss"])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        digests.append((_params_digest(st["params"]),
+                        _params_digest(st["opt_state"]["mu"]),
+                        _params_digest(st["opt_state"]["nu"]),
+                        [v.item() for v in losses]))
+    return digests[0] == digests[1], ms, first
+
+
+def phase_repro(tmp: str, manifest: str, smi: str) -> dict:
+    """A run on the card reproduces from its seed (ROADMAP C18): the
+    ``cli train`` pairs of ``_repro_pair`` for the LSTM and the GRU
+    (``train.precompile`` on against off); two runs of three B=128 x 8 s
+    steps from the seed's state, bit-equal, for each cell, with the
+    steps' times; and one such LSTM step under strict
+    ``torch.use_deterministic_algorithms(True)`` in a child process,
+    which must raise nothing (its bits beside the default step's)."""
+    launches = {cell: _repro_pair(tmp, manifest, cell)
+                for cell in ("lstm", "gru")}
+    step = {cell: _step_twice(cell) for cell in ("lstm", "gru")}
+    for cell, (equal, ms, _) in step.items():
+        log(f"[repro {cell}] B=128 x 8 s, three steps from the seed's state "
+            f"twice: parameters, moments and losses bit-equal: {equal}; ms "
+            f"a step (host clock, steps 2-3 of each run) {ms}; {smi}")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               OMP_NUM_THREADS="1")
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--strict-worker"], env=env, capture_output=True,
+                       text=True, timeout=STRICT_TIMEOUT_S)
+    if p.returncode != 0:
+        raise RuntimeError(f"the strict-mode step raised (exit "
+                           f"{p.returncode}):\n{(p.stdout + p.stderr)[-6000:]}")
+    strict = json.loads(p.stdout.split("[repro strict] ", 1)[1]
+                        .splitlines()[0])
+    log(f"[repro strict] B=128 x 8 s LSTM step under "
+        f"torch.use_deterministic_algorithms(True), "
+        f"CUBLAS_WORKSPACE_CONFIG=:4096:8: raised nothing; loss "
+        f"{strict['loss']:.6f} grad_norm {strict['grad_norm']:.6f}; "
+        f"parameters bit-equal to the default step's: "
+        f"{strict['digest'] == step['lstm'][2]}")
+    if not all(equal for equal, _, _ in step.values()):
+        raise AssertionError("a B=128 step is not bit-equal to itself")
+    return {"launches": launches,
+            "step_ms": {c: statistics.median(v[1]) for c, v in step.items()}}
 
 
 def _step_batch() -> list:
@@ -3612,6 +3766,7 @@ def main() -> int:
         dec = timed(phase_decode, tmp, sl["manifest"], tr["train_dir"])
         gru = timed(phase_gru_slice, tmp, sl["manifest"])
         timed(phase_datatools, tmp, sl["manifest"], gru)
+        rep = timed(phase_repro, tmp, sl["manifest"], dev["smi"])
         timed(phase_dp, tmp, sl["manifest"], tr["step_s"], dev["smi"])
         tp = timed(phase_tp, tmp, sl["manifest"], dev["smi"])
         lad = timed(phase_ladder, tmp)
@@ -3687,11 +3842,18 @@ def main() -> int:
          "replaces": "ctc_asr_tpu/ops/beam_pallas.py:107",
          "launches": dl["beam"], "ladder_launches": ll["beam"], **k8},
     ]
-    # the OOV and synth runners' launches, by the counters' names
+    # the OOV and synth runners' and the repro pairs' launches, by the
+    # counters' names (the LSTM pair's, for K4 / K5 the GRU pair's)
     for row in kernels:
         key = {"stft_mel": "stft", "beam_search": "beam"}.get(row["name"],
                                                               row["name"])
         row["oov_launches"], row["synth_launches"] = ool[key], syl[key]
+        if key != "beam":
+            pair = rep["launches"]["gru" if key.startswith("gru")
+                                   else "lstm"]
+            row["repro_launches"] = pair[key]
+    log(f"[repro] B=128 x 8 s step ms (median, deterministic by default): "
+        f"LSTM {rep['step_ms']['lstm']:.2f}, GRU {rep['step_ms']['gru']:.2f}")
     log(f"[step] train step ms at B=128 x 8 s: LSTM kernel path "
         f"{step['kernel_ms']:.1f}, plain path {step['plain_ms']:.1f}; GRU "
         f"kernel path {gru_step['kernel_ms']:.1f}, plain path "
@@ -3720,4 +3882,6 @@ if __name__ == "__main__":
         sys.exit(dp_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--strict-worker"]:
+        sys.exit(strict_worker(sys.argv[2:]))
     sys.exit(main())

@@ -8,9 +8,9 @@ the other. CLI ``--section.key=value`` overrides apply on top.
 
 The ``use_pallas*`` flags keep their names: in the port they select the
 hand-written CUDA kernel (true) or its plain PyTorch version (false).
-The one field the port does not read (``precompile``: eager PyTorch
-compiles nothing per shape) is kept so that configs round-trip. It
-reads every field of ``mesh`` and refuses what the reference refuses
+It reads every field, ``train.precompile`` included (one warm step
+per bucket shape before step 0, ``train.precompile_bucket_shapes``),
+and every field of ``mesh``, and refuses what the reference refuses
 (``train.check_regime``).
 """
 
@@ -152,8 +152,8 @@ class TrainConfig:
     # profiler trace dir ("" = off) and heartbeat period (0 = off).
     profile_dir: str = ""
     heartbeat_seconds: float = 0.0
-    # compile every length bucket's step at startup (reference only:
-    # PyTorch runs eagerly)
+    # warm every length bucket's step shape at startup (one step on a
+    # zeros copy of the state each; train.precompile_bucket_shapes)
     precompile: bool = True
     total_steps: int = 100000
     # host-device sync cadence of the train loop: the host blocks on

@@ -13,6 +13,8 @@ compute dtype; results come back in float32.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -61,6 +63,21 @@ def conv2d_apply(params: dict, x: torch.Tensor, strides,
     w = params["w"].permute(3, 2, 0, 1).to(compute_dtype)   # OIHW
     y = F.conv2d(xc, w, stride=(st, sf))
     return y.permute(0, 2, 3, 1).float() + params["b"]
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms, and no ``cudnn.benchmark``, for
+    the convs run inside (a train step's forward and backward), restored
+    after. Without it cuDNN may take a weight-gradient algorithm that
+    sums with atomics, and one seed no longer gives one run."""
+    cudnn = torch.backends.cudnn
+    old = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = old
 
 
 # ---------------------------------------------------------------------------

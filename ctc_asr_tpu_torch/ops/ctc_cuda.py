@@ -18,7 +18,9 @@ autograd gradient is the reference's) and ``ctc_asr_tpu/ops/ctc_pallas.py``
 ``log_softmax`` and the label gather stay in torch outside the autograd
 function, as they stay in XLA in the reference; ``CtcNll`` wraps only
 the DP, and its backward is K7's ``-exp(α+β-logP)`` scaled by the
-per-row cotangent.
+per-row cotangent. The gather is ``LabelGather``, whose backward sums
+the states of a class in a fixed order, so that a step on the card
+gives the same bits from the same inputs.
 """
 
 from __future__ import annotations
@@ -206,6 +208,29 @@ class CtcNll(torch.autograd.Function):
         return grad * g[None, :, None], None, None, None
 
 
+class LabelGather(torch.autograd.Function):
+    """``lp_z[b, t, s] = log_probs[b, t, z[b, s]]``, whose backward sums
+    the states that share a class in a fixed order: the one-hot product
+    ``g [B, T, S] x onehot(z) [B, S, C]``, one ``bmm``. ``torch.gather``'s
+    backward is a ``scatter_add`` over the states, and the blank is U+1
+    of them in each row: on the card those sums are made with atomics,
+    in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, log_probs, z):
+        ctx.save_for_backward(z)
+        ctx.num_classes = log_probs.shape[-1]
+        return torch.gather(log_probs, 2,
+                            z[:, None, :].expand(-1, log_probs.shape[1], -1))
+
+    @staticmethod
+    def backward(ctx, g):
+        z, = ctx.saved_tensors
+        classes = torch.arange(ctx.num_classes, device=z.device)
+        onehot = (z[:, :, None] == classes).to(g.dtype)        # [B, S, C]
+        return torch.bmm(g, onehot), None
+
+
 def ctc_nll(logits: torch.Tensor, logit_lengths: torch.Tensor,
             labels: torch.Tensor, label_lengths: torch.Tensor,
             blank_id: int = BLANK_ID, use_kernel: bool = True) -> torch.Tensor:
@@ -216,8 +241,7 @@ def ctc_nll(logits: torch.Tensor, logit_lengths: torch.Tensor,
     through ``ctc_alpha_plain``."""
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     z = extended_labels(labels.long(), blank_id)                # [B, S]
-    lpz = torch.gather(log_probs, 2,
-                       z[:, None, :].expand(-1, log_probs.shape[1], -1))
+    lpz = LabelGather.apply(log_probs, z)                        # [B, T, S]
     lpz = lpz.transpose(0, 1).contiguous()                      # [T, B, S]
     skip = can_skip(z, blank_id)
     lens = logit_lengths.to(torch.int32).contiguous()

@@ -56,7 +56,8 @@ from ..config import Config, FeatureConfig
 from ..features import (_load_stats, axis_masks, decode_wire,
                         frame_lengths_from_sample_lengths, plain_features)
 from ..models.encoder import _layer, output_lengths
-from ..models.layers import clipped_relu, dense_apply, dropout, dropout_mask
+from ..models.layers import (clipped_relu, dense_apply,
+                             deterministic_convs, dropout, dropout_mask)
 from ..models.rnn import cell_step, init_carry
 from ..ops.ctc_cuda import ctc_loss
 from ..ops.dispatch import resolve_device
@@ -433,8 +434,9 @@ def make_sp_train_step(cfg: Config, devices: list):
     ``devices`` (``sp_batch_put``, with its refusals), then features ->
     SpecAugment -> encoder in time chunks -> CTC on the gathered logits
     (K6/K7 as ``train.use_pallas_ctc`` says) -> backward -> global norm
-    -> clip -> Adam, as ``train.make_step_fn``; the generators are the
-    state's, as in one process."""
+    -> clip -> Adam, as ``train.make_step_fn`` (its convs on cuDNN's
+    deterministic algorithms); the generators are the state's, as in one
+    process."""
     tcfg = cfg.train
     opt = Adam(tcfg)
 
@@ -442,13 +444,14 @@ def make_sp_train_step(cfg: Config, devices: list):
         chunks, sample_lengths, labels, label_lengths = sp_batch_put(
             devices, batch)
         params = state["params"]
-        logits, logit_lens = sp_encoder(params, chunks, sample_lengths, cfg,
-                                        train=True,
-                                        generators=state["generators"])
-        loss = ctc_loss(logits, logit_lens, labels, label_lengths,
-                        use_kernel=tcfg.use_pallas_ctc)
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
+        with deterministic_convs():
+            logits, logit_lens = sp_encoder(
+                params, chunks, sample_lengths, cfg, train=True,
+                generators=state["generators"])
+            loss = ctc_loss(logits, logit_lens, labels, label_lengths,
+                            use_kernel=tcfg.use_pallas_ctc)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
         lr = opt.schedule(state["step"])
         gnorm = opt.step(params, grads, state["opt_state"])
         state["step"] += 1

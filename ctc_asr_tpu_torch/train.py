@@ -12,9 +12,18 @@ through the reference's ``MetricsWriter``, keeps the newest K and the
 best checkpoints in the reference's format, and resumes exactly from
 the loader cursor.
 
-Eager PyTorch compiles nothing per batch shape, so ``train.precompile``
-has nothing to do here and is ignored. ``train.profile_dir`` wraps the
-loop in a ``torch.profiler`` trace (``utils.profiling``).
+A step on the card gives the same bits from the same state and batch,
+as the reference's fixed XLA program does: its convs run cuDNN's
+deterministic algorithms (``models.layers.deterministic_convs``, for the
+step alone) and the CTC label gather sums its gradient in a fixed order
+(``ops.ctc_cuda.LabelGather``), so one seed and config give one run.
+
+``train.precompile`` (``precompile_bucket_shapes``) runs one step per
+length bucket's shape before step 0, on a zeros copy of the state:
+eager PyTorch compiles nothing per shape, but the first step of a shape
+still pays for the caching allocator's growth, cuDNN's per-shape
+algorithm choice and the kernels' first build. ``train.profile_dir``
+wraps the loop in a ``torch.profiler`` trace (``utils.profiling``).
 
 Data parallelism across processes (the multi-process branch of
 ``ctc_asr_tpu/train.py:284-361``): when a ``torch.distributed`` group is
@@ -55,6 +64,7 @@ from .data import DataLoader, read_manifest
 from .features import extract_features, spec_augment
 from .metrics import MetricsWriter, NullMetricsWriter, ThroughputMeter
 from .models.encoder import apply_encoder, init_params
+from .models.layers import deterministic_convs
 from .ops.ctc_cuda import ctc_loss
 from .ops.dispatch import resolve_device
 from .optim import Adam
@@ -157,15 +167,17 @@ def make_step_fn(cfg: Config, group=None, mesh: ProcessMesh | None = None,
         gens = state["generators"]
         if rows > 1:
             reseed_for_row(gens, tcfg.seed, state["step"], row)
-        feats, flens = _train_features(cfg, gens, samples, sample_lengths)
         params = state["params"]
-        logits, logit_lens = apply_encoder(params, feats, flens, cfg.model,
-                                           train=True,
-                                           generator=gens["dropout"])
-        loss = ctc_loss(logits, logit_lens, labels, label_lengths,
-                        use_kernel=tcfg.use_pallas_ctc)
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
+        with deterministic_convs():
+            feats, flens = _train_features(cfg, gens, samples,
+                                           sample_lengths)
+            logits, logit_lens = apply_encoder(params, feats, flens,
+                                               cfg.model, train=True,
+                                               generator=gens["dropout"])
+            loss = ctc_loss(logits, logit_lens, labels, label_lengths,
+                            use_kernel=tcfg.use_pallas_ctc)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
         if group is not None:
             *avg, loss = all_reduce_mean([*grads.values(), loss], group)
             grads = dict(zip(grads, avg))
@@ -217,15 +229,17 @@ def _make_tp_step_fn(cfg: Config, mesh: ProcessMesh, groups):
         gens = state["generators"]
         if mesh.data > 1:
             reseed_for_row(gens, tcfg.seed, state["step"], mesh.data_row)
-        feats, flens = _train_features(hcfg, gens, samples, sample_lengths)
         params = state["params"]
-        logits, logit_lens = apply_encoder(params, feats, flens, hcfg.model,
-                                           train=True,
-                                           generator=gens["dropout"], tp=tp)
-        loss = ctc_loss(logits, logit_lens, labels, label_lengths,
-                        use_kernel=tcfg.use_pallas_ctc)
-        grads = dict(zip(params, torch.autograd.grad(
-            loss, list(params.values()))))
+        with deterministic_convs():
+            feats, flens = _train_features(hcfg, gens, samples,
+                                           sample_lengths)
+            logits, logit_lens = apply_encoder(
+                params, feats, flens, hcfg.model, train=True,
+                generator=gens["dropout"], tp=tp)
+            loss = ctc_loss(logits, logit_lens, labels, label_lengths,
+                            use_kernel=tcfg.use_pallas_ctc)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
         shard = [k for k in grads if k in sharded]
         rep = [k for k in grads if k not in sharded]
         if mesh.data > 1:
@@ -246,6 +260,58 @@ def _make_tp_step_fn(cfg: Config, mesh: ProcessMesh, groups):
         return {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
 
     return step_fn
+
+
+def precompile_bucket_shapes(step_fn, state: dict, loader: DataLoader,
+                             cfg: Config) -> None:
+    """One step per length bucket's shape before step 0
+    (``ctc_asr_tpu/train.py:205`` ``precompile_bucket_shapes``), so that
+    the first step of each shape does not pay, inside the run, for the
+    caching allocator's growth, cuDNN's per-shape algorithm choice and
+    the kernels' first build (``ops.build``). Nothing with one bucket.
+
+    Each warm step works on a zeros copy of ``state`` with generators of
+    its own, on zero-filled batches of the bucket's exact shapes made on
+    the device (the shapes come from the loader, full sample lengths,
+    one label). ``state``, its generators and the loader's cursor are
+    not touched, so the run is bit-equal to one without the warm-up.
+    Unlike the reference, a failure raises: nothing warms lazily."""
+    buckets = loader.spec.buckets
+    if len(buckets) <= 1:
+        return
+    dev = next(iter(state["params"].values())).device
+    B = loader.spec.batch_size
+    t0 = time.perf_counter()
+    for bucket_id, bspec in enumerate(buckets):
+        if loader.cache is not None:
+            frames = loader.bucket_frames(bucket_id)
+            samples = torch.zeros((B, frames, loader.cache.dim),
+                                  dtype=getattr(torch, loader.cache.dtype),
+                                  device=dev)
+        else:
+            frames = bspec.max_samples
+            samples = torch.zeros(
+                (B, frames), device=dev,
+                dtype={"int16": torch.int16, "ulaw": torch.uint8}.get(
+                    loader.cfg.wire_dtype, torch.float32))
+        zeros = {
+            "params": {k: torch.zeros_like(v).requires_grad_(True)
+                       for k, v in state["params"].items()},
+            "opt_state": {"count": 0, **{
+                m: {k: torch.zeros_like(v)
+                    for k, v in state["opt_state"][m].items()}
+                for m in ("mu", "nu")}},
+            "step": state["step"],
+            "generators": _seed_generators(cfg.train.seed, 0, dev)}
+        step_fn(zeros, samples,
+                torch.full((B,), frames, dtype=torch.int32, device=dev),
+                torch.zeros((B, bspec.max_label_len), dtype=torch.int32,
+                            device=dev),
+                torch.ones((B,), dtype=torch.int32, device=dev))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    print(f"[train] precompiled {len(buckets)} bucket shapes in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
 
 def device_batches(src, loader: DataLoader | None, dev: torch.device,
@@ -345,6 +411,8 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
         step_fn = seqpar.make_sp_train_step(cfg, sp_devices)
     else:
         step_fn = make_step_fn(cfg, group, mesh)
+        if tcfg.precompile and group is None:
+            precompile_bucket_shapes(step_fn, state, loader, cfg)
     meter = ThroughputMeter()
     best_wer = meta.get("best_wer", float("inf"))
 

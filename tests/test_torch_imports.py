@@ -61,7 +61,7 @@ def test_walk_finds_the_whole_port():
                      "scripts.run_synth_ds2", "scripts.run_synth_ds3",
                      "scripts.run_synth_e2e", "scripts.run_synth_holdout",
                      "scripts.run_synth_lm",
-                     "scripts.diag_oov_boundaries"):
+                     "scripts.diag_oov_boundaries", "scripts.step_cost"):
         assert f"ctc_asr_tpu_torch.{expected}" in names
 
 

@@ -8,6 +8,7 @@ This file imports no JAX and nothing of the JAX package, so it runs
 where only PyTorch is installed.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -15,7 +16,8 @@ import pytest
 import torch
 
 from beam_select_cases import SELECT_CASES, select_case
-from ctc_asr_tpu_torch.config import FeatureConfig, ModelConfig
+from ctc_asr_tpu_torch import train as train_mod
+from ctc_asr_tpu_torch.config import FeatureConfig, ModelConfig, preset
 from ctc_asr_tpu_torch.models import apply_encoder, init_shapes
 from ctc_asr_tpu_torch.ops import (beam_cuda, ctc_cuda, gru_cuda, lstm_cuda,
                                    stft_cuda)
@@ -874,3 +876,72 @@ def test_beam_kernel_rejects_bad_input(dev):
         beam_cuda.beam_search_decode_cuda(logits, lens, blank_id=5,
                                           beam_width=4096)
     assert beam_cuda.beam_search_decode_cuda.launches == n0
+
+
+@contextlib.contextmanager
+def _strict(monkeypatch):
+    """``torch.use_deterministic_algorithms(True)``: raises at any op that
+    has no deterministic implementation on the card (cuBLAS asks for
+    ``CUBLAS_WORKSPACE_CONFIG``)."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    old = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old)
+
+
+def test_ctc_loss_backward_is_deterministic(dev, monkeypatch):
+    """``ctc_loss``'s backward at the train step's B=128, T'=399, U=96
+    (K6, K7 and ``LabelGather``) raises nothing under strict
+    deterministic algorithms, and two calls give the same bits."""
+    B, T, U, C = 128, 399, 96, 29
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy(
+        rng.standard_normal((B, T, C)).astype(np.float32)).to(dev)
+    lens = torch.from_numpy(
+        rng.integers(T // 2, T + 1, B).astype(np.int32)).to(dev)
+    labels = torch.from_numpy(
+        rng.integers(0, C - 1, (B, U)).astype(np.int32)).to(dev)
+    llens = torch.from_numpy(
+        rng.integers(U // 2, U + 1, B).astype(np.int32)).to(dev)
+
+    def grad():
+        x = logits.clone().requires_grad_(True)
+        ctc_cuda.ctc_loss(x, lens, labels, llens).backward()
+        return x.grad
+
+    with _strict(monkeypatch):
+        g1, g2 = grad(), grad()
+    assert torch.isfinite(g1).all() and torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_three_steps_from_one_seed_are_bit_equal(dev, rnn_type):
+    """Three ``make_step_fn`` steps of ``conv_bilstm3`` at full width with
+    dropout and SpecAugment on, from the seed's state, twice: the losses,
+    the parameters and the Adam moments are bit-equal."""
+    cfg = preset("conv_bilstm3")
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, rnn_type=rnn_type),
+        train=dataclasses.replace(cfg.train, specaugment=True))
+    B, S, U = 16, 64000, 48
+    rng = np.random.default_rng(5)
+    batch = [torch.from_numpy(a).to(dev) for a in (
+        (rng.standard_normal((B, S)) * 0.1).astype(np.float32),
+        rng.integers(S // 2, S + 1, B).astype(np.int32),
+        rng.integers(0, 28, (B, U)).astype(np.int32),
+        rng.integers(U // 2, U + 1, B).astype(np.int32))]
+    runs = []
+    for _ in range(2):
+        st = train_mod.init_train_state(cfg, "cuda")
+        step = train_mod.make_step_fn(cfg)
+        losses = [step(st, *batch)["loss"] for _ in range(3)]
+        runs.append((torch.stack(losses),
+                     {k: v.detach() for k, v in st["params"].items()},
+                     st["opt_state"]["mu"], st["opt_state"]["nu"]))
+    (l1, *trees1), (l2, *trees2) = runs
+    assert torch.isfinite(l1).all() and torch.equal(l1, l2)
+    for a, b in zip(trees1, trees2):
+        assert all(torch.equal(a[k], b[k]) for k in a)
