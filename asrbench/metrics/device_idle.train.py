@@ -1,0 +1,9 @@
+"""The share of the traced train window, on the device's clock, in which
+no kernel or copy ran, in %."""
+
+
+def read(run):
+    tr = run.out.get("trace")
+    if run.kind != "train" or tr is None or not tr.kernels:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)
