@@ -32,6 +32,12 @@ from .parallel import seqpar
 from .parallel.dist import current_group, gather_records
 from .text import decode_ids
 from .train import check_regime, device_batches
+from .utils.profiling import span
+
+# the profiler ranges of the host's part of an N-best batch: the whole of
+# ``pick_best``, and within it the B x N hypothesis texts
+PICK_BEST_RANGE = "evaluate.pick_best"
+NBEST_TEXTS_RANGE = "evaluate.nbest_texts"
 
 
 def make_eval_step(cfg: Config, device: str | torch.device = "cuda"):
@@ -108,18 +114,20 @@ def make_nbest_decoder(cfg: Config):
         """Host: rescore each utterance's N-best, return numpy
         (ids [B, U], lens [B]). Duplicate hypotheses, within an N-best
         list and across the corpus, are scored once."""
-        if len(score_cache) > _SCORE_CACHE_MAX:
-            score_cache.clear()
-        ids, lens, scores = (ids.cpu().numpy(), lens.cpu().numpy(),
-                             scores.cpu().numpy())
-        B, N = ids.shape[0], ids.shape[1]
-        texts = [[decode_ids(ids[b, k, :lens[b, k]]) for k in range(N)]
-                 for b in range(B)]
-        best = lm_mod.rescore_nbest_batch(
-            texts, scores, word_lm, alpha=cfg.decode.rescore_alpha,
-            beta=cfg.decode.rescore_beta, cache=score_cache)
-        bidx = np.arange(B)
-        return ids[bidx, best], lens[bidx, best]
+        with span(PICK_BEST_RANGE):
+            if len(score_cache) > _SCORE_CACHE_MAX:
+                score_cache.clear()
+            ids, lens, scores = (ids.cpu().numpy(), lens.cpu().numpy(),
+                                 scores.cpu().numpy())
+            B, N = ids.shape[0], ids.shape[1]
+            with span(NBEST_TEXTS_RANGE):
+                texts = [[decode_ids(ids[b, k, :lens[b, k]])
+                          for k in range(N)] for b in range(B)]
+            best = lm_mod.rescore_nbest_batch(
+                texts, scores, word_lm, alpha=cfg.decode.rescore_alpha,
+                beta=cfg.decode.rescore_beta, cache=score_cache)
+            bidx = np.arange(B)
+            return ids[bidx, best], lens[bidx, best]
 
     return decode, pick_best
 

@@ -22,6 +22,10 @@ import torch
 
 from .audio import ULAW_MU, WIRE_SCALE
 from .config import FeatureConfig
+from .utils.profiling import span
+
+# the profiler range around ``extract_features``
+FEATURES_RANGE = "features.extract"
 
 
 # ---------------------------------------------------------------------------
@@ -211,21 +215,24 @@ def extract_features(samples: torch.Tensor, sample_lengths: torch.Tensor,
     and 3-D precomputed-feature batches from the feature cache
     ([B, T, F] float16, or int8 at a fixed scale), which pass through
     with ``sample_lengths`` already holding frame counts."""
-    if samples.dim() == 3:
-        if samples.dtype == torch.int8:
-            from .data.feature_cache import FEATURE_INT8_SCALE
-            return (samples.to(torch.float32) * (1.0 / FEATURE_INT8_SCALE),
-                    sample_lengths.to(torch.int32))
-        return samples.to(torch.float32), sample_lengths.to(torch.int32)
-    samples = decode_wire(samples)
-    if cfg.use_pallas:
-        from .ops.stft_cuda import stft_features
-        feats = stft_features(samples.contiguous(), cfg)
-    else:
-        feats = plain_features(samples, cfg)
-    flens = frame_lengths_from_sample_lengths(sample_lengths, cfg)
-    stats = _load_stats(cfg.stats_path) if cfg.stats_path else None
-    return normalize_features(feats, flens, cfg.normalization, stats), flens
+    with span(FEATURES_RANGE):
+        if samples.dim() == 3:
+            if samples.dtype == torch.int8:
+                from .data.feature_cache import FEATURE_INT8_SCALE
+                return (samples.to(torch.float32)
+                        * (1.0 / FEATURE_INT8_SCALE),
+                        sample_lengths.to(torch.int32))
+            return samples.to(torch.float32), sample_lengths.to(torch.int32)
+        samples = decode_wire(samples)
+        if cfg.use_pallas:
+            from .ops.stft_cuda import stft_features
+            feats = stft_features(samples.contiguous(), cfg)
+        else:
+            feats = plain_features(samples, cfg)
+        flens = frame_lengths_from_sample_lengths(sample_lengths, cfg)
+        stats = _load_stats(cfg.stats_path) if cfg.stats_path else None
+        return (normalize_features(feats, flens, cfg.normalization, stats),
+                flens)
 
 
 @functools.lru_cache(maxsize=8)

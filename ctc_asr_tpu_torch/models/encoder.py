@@ -17,10 +17,10 @@ reference.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
+from ..utils.profiling import span
 
 from .layers import (clipped_relu, conv2d_apply, conv2d_blocked_apply,
                      conv2d_matmul_apply, dense_apply, dropout, dropout_mask,
@@ -28,9 +28,12 @@ from .layers import (clipped_relu, conv2d_apply, conv2d_blocked_apply,
 from .rnn import birnn_apply, rnn_apply
 
 
-# the profiler range around the conv frontend's forward (its backward is
-# found through the autograd nodes that range created)
+# the profiler ranges around the conv frontend's forward and around each
+# RNN layer's (its projection, direction copies, recurrence and dropout;
+# inside ``checkpoint`` with ``remat``, so the recomputation is one too);
+# their backward is found through the autograd nodes they created
 FRONTEND_RANGE = "encoder.frontend"
+RNN_RANGE = "encoder.rnn"
 
 
 def _cdiv(a, b):
@@ -145,7 +148,7 @@ def apply_encoder(params: dict, feats: torch.Tensor,
         else:
             conv_fn = conv2d_apply
         x = feats[..., None]                         # [B, T, F, 1] NHWC
-        with record_function(FRONTEND_RANGE):
+        with span(FRONTEND_RANGE):
             for i, strides in enumerate(cfg.conv_strides):
                 x = clipped_relu(_frontend_layer(
                     lambda p, v: conv_fn(p, v, strides, cdt), params,
@@ -171,15 +174,17 @@ def apply_encoder(params: dict, feats: torch.Tensor,
             {"recurrence": tp.recurrence}
 
         def body(layer, inp, mask, rec=rec):
-            if cfg.bidirectional:
-                y = birnn_apply({"fwd": _layer(layer, "fwd/"),
-                                 "bwd": _layer(layer, "bwd/")}, inp,
-                                out_lens, cdt, use_kernel=cfg.use_pallas_rnn,
-                                rnn_type=cfg.rnn_type, **rec)
-            else:
-                y = rnn_apply(layer, inp, out_lens, cfg.rnn_type, cdt,
-                              use_kernel=cfg.use_pallas_rnn, **rec)
-            return dropout(y, rate, mask=mask)
+            with span(RNN_RANGE):
+                if cfg.bidirectional:
+                    y = birnn_apply({"fwd": _layer(layer, "fwd/"),
+                                     "bwd": _layer(layer, "bwd/")}, inp,
+                                    out_lens, cdt,
+                                    use_kernel=cfg.use_pallas_rnn,
+                                    rnn_type=cfg.rnn_type, **rec)
+                else:
+                    y = rnn_apply(layer, inp, out_lens, cfg.rnn_type, cdt,
+                                  use_kernel=cfg.use_pallas_rnn, **rec)
+                return dropout(y, rate, mask=mask)
 
         mask = (dropout_mask((x.shape[0], x.shape[1], width), rate,
                              generator, x.device) if rate > 0 else None)

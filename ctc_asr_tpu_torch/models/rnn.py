@@ -33,8 +33,12 @@ import torch
 
 from ..ops.gru_cuda import GruSeq, gru_seq, gru_seq_plain
 from ..ops.lstm_cuda import LstmSeq, _window, lstm_seq, lstm_seq_plain
+from ..utils.profiling import span
 
 RNN_TYPES = ("lstm", "gru", "rnn")
+# the profiler range around a layer's recurrence alone (K2 / K4, and K3 /
+# K5 through the backward node it creates), not its input projection
+RECURRENCE_RANGE = "rnn.recurrence"
 
 
 def vanilla_seq_plain(xproj: torch.Tensor, b: torch.Tensor, wh: torch.Tensor,
@@ -118,13 +122,16 @@ def _recurrence(xd: torch.Tensor, wx: torch.Tensor, b: torch.Tensor,
         args = (xproj.to(torch.bfloat16).contiguous(), b.float().contiguous(),
                 wh.to(torch.bfloat16).contiguous(), start.contiguous(),
                 end.contiguous())
-        if torch.is_grad_enabled() and any(a.requires_grad
-                                           for a in args[:3]):
-            return seq_grad.apply(*args)
-        return seq(*args)
+        with span(RECURRENCE_RANGE):
+            if torch.is_grad_enabled() and any(a.requires_grad
+                                               for a in args[:3]):
+                return seq_grad.apply(*args)
+            return seq(*args)
     xproj = torch.bmm(x2.float(), wx.to(compute_dtype).float()
                       ).reshape(nd, T, B, G)
-    return _PLAIN_SEQ[rnn_type](xproj, b, wh.to(compute_dtype), start, end)
+    with span(RECURRENCE_RANGE):
+        return _PLAIN_SEQ[rnn_type](xproj, b, wh.to(compute_dtype), start,
+                                    end)
 
 
 def rnn_apply(params: dict, x: torch.Tensor, lengths: torch.Tensor,

@@ -28,11 +28,15 @@ from __future__ import annotations
 import torch
 
 from ..text import BLANK_ID
+from ..utils.profiling import span
 
 from . import build
 from .dispatch import check_kernel_tensor, require_kernel_device
 
 NEG_INF = -1.0e30
+# the profiler range around ``ctc_loss`` (K7 and the label gather's
+# backward are found through the autograd nodes it created)
+CTC_RANGE = "ctc.loss"
 MAX_STATES = 1024     # one thread per extended-label state in the kernels
 
 
@@ -261,16 +265,17 @@ def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
     """Batch-reduced CTC loss (``ctc_ref.py:119-147``): infeasible rows
     count 0; "utterance" is the mean over finite rows, "label" the mean
     of NLL / label length, "sum" the sum."""
-    nll = ctc_nll(logits, logit_lengths, labels, label_lengths, blank_id,
-                  use_kernel)
-    finite = torch.isfinite(nll)
-    nll = torch.where(finite, nll, torch.zeros_like(nll))
-    n = torch.clamp_min(finite.float().sum(), 1.0)
-    if average == "utterance":
-        return nll.sum() / n
-    if average == "label":
-        per = nll / torch.clamp_min(label_lengths.float(), 1.0)
-        return per.sum() / n
-    if average == "sum":
-        return nll.sum()
-    raise ValueError(f"unknown average mode {average!r}")
+    with span(CTC_RANGE):
+        nll = ctc_nll(logits, logit_lengths, labels, label_lengths, blank_id,
+                      use_kernel)
+        finite = torch.isfinite(nll)
+        nll = torch.where(finite, nll, torch.zeros_like(nll))
+        n = torch.clamp_min(finite.float().sum(), 1.0)
+        if average == "utterance":
+            return nll.sum() / n
+        if average == "label":
+            per = nll / torch.clamp_min(label_lengths.float(), 1.0)
+            return per.sum() / n
+        if average == "sum":
+            return nll.sum()
+        raise ValueError(f"unknown average mode {average!r}")

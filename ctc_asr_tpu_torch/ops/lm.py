@@ -1,6 +1,6 @@
 """Character n-gram language model for CTC shallow fusion.
 
-The port's own copy of ``ctc_asr_tpu/ops/lm.py`` (numpy only; files
+The port's own copy of ``ctc_asr_tpu/ops/lm.py`` (numpy arithmetic; files
 written by either package load in the other):
 
 - **Training** (host, numpy): count character n-grams of order N over a
@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..text import ALPHABET, encode
+from ..utils.profiling import count, span
 
 V = len(ALPHABET)  # 28 (no blank in the LM vocab)
 BOS = 0            # space id doubles as BOS: start-of-utterance ~ word start
@@ -226,6 +227,14 @@ def rescore_nbest(nbest_texts, am_scores, word_lm: dict,
     return best_i
 
 
+# the profiler range around ``rescore_nbest_batch``, and its counters:
+# the hypotheses it looked up, and those of them missing from the cache
+# and scored anew
+RESCORE_RANGE = "lm.rescore"
+LOOKUPS_COUNTER = "lm.rescore.lookups"
+SCORED_COUNTER = "lm.rescore.scored"
+
+
 def rescore_nbest_batch(texts, am_scores, word_lm: dict,
                         alpha: float = 1.0, beta: float = 0.0,
                         cache: dict | None = None) -> np.ndarray:
@@ -243,23 +252,29 @@ def rescore_nbest_batch(texts, am_scores, word_lm: dict,
     cliff: scoring is now a handful of dict ops
     per unique hypothesis word instead of O(|V|) per word.
     """
-    _prepare_word_lm(word_lm)
-    if cache is None:
-        cache = {}
-    out = np.zeros(len(texts), np.int64)
-    for b, hyps in enumerate(texts):
-        best_i, best_s = 0, -float("inf")
-        for i, text in enumerate(hyps):
-            lp = cache.get(text)
-            if lp is None:
-                lp = score_words(word_lm, text)
-                cache[text] = lp
-            s = float(am_scores[b][i]) + alpha * lp \
-                + beta * len(text.split())
-            if s > best_s:
-                best_i, best_s = i, s
-        out[b] = best_i
-    return out
+    with span(RESCORE_RANGE):
+        _prepare_word_lm(word_lm)
+        if cache is None:
+            cache = {}
+        out = np.zeros(len(texts), np.int64)
+        lookups = scored = 0
+        for b, hyps in enumerate(texts):
+            best_i, best_s = 0, -float("inf")
+            for i, text in enumerate(hyps):
+                lp = cache.get(text)
+                if lp is None:
+                    lp = score_words(word_lm, text)
+                    cache[text] = lp
+                    scored += 1
+                s = float(am_scores[b][i]) + alpha * lp \
+                    + beta * len(text.split())
+                if s > best_s:
+                    best_i, best_s = i, s
+            out[b] = best_i
+            lookups += len(hyps)
+        count(LOOKUPS_COUNTER, lookups)
+        count(SCORED_COUNTER, scored)
+        return out
 
 
 def save_word_lm(path: str, lm: dict) -> None:

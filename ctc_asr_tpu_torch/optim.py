@@ -30,6 +30,11 @@ import numpy as np
 import torch
 
 from .config import TrainConfig
+from .utils.profiling import span
+
+# the profiler range around ``Adam.step``: the norm, the clip and every
+# leaf's update
+ADAM_RANGE = "optim.adam"
 
 
 def lr_schedule(tcfg: TrainConfig):
@@ -93,26 +98,28 @@ class Adam:
         returns the global norm of the unclipped gradients. ``gnorm``,
         when given, is that norm computed by the caller (the
         tensor-parallel step's, over every rank's shards)."""
-        c = self.cfg
-        if gnorm is None:
-            gnorm = global_norm(grads)
-        if c.grad_clip_norm > 0:
-            grads = clip_by_global_norm(grads, c.grad_clip_norm, gnorm)
-        count = state["count"] + 1
-        # 1 - b**k in f32, as optax takes it: in double the cancellation
-        # would give another f32 value (6e-6 relative for b2 at k = 1)
-        k = np.float32(count)
-        bc1 = float(np.float32(1.0) - np.float32(c.adam_b1) ** k)
-        bc2 = float(np.float32(1.0) - np.float32(c.adam_b2) ** k)
-        lr = self.schedule(state["count"])
-        for k, p in params.items():
-            g = grads[k]
-            mu, nu = state["mu"][k], state["nu"][k]
-            mu.copy_((1.0 - c.adam_b1) * g + c.adam_b1 * mu)
-            nu.copy_((1.0 - c.adam_b2) * (g * g) + c.adam_b2 * nu)
-            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + c.adam_eps)
-            if c.weight_decay > 0:
-                upd = upd + c.weight_decay * p
-            p.add_(-lr * upd)
-        state["count"] = count
-        return gnorm
+        with span(ADAM_RANGE):
+            c = self.cfg
+            if gnorm is None:
+                gnorm = global_norm(grads)
+            if c.grad_clip_norm > 0:
+                grads = clip_by_global_norm(grads, c.grad_clip_norm, gnorm)
+            count = state["count"] + 1
+            # 1 - b**k in f32, as optax takes it: in double the
+            # cancellation would give another f32 value (6e-6 relative
+            # for b2 at k = 1)
+            k = np.float32(count)
+            bc1 = float(np.float32(1.0) - np.float32(c.adam_b1) ** k)
+            bc2 = float(np.float32(1.0) - np.float32(c.adam_b2) ** k)
+            lr = self.schedule(state["count"])
+            for k, p in params.items():
+                g = grads[k]
+                mu, nu = state["mu"][k], state["nu"][k]
+                mu.copy_((1.0 - c.adam_b1) * g + c.adam_b1 * mu)
+                nu.copy_((1.0 - c.adam_b2) * (g * g) + c.adam_b2 * nu)
+                upd = (mu / bc1) / (torch.sqrt(nu / bc2) + c.adam_eps)
+                if c.weight_decay > 0:
+                    upd = upd + c.weight_decay * p
+                p.add_(-lr * upd)
+            state["count"] = count
+            return gnorm

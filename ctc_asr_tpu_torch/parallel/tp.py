@@ -40,8 +40,9 @@ import torch.distributed as dist
 
 from ..config import Config
 from ..models.encoder import init_shapes
-from ..models.rnn import cell_step, init_carry
+from ..models.rnn import RECURRENCE_RANGE, cell_step, init_carry
 from ..ops.lstm_cuda import _window
+from ..utils.profiling import span
 from .dist import gather_columns
 from .mesh import ProcessMesh, param_spec
 
@@ -144,16 +145,17 @@ class TensorParallel:
         xg = self.gather(xproj.reshape(nd, T, B, -1)
                          + b.float()[:, None, None, :])      # [nd, T, B, G]
         whc = wh.to(compute_dtype)
-        carry = init_carry(rnn_type, (nd, B, H), xd.device)
-        hs = []
-        for t in range(T):
-            h = self.copy(carry[0])
-            hp = self.gather(torch.bmm(h.to(whc.dtype).float(),
-                                       whc.float()))
-            carry, out = cell_step(rnn_type, xg[:, t], hp, carry,
-                                   _window(start, end, t, (nd, B, 1)))
-            hs.append(out)
-        return torch.stack(hs, 1) if T else xd.new_zeros((nd, 0, B, H))
+        with span(RECURRENCE_RANGE):
+            carry = init_carry(rnn_type, (nd, B, H), xd.device)
+            hs = []
+            for t in range(T):
+                h = self.copy(carry[0])
+                hp = self.gather(torch.bmm(h.to(whc.dtype).float(),
+                                           whc.float()))
+                carry, out = cell_step(rnn_type, xg[:, t], hp, carry,
+                                       _window(start, end, t, (nd, B, 1)))
+                hs.append(out)
+            return torch.stack(hs, 1) if T else xd.new_zeros((nd, 0, B, H))
 
 
 def make_tp_eval_step(cfg: Config, mesh: ProcessMesh, groups):

@@ -74,9 +74,13 @@ from .parallel.dist import (all_reduce_mean, broadcast_state, current_group,
 from .parallel import seqpar
 from .parallel.mesh import ProcessMesh, build_mesh, loader_shard
 from .parallel.tp import TensorParallel, hybrid_config, sharded_keys
-from .utils.profiling import maybe_trace
+from .utils.profiling import maybe_trace, span
 
 _GENERATORS = ("dropout", "specaugment")
+# the profiler ranges of one train step (its backward inside it) and of
+# one batch's upload
+STEP_RANGE = "train.step"
+UPLOAD_RANGE = "train.upload"
 
 
 def _seed_generators(seed: int, step: int, dev: torch.device) -> dict:
@@ -164,27 +168,28 @@ def make_step_fn(cfg: Config, group=None, mesh: ProcessMesh | None = None,
         rows, row = mesh.data, mesh.data_row
 
     def step_fn(state, samples, sample_lengths, labels, label_lengths):
-        gens = state["generators"]
-        if rows > 1:
-            reseed_for_row(gens, tcfg.seed, state["step"], row)
-        params = state["params"]
-        with deterministic_convs():
-            feats, flens = _train_features(cfg, gens, samples,
-                                           sample_lengths)
-            logits, logit_lens = apply_encoder(params, feats, flens,
-                                               cfg.model, train=True,
-                                               generator=gens["dropout"])
-            loss = ctc_loss(logits, logit_lens, labels, label_lengths,
-                            use_kernel=tcfg.use_pallas_ctc)
-            grads = dict(zip(params, torch.autograd.grad(
-                loss, list(params.values()))))
-        if group is not None:
-            *avg, loss = all_reduce_mean([*grads.values(), loss], group)
-            grads = dict(zip(grads, avg))
-        lr = opt.schedule(state["step"])
-        gnorm = opt.step(params, grads, state["opt_state"])
-        state["step"] += 1
-        return {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
+        with span(STEP_RANGE):
+            gens = state["generators"]
+            if rows > 1:
+                reseed_for_row(gens, tcfg.seed, state["step"], row)
+            params = state["params"]
+            with deterministic_convs():
+                feats, flens = _train_features(cfg, gens, samples,
+                                               sample_lengths)
+                logits, logit_lens = apply_encoder(params, feats, flens,
+                                                   cfg.model, train=True,
+                                                   generator=gens["dropout"])
+                loss = ctc_loss(logits, logit_lens, labels, label_lengths,
+                                use_kernel=tcfg.use_pallas_ctc)
+                grads = dict(zip(params, torch.autograd.grad(
+                    loss, list(params.values()))))
+            if group is not None:
+                *avg, loss = all_reduce_mean([*grads.values(), loss], group)
+                grads = dict(zip(grads, avg))
+            lr = opt.schedule(state["step"])
+            gnorm = opt.step(params, grads, state["opt_state"])
+            state["step"] += 1
+            return {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
 
     return step_fn
 
@@ -226,38 +231,39 @@ def _make_tp_step_fn(cfg: Config, mesh: ProcessMesh, groups):
     tp = TensorParallel(groups.model, sharded)
 
     def step_fn(state, samples, sample_lengths, labels, label_lengths):
-        gens = state["generators"]
-        if mesh.data > 1:
-            reseed_for_row(gens, tcfg.seed, state["step"], mesh.data_row)
-        params = state["params"]
-        with deterministic_convs():
-            feats, flens = _train_features(hcfg, gens, samples,
-                                           sample_lengths)
-            logits, logit_lens = apply_encoder(
-                params, feats, flens, hcfg.model, train=True,
-                generator=gens["dropout"], tp=tp)
-            loss = ctc_loss(logits, logit_lens, labels, label_lengths,
-                            use_kernel=tcfg.use_pallas_ctc)
-            grads = dict(zip(params, torch.autograd.grad(
-                loss, list(params.values()))))
-        shard = [k for k in grads if k in sharded]
-        rep = [k for k in grads if k not in sharded]
-        if mesh.data > 1:
-            grads.update(zip(shard, all_reduce_mean(
-                [grads[k] for k in shard], groups.data)))
-        *avg, loss = all_reduce_mean([*(grads[k] for k in rep), loss],
-                                     groups.world)
-        grads.update(zip(rep, avg))
-        with torch.no_grad():
-            sq = sum((torch.sum(grads[k].float() ** 2) for k in shard),
-                     torch.zeros((), device=loss.device))
-            dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=groups.model)
-            gnorm = torch.sqrt(sq + sum(torch.sum(grads[k].float() ** 2)
-                                        for k in rep))
-        lr = opt.schedule(state["step"])
-        gnorm = opt.step(params, grads, state["opt_state"], gnorm)
-        state["step"] += 1
-        return {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
+        with span(STEP_RANGE):
+            gens = state["generators"]
+            if mesh.data > 1:
+                reseed_for_row(gens, tcfg.seed, state["step"], mesh.data_row)
+            params = state["params"]
+            with deterministic_convs():
+                feats, flens = _train_features(hcfg, gens, samples,
+                                               sample_lengths)
+                logits, logit_lens = apply_encoder(
+                    params, feats, flens, hcfg.model, train=True,
+                    generator=gens["dropout"], tp=tp)
+                loss = ctc_loss(logits, logit_lens, labels, label_lengths,
+                                use_kernel=tcfg.use_pallas_ctc)
+                grads = dict(zip(params, torch.autograd.grad(
+                    loss, list(params.values()))))
+            shard = [k for k in grads if k in sharded]
+            rep = [k for k in grads if k not in sharded]
+            if mesh.data > 1:
+                grads.update(zip(shard, all_reduce_mean(
+                    [grads[k] for k in shard], groups.data)))
+            *avg, loss = all_reduce_mean([*(grads[k] for k in rep), loss],
+                                         groups.world)
+            grads.update(zip(rep, avg))
+            with torch.no_grad():
+                sq = sum((torch.sum(grads[k].float() ** 2) for k in shard),
+                         torch.zeros((), device=loss.device))
+                dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=groups.model)
+                gnorm = torch.sqrt(sq + sum(torch.sum(grads[k].float() ** 2)
+                                            for k in rep))
+            lr = opt.schedule(state["step"])
+            gnorm = opt.step(params, grads, state["opt_state"], gnorm)
+            state["step"] += 1
+            return {"loss": loss.detach(), "grad_norm": gnorm, "lr": lr}
 
     return step_fn
 
@@ -327,9 +333,11 @@ def device_batches(src, loader: DataLoader | None, dev: torch.device,
     for b in src:
         host = (b.samples, b.sample_lengths) + (
             (b.labels, b.label_lengths) if with_labels else ())
-        arrs = [torch.from_numpy(np.ascontiguousarray(a)) for a in host]
-        if dev.type == "cuda":
-            arrs = [a.pin_memory().to(dev, non_blocking=True) for a in arrs]
+        with span(UPLOAD_RANGE):
+            arrs = [torch.from_numpy(np.ascontiguousarray(a)) for a in host]
+            if dev.type == "cuda":
+                arrs = [a.pin_memory().to(dev, non_blocking=True)
+                        for a in arrs]
         if pending is not None:
             if loader is not None:
                 loader.consumed = (pending[0].epoch, pending[0].position)

@@ -1,24 +1,63 @@
-"""Tracing and timing.
+"""Tracing: named spans, counters and whole-block traces.
 
-Counterpart of ``ctc_asr_tpu/utils/profiling.py``: ``trace`` /
-``maybe_trace`` capture a ``torch.profiler`` trace of the enclosed block
-(host activity, and the device's kernels and copies where CUDA is
-present) and write it as a Chrome trace (``chrome://tracing``, Perfetto)
-under the given directory; ``train.profile_dir`` wraps the train loop in
-it, so set it for a short run (``--max-steps``). ``time_fn`` is the
-simple wall timing of a callable with the device synchronised. The
-reference's roofline helpers are not carried over: they hold another
-accelerator's peak rates, and ``chip_smoke.py`` computes each kernel's
-bound on the H100 from the shapes it runs.
+Counterpart of ``ctc_asr_tpu/utils/profiling.py``:
+
+- ``span(name)`` opens a ``torch.profiler`` range (``record_function``)
+  when a profiler is running on this thread, and otherwise returns a
+  shared no-op context, so an untraced call pays one flag check. Each
+  layer's span name is a module constant beside its code
+  (``train.STEP_RANGE``, ``models.encoder.FRONTEND_RANGE``, ...); the
+  spans of one step nest on one thread, and the backward of the
+  autograd nodes a span created is tied to it by the nodes' sequence
+  numbers, as the profiler records them.
+- ``count(name, n)`` adds to a process-wide counter; ``counters()``
+  returns a copy of them all.
+- ``trace`` / ``maybe_trace`` capture a ``torch.profiler`` trace of the
+  enclosed block (host activity, and the device's kernels and copies
+  where CUDA is present) and write it as a Chrome trace
+  (``chrome://tracing``, Perfetto) under the given directory;
+  ``train.profile_dir`` wraps the train loop in it, so set it for a
+  short run (``--max-steps``).
+
+The reference's roofline helpers are not carried over: they hold
+another accelerator's peak rates. The H100's bounds, and the readers of
+these spans, are the benchmark's (``asrbench/flops.py``,
+``asrbench/metrics/``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 
 import torch
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+_counts: dict[str, int] = {}
+_counts_lock = threading.Lock()
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler runs on this thread,
+    else a shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the process-wide counter ``name``."""
+    with _counts_lock:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """A copy of every counter of the process."""
+    with _counts_lock:
+        return dict(_counts)
 
 
 @contextlib.contextmanager
@@ -43,19 +82,3 @@ def trace(log_dir: str):
 def maybe_trace(log_dir: str):
     """trace(log_dir) when non-empty, else a no-op context."""
     return trace(log_dir) if log_dir else contextlib.nullcontext()
-
-
-def time_fn(fn, *args, iters: int = 20, warmup: int = 3) -> float:
-    """Simple wall timing of ``fn(*args)`` (seconds/call): the device is
-    synchronised after the warm-up and after the timed calls."""
-    def sync():
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    for _ in range(warmup):
-        fn(*args)
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn(*args)
-    sync()
-    return (time.perf_counter() - t0) / iters

@@ -615,10 +615,20 @@ def test_profile_dir_writes_a_trace_and_keeps_the_loss(corpus, tmp_path,
     assert any("bmm" in e.get("name", "") for e in events)
 
 
-def test_time_fn_and_maybe_trace():
+def test_time_fn_and_maybe_trace(tmp_path):
+    """``maybe_trace("")`` traces nothing; given a directory it writes one
+    Chrome trace that holds the spans opened inside it."""
     from ctc_asr_tpu_torch.utils import profiling
-    calls = []
-    dt = profiling.time_fn(lambda x: calls.append(x), 1, iters=4, warmup=2)
-    assert len(calls) == 6 and dt >= 0
     with profiling.maybe_trace("") as t:
         assert t is None
+        with profiling.span("test.untraced"):
+            pass
+    with profiling.maybe_trace(str(tmp_path)) as t:
+        assert t is not None
+        with profiling.span("test.traced"):
+            torch.ones(2).sum()
+    files = os.listdir(tmp_path)
+    assert len(files) == 1
+    with open(tmp_path / files[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "test.traced" in names and "test.untraced" not in names
