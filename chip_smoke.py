@@ -652,8 +652,9 @@ def _lstm_bounds(nd, T, B, H):
 
 
 def _plan_text(plan) -> str:
-    return (f"JT={plan.jt} BT={plan.bt} grid={plan.grid} = "
-            f"{plan.blocks} blocks, {plan.smem_bytes} B shared")
+    return (f"JT={plan.jt} BT={plan.bt} grid={plan.grid} cluster="
+            f"{plan.cluster} = {plan.blocks} blocks, {plan.smem_bytes} B "
+            f"shared")
 
 
 def _barrier_us(plan, T: int) -> float:
@@ -948,9 +949,11 @@ def phase_ctc() -> dict:
 
 def phase_lstm_train() -> dict:
     """K2 in residual mode and K3 at the train step's shape, at the ds3
-    width, at cli train's batch of 16, at T=1, at the ladder's and at the
-    synth runners' batches, each held to the plain versions; two runs
-    must give equal bits."""
+    width, at cli train's batch of 16, at T=1, at the ladder's, the synth
+    runners' and the benchmark's train batches, each held to the plain
+    versions; two runs must give equal bits. K3's rows give its plan
+    (clustered or not) and the chunks of dgates a block waits for a
+    step."""
     import torch
     from ctc_asr_tpu_torch.ops import lstm_cuda
     dev = torch.device("cuda")
@@ -961,11 +964,14 @@ def phase_lstm_train() -> dict:
     # BiLSTM-800
     # the synth runners' batches: e2e's uni-LSTM-256 at B=8, ds2's
     # BiLSTM-256 at B=16, ds3's BiLSTM-800 at B=8
+    # the train cells' B=64 at their longer buckets (T' to 843): ds3's
+    # BiLSTM-800 and ds2's BiLSTM-512
     cases = [("", 2, 399, 128, 512), ("_h800", 2, 399, 128, 800),
              (None, 2, 200, 16, 512), (None, 2, 1, 128, 512),
              ("_b32_h256", 1, 734, 32, 256), ("_b32_h800", 2, 367, 32, 800),
              ("_synth_e2e", 1, 171, 8, 256), ("_synth_ds2", 2, 135, 16, 256),
-             ("_synth_ds3", 2, 140, 8, 800)]
+             ("_synth_ds3", 2, 140, 8, 800), ("_b64_h800", 2, 640, 64, 800),
+             ("_b64_h512", 2, 640, 64, 512)]
     out = {"lstm_fwd_res": {"max_abs_err": 0.0},
            "lstm_bwd": {"max_abs_err": 0.0, "max_rel_err": 0.0,
                         "design": "persistent"}}
@@ -1031,9 +1037,10 @@ def phase_lstm_train() -> dict:
                                  "differ in their bits")
         log(f"[K2 residual] {label}: plan {_plan_text(plans[0])}; kernel "
             f"{fwd_ms:.4f} ms = {fwd_ms * 1e3 / T:.2f} us a step")
-        log(f"[K3 bptt] {label}: plan {_plan_text(plans[1])}; kernel "
-            f"{bwd_ms:.4f} ms = {bwd_ms * 1e3 / T:.2f} us a step; two runs "
-            f"bit-equal")
+        chunks = lstm_cuda.lstm_bwd_chunks(plans[1], H, B)
+        log(f"[K3 bptt] {label}: plan {_plan_text(plans[1])}, {chunks} "
+            f"chunks a step; kernel {bwd_ms:.4f} ms = "
+            f"{bwd_ms * 1e3 / T:.2f} us a step; two runs bit-equal")
         if key is None:
             continue
         fwd_plain = cuda_ms(lambda: lstm_cuda.lstm_fwd_plain(
@@ -1049,6 +1056,7 @@ def phase_lstm_train() -> dict:
         out["lstm_bwd"].update({
             "ms" + key: bwd_ms, "plain_ms" + key: bwd_plain,
             "step_us" + key: bwd_ms * 1e3 / T, "barrier_us" + key: bar,
+            "chunks" + key: chunks,
             "plan" + key: dataclasses.asdict(plans[1])})
     return out
 
@@ -3402,13 +3410,24 @@ def _profile_step(cfg, arrs, tag: str = "profile") -> dict:
                 step(state, *arrs)
             torch.cuda.synchronize()
 
-    # the host clock's start would drop the range's first kernels
-    def marks(evs):
-        return [e.time_range.start for e in evs
-                if e.name == "measured steps"
-                and e.device_type == DeviceType.CUDA]
-    evs = _trace(run, marks, "device-side mark of 'measured steps'")
-    t0 = marks(evs)[0]
+    # the host clock's start would drop the range's first kernels, and
+    # the range's own device-side mark covers only kernels launched
+    # outside the spans nested in it (train.step's holds them all): the
+    # range starts at the first kernel whose launch (the runtime call
+    # that shares its correlation id) lies inside it on the host's clock
+    def first_start(evs):
+        cpu = [e for e in evs if e.device_type == DeviceType.CPU]
+        ranges = [e.time_range for e in cpu if e.name == "measured steps"]
+        launches = {e.id: e.time_range.start for e in cpu
+                    if e.name.startswith("cu")}
+        return min((e.time_range.start for e in evs
+                    if e.device_type == DeviceType.CUDA
+                    and e.id in launches
+                    and any(r.start <= launches[e.id] <= r.end
+                            for r in ranges)), default=None)
+    evs = _trace(run, lambda evs: first_start(evs) is not None,
+                 "kernel launched inside 'measured steps'")
+    t0 = first_start(evs)
     kernels = [e for e in evs
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)

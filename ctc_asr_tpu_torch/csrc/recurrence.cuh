@@ -22,8 +22,11 @@
 //   stage hand the stages over.
 // - load_gate_columns / load_unit_rows / load_unit_rows_stacked: the
 //   resident weight slices.
+// - cluster helpers: the block's rank, the address of a variable in the
+//   other block's shared memory, a store there, the cluster barrier.
 // - launch_persistent: cudaFuncSetAttribute once per device, the
-//   occupancy check that the grid is co-resident, the cooperative launch.
+//   occupancy check that the grid is co-resident (and, in clusters, that
+//   the card holds its clusters at once), the cooperative launch.
 
 #pragma once
 
@@ -263,11 +266,15 @@ __device__ __forceinline__ void load_gate_columns(bf16* Wa, const bf16* w,
 }
 
 // Wr (a tile of JT rows): row u, piece kg holds w[j0 + u][kg*8 .. +8] for
-// kg < K/8: the rows of the block's units. Rows past H are zero.
+// kg < span/8: `span` columns of the rows of the block's units, w pointing
+// at the first of them in a matrix of row stride K. Rows past H are zero;
+// the pieces past `span` of a partial last atom are not written (no k-step
+// reads them).
 template <int JT>
 __device__ __forceinline__ void load_unit_rows(bf16* Wr, const bf16* w,
-                                               int H, int K, int j0) {
-  const int nkg = K / 8;
+                                               int H, int K, int j0,
+                                               int span) {
+  const int nkg = span / 8;
   for (int e = threadIdx.x; e < JT * nkg; e += THREADS) {
     const int u = e / nkg, kg = e % nkg;
     bf16* dst = Wr + swizzled(JT, u, kg);
@@ -276,6 +283,13 @@ __device__ __forceinline__ void load_unit_rows(bf16* Wr, const bf16* w,
     else
       zero16(dst);
   }
+}
+
+// The whole rows (span = K).
+template <int JT>
+__device__ __forceinline__ void load_unit_rows(bf16* Wr, const bf16* w,
+                                               int H, int K, int j0) {
+  load_unit_rows<JT>(Wr, w, H, K, j0, K);
 }
 
 // The two halves of K stacked as rows, so that one wgmma with M = 64 and
@@ -349,6 +363,42 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
 }
 
+// --- thread block clusters (sm_90): the blocks of a cluster run at once
+// on neighbouring SMs and can write each other's shared memory.
+
+// This block's rank in its cluster.
+__device__ __forceinline__ unsigned cluster_ctarank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of `smem_ptr`'s counterpart in the block of
+// rank `rank` of this cluster.
+__device__ __forceinline__ unsigned map_shared_rank(const void* smem_ptr,
+                                                    unsigned rank) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem_ptr);
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_v4(unsigned addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// Every thread of every block of the cluster arrives, then waits for all
+// the others: what any of them wrote to any block's shared memory before
+// is visible to all of them after. Not aligned: the threads of a warp may
+// reach it apart (the producer thread later than its warp).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // --- TMA: the slab of the exchanged operand goes from global memory into
 // the ring as boxes of [box_rows, 64 k] with the 128-byte swizzle, one
 // instruction of one thread per box, completion counted in bytes on the
@@ -413,38 +463,99 @@ __device__ __forceinline__ void fence_proxy_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
-// The cooperative launch of a persistent kernel. `ready` is a static
-// array of the caller, one per kernel instantiation: the shared-memory
-// attribute is set once per device. The grid must be co-resident at this
-// shared-memory size, or the launch is refused (never shrunk).
-inline cudaError_t launch_persistent(const void* kernel, bool* ready,
-                                     dim3 grid, size_t smem, void** args,
-                                     cudaStream_t stream) {
-  int dev = 0, sms = 0, per_sm = 0, coop = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+// Once per device and kernel instantiation (`ready` is a static array of
+// the caller): the kernel may opt in to all of the block's shared memory.
+// `dev` receives the current device.
+inline cudaError_t prepare_persistent(const void* kernel, bool* ready,
+                                      int* dev) {
+  int coop = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(dev);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!ready[dev]) {
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (*dev < 0 || *dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!ready[*dev]) {
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, *dev);
     if (err != cudaSuccess) return err;
     if (!coop) return cudaErrorNotSupported;
     err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 *dev);
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return err;
-    ready[dev] = true;
+    ready[*dev] = true;
   }
+  return cudaSuccess;
+}
+
+// A launch of `grid` in clusters of `cluster` blocks along x.
+inline cudaLaunchConfig_t cluster_config(dim3 grid, size_t smem,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attrs,
+                                         int cluster) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// How many clusters of `cluster` blocks of `kernel`, each with `smem`
+// bytes of dynamic shared memory, the card holds at once.
+inline cudaError_t cluster_capacity(const void* kernel, bool* ready,
+                                    int cluster, size_t smem, int* clusters) {
+  int dev = 0;
+  cudaError_t err = prepare_persistent(kernel, ready, &dev);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attrs[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config(dim3(cluster), smem, 0, attrs, cluster);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// The cooperative launch of a persistent kernel, in clusters of `cluster`
+// blocks along x where cluster > 1. The grid must be co-resident at this
+// shared-memory size (blocks per SM, and clusters the card holds at once),
+// or the launch is refused (never shrunk).
+inline cudaError_t launch_persistent(const void* kernel, bool* ready,
+                                     dim3 grid, size_t smem, void** args,
+                                     cudaStream_t stream, int cluster = 1) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = prepare_persistent(kernel, ready, &dev);
+  if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
                                                       THREADS, smem);
   if (err != cudaSuccess) return err;
-  if ((long long)grid.x * grid.y * grid.z > (long long)per_sm * sms)
+  const long long blocks = (long long)grid.x * grid.y * grid.z;
+  if (blocks > (long long)per_sm * sms)
     return cudaErrorCooperativeLaunchTooLarge;
-  err = cudaLaunchCooperativeKernel(kernel, grid, dim3(THREADS), args, smem,
-                                    stream);
+  if (cluster == 1) {
+    err = cudaLaunchCooperativeKernel(kernel, grid, dim3(THREADS), args,
+                                      smem, stream);
+  } else {
+    if (grid.x % cluster != 0) return cudaErrorInvalidValue;
+    int clusters = 0;
+    err = cluster_capacity(kernel, ready, cluster, smem, &clusters);
+    if (err != cudaSuccess) return err;
+    if (blocks > (long long)clusters * cluster)
+      return cudaErrorCooperativeLaunchTooLarge;
+    cudaLaunchAttribute attrs[2];
+    cudaLaunchConfig_t cfg = cluster_config(grid, smem, stream, attrs,
+                                            cluster);
+    attrs[1].id = cudaLaunchAttributeCooperative;
+    attrs[1].val.cooperative = 1;
+    cfg.numAttrs = 2;
+    err = cudaLaunchKernelExC(&cfg, kernel, args);
+  }
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -53,11 +53,14 @@ _SIGNATURES = {
     "lstm_fwd_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _I, _I, _I, _P],
     # g_out, gates, c_seq, wh, start, end, dxproj, db_part, sync, nd, T, B,
-    # H, jt, bt, smem_bytes, stream
+    # H, jt, bt, cluster, smem_bytes, stream
     "lstm_bwd_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _P],
-    # sync, unit_tiles, row_blocks, nd, steps, smem_bytes, stream
-    "recurrence_barrier_probe": [_P, _I, _I, _I, _I, _I, _P],
+                            _I, _I, _I, _I, _I, _P],
+    # out (int)
+    "lstm_bwd_cluster_capacity": [_P],
+    # sync, blocks along x, row_blocks, nd, steps, cluster, smem_bytes,
+    # stream
+    "recurrence_barrier_probe": [_P, _I, _I, _I, _I, _I, _I, _P],
     # xproj, bias, wh, start, end, hb16, sync, h_out, gates_out, nd, T, B,
     # H, jt, bt, smem_bytes, stream
     "gru_fwd_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -17,14 +17,17 @@ blocks meet at a barrier between steps (``csrc/recurrence.cuh``).
 ``plan_recurrence`` cuts a layer over the card from the shapes and the
 device's attributes alone, before anything is launched, for the LSTM
 (``gate_mult=4``) and the GRU's K4 / K5 (``gate_mult=3``,
-``ops/gru_cuda.py``). A shape with no plan (a slice too wide for the
-card's shared memory) has no kernel: the wrappers raise on it, and the
-encoder gives such a layer its plain recurrence before it calls them
-(``models/encoder.py``). A launch that the card refuses raises.
+``ops/gru_cuda.py``); K3 runs in clusters of two blocks that split
+K = 4H where that streams fewer chunks a step. A shape with no plan (a
+slice too wide for the card's shared memory) has no kernel: the wrappers
+raise on it, and the encoder gives such a layer its plain recurrence
+before it calls them (``models/encoder.py``). A launch that the card
+refuses raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -39,6 +42,8 @@ SMEM_PER_BLOCK = 232448
 # The persistent kernels run one block of 288 threads on an SM
 # (``__launch_bounds__(288, 1)``), so the grid may not exceed the SMs.
 BLOCKS_PER_SM = 1
+# Clusters of two such blocks the H100 holds at once (its SMs in pairs).
+CLUSTERS = SM_COUNT // 2
 _ROW_TILE = 32          # a block's rows come in multiples of this
 _UNIT_TILES = (32, 16)  # hidden units a block may own (template JT)
 
@@ -49,15 +54,18 @@ class RecurrencePlan:
     (unit tiles, row blocks, directions); a block owns ``jt`` hidden
     units of one direction for ``bt`` batch rows (a multiple of 32 that
     it walks in passes of 32 or 64), with ``smem_bytes`` of dynamic
-    shared memory."""
+    shared memory. With ``cluster`` 2 (K3 only) each unit tile is a pair
+    of blocks that split K = 4H, so the launch has twice the tiles'
+    blocks along x."""
     jt: int
     bt: int
     grid: tuple
     smem_bytes: int
+    cluster: int = 1
 
     @property
     def blocks(self) -> int:
-        return self.grid[0] * self.grid[1] * self.grid[2]
+        return self.grid[0] * self.grid[1] * self.grid[2] * self.cluster
 
 
 def _a128(n: int) -> int:
@@ -73,7 +81,7 @@ def _ceil64(n: int) -> int:
 
 
 def recurrence_smem_bytes(H: int, jt: int, bt: int, gate_mult: int = 4,
-                          backward: bool = False) -> int:
+                          backward: bool = False, cluster: int = 1) -> int:
     """Dynamic shared memory of one block of the persistent kernels: the
     sum that ``Layout`` in ``csrc/lstm_fwd.cu`` / ``csrc/lstm_bwd.cu``
     (``gate_mult=4``) or ``csrc/gru_fwd.cu`` / ``csrc/gru_bwd.cu``
@@ -95,11 +103,30 @@ def recurrence_smem_bytes(H: int, jt: int, bt: int, gate_mult: int = 4,
     bf16), two partial tiles [pass][jt + 4] f32, the carried dh (and the
     LSTM's dc) f32 [bt][jt], the gates tile [bt][4*jt] bf16 and the other
     per-step inputs [bt][jt] bf16 (LSTM: c_t, c_{t-1}, g_out; GRU:
-    h_{t-1}, g_out), the windows, the mbarriers."""
+    h_{t-1}, g_out), the windows, the mbarriers.
+
+    The LSTM's backward in clusters of two (``cluster=2``): the wh rows'
+    half of K [jt][2H in whole atoms], the ring of 3 stages of
+    [64][128], two partial tiles [64][jt + 4] f32, the partner's partial
+    tiles [32][jt + 4] f32 (two where the block walks two or more passes
+    of 64 rows), and the state and per-step inputs of the block's 32 rows
+    of each pass."""
     if gate_mult not in (3, 4):
         raise ValueError(f"gate_mult is 4 (LSTM) or 3 (GRU), got {gate_mult}")
+    if cluster not in (1, 2) or (cluster == 2
+                                 and (gate_mult != 4 or not backward)):
+        raise ValueError(f"only the LSTM's backward runs in clusters of 2, "
+                         f"got cluster={cluster}")
     gm = gate_mult
     pr = 32 if jt == 32 else 64
+    if cluster == 2:
+        passes = -(-bt // 64)
+        sr = passes * 32                      # rows of the block's state
+        return (_a1024(jt * _ceil64(2 * H) * 2) + _a1024(3 * 128 * 64 * 2)
+                + _a128(2 * 64 * (jt + 4) * 4)
+                + _a128(min(passes, 2) * 32 * (jt + 4) * 4)
+                + 2 * _a128(sr * jt * 4) + _a128(sr * 4 * jt * 2)
+                + 3 * _a128(sr * jt * 2) + _a128(2 * sr * 4) + 128)
     if backward:
         ring = 2 * 256 * 64 * 2 if jt == 32 else 3 * 128 * 64 * 2
         K = gm * H
@@ -121,10 +148,23 @@ def recurrence_smem_bytes(H: int, jt: int, bt: int, gate_mult: int = 4,
             + state + _a128(gm * jt * 4) + _a128(2 * bt * 4) + 128)
 
 
+def lstm_bwd_chunks(plan: RecurrencePlan, H: int, B: int) -> int:
+    """Ring chunks of dgates_{t+1} that a block of K3 waits for a step (a
+    block of the first row block): passes x chunks a pass. Unclustered
+    with 32 units, passes of 32 rows of the two stacked halves of K, 256
+    columns of each a chunk; otherwise passes of 64 rows (padding
+    included) of the block's 4H / cluster columns, 128 a chunk."""
+    rows = min(plan.bt, B)
+    if plan.jt == 32 and plan.cluster == 1:
+        return -(-rows // 32) * -(-2 * H // 256)
+    return -(-rows // 64) * -(-4 * H // plan.cluster // 128)
+
+
 def plan_recurrence(nd: int, B: int, H: int, gate_mult: int = 4,
                     sm_count: int = SM_COUNT,
                     smem_per_block: int = SMEM_PER_BLOCK,
-                    backward: bool = False) -> RecurrencePlan | None:
+                    backward: bool = False,
+                    max_clusters: int = CLUSTERS) -> RecurrencePlan | None:
     """The tiling of one layer's recurrence (forward, or the BPTT with
     ``backward``), from shapes and device attributes alone; ``None``
     where none fits. ``gate_mult`` is 4 for the LSTM and 3 for the GRU.
@@ -134,25 +174,47 @@ def plan_recurrence(nd: int, B: int, H: int, gate_mult: int = 4,
     Among the tilings that fit, the one with the least product work per
     block (padded rows x units: the step's latency) wins, then the
     larger unit tile (the operand exchanged per step is read H / jt
-    times)."""
+    times).
+
+    The LSTM's backward (K3) also weighs clusters of two blocks that
+    split K (at most ``max_clusters`` of them resident at once), the
+    fewest chunks first: its step waits for the chunks of dgates_{t+1} a
+    block streams in series (``lstm_bwd_chunks``), so the clustered
+    tiling is taken where it streams fewer chunks a step than the
+    unclustered one above. Measured on the H100, that keeps the
+    unclustered tiling where it is faster (B >= 192 at H = 256, two
+    stacked chunks against four) and also at B >= 96 with H = 400 to 512,
+    where the clustered one would be 5-8% faster."""
     if min(nd, B, H) <= 0 or H % 16:
         raise ValueError(f"need nd, B, H > 0 and H % 16 == 0, got nd={nd} "
                          f"B={B} H={H}")
-    best = None
-    for jt in _UNIT_TILES:
-        unit_tiles = -(-H // jt)
-        for bt in range(_ROW_TILE, B + _ROW_TILE, _ROW_TILE):
-            row_blocks = -(-B // bt)
-            if nd * unit_tiles * row_blocks > sm_count * BLOCKS_PER_SM:
-                continue
-            smem = recurrence_smem_bytes(H, jt, bt, gate_mult, backward)
-            if smem <= smem_per_block:
-                work = jt * 16 * -(-min(bt, B) // 16)
-                if best is None or work < best[0]:
-                    best = (work, RecurrencePlan(
-                        jt, bt, (unit_tiles, row_blocks, nd), smem))
-            break       # a larger bt only adds work to a block
-    return None if best is None else best[1]
+    # the best tiling of each cluster size: the least work, and for K3 in
+    # clusters the fewest chunks first
+    best = {}
+    for cluster in (1, 2) if backward and gate_mult == 4 else (1,):
+        pad = 16 if cluster == 1 else 64       # rows of a product's tile
+        for jt in _UNIT_TILES:
+            unit_tiles = -(-H // jt)
+            for bt in range(_ROW_TILE, B + _ROW_TILE, _ROW_TILE):
+                plan = RecurrencePlan(jt, bt, (unit_tiles, -(-B // bt), nd),
+                                      0, cluster)
+                if plan.blocks > sm_count * BLOCKS_PER_SM or (
+                        cluster > 1 and plan.blocks > cluster * max_clusters):
+                    continue
+                smem = recurrence_smem_bytes(H, jt, bt, gate_mult, backward,
+                                             cluster)
+                if smem <= smem_per_block:
+                    plan = dataclasses.replace(plan, smem_bytes=smem)
+                    key = (lstm_bwd_chunks(plan, H, B) if cluster > 1 else 0,
+                           jt * pad * -(-min(bt, B) // pad))
+                    if cluster not in best or key < best[cluster][0]:
+                        best[cluster] = (key, plan)
+                break       # a larger bt only adds work to a block
+    plan = best[1][1] if 1 in best else None
+    if 2 in best and (plan is None or lstm_bwd_chunks(best[2][1], H, B)
+                      < lstm_bwd_chunks(plan, H, B)):
+        plan = best[2][1]
+    return plan
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,12 +235,36 @@ def device_limits(device: torch.device) -> tuple:
     return _device_limits(index)
 
 
+@functools.lru_cache(maxsize=None)
+def _cluster_capacity(index: int) -> int:
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = build.load().lstm_bwd_cluster_capacity(ctypes.addressof(out))
+    build.check(rc, "lstm_bwd_cluster_capacity")
+    return out.value
+
+
+def cluster_capacity(device: torch.device) -> int:
+    """Clusters of two K3 blocks that a CUDA ``device`` holds at once
+    (``cudaOccupancyMaxActiveClusters``); for any other device the
+    H100's ``CLUSTERS``."""
+    if device.type != "cuda":
+        return CLUSTERS
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _cluster_capacity(index)
+
+
 def plan_for(device: torch.device, nd: int, B: int, H: int,
              gate_mult: int = 4, backward: bool = False
              ) -> RecurrencePlan | None:
-    """``plan_recurrence`` on ``device``'s SM count and shared memory."""
+    """``plan_recurrence`` on ``device``'s SM count and shared memory
+    (and, for K3, the clusters it holds at once)."""
     sm_count, smem = device_limits(device)
-    return plan_recurrence(nd, B, H, gate_mult, sm_count, smem, backward)
+    clusters = cluster_capacity(device) if backward and gate_mult == 4 \
+        else CLUSTERS
+    return plan_recurrence(nd, B, H, gate_mult, sm_count, smem, backward,
+                           clusters)
 
 
 def require_plan(device: torch.device, nd: int, B: int, H: int,
@@ -366,8 +452,8 @@ def lstm_bwd(g_out: torch.Tensor, gates: torch.Tensor, c_seq: torch.Tensor,
     """K3: (dxproj [nd, T, B, 4H] bf16, db [nd, 4H] f32) from the bf16
     cotangent of h and the forward's bf16 residuals. A CPU tensor gets
     the plain version; a CUDA tensor launches the kernel on the plan
-    ``plan_recurrence`` gives, and raises where there is none or the
-    launch fails."""
+    ``plan_recurrence`` gives (clustered or not), and raises where there
+    is none or the launch fails."""
     if g_out.device.type == "cpu":
         dx, db = lstm_bwd_plain(g_out, gates, c_seq, wh, start, end)
         return dx.to(torch.bfloat16), db
@@ -390,33 +476,40 @@ def lstm_bwd(g_out: torch.Tensor, gates: torch.Tensor, c_seq: torch.Tensor,
     if gates.numel() == 0:     # no step or no row: nothing to launch
         return dxproj, torch.zeros((nd, G), dtype=torch.float32, device=dev)
     plan = require_plan(dev, nd, B, H, backward=True)
-    # one partial per row block, each element written once
-    db_part = torch.empty((plan.grid[1], nd, G), dtype=torch.float32,
-                          device=dev)
+    # one partial per row block and rank of a cluster, each element
+    # written once, summed in their order
+    db_part = torch.empty((plan.grid[1] * plan.cluster, nd, G),
+                          dtype=torch.float32, device=dev)
     sync = torch.zeros(nd * plan.grid[1], dtype=torch.int32, device=dev)
     rc = build.load().lstm_bwd_persistent(
         g_out.data_ptr(), gates.data_ptr(), c_seq.data_ptr(), wh.data_ptr(),
         start.data_ptr(), end.data_ptr(), dxproj.data_ptr(),
         db_part.data_ptr(), sync.data_ptr(), nd, T, B, H, plan.jt, plan.bt,
-        plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
+        plan.cluster, plan.smem_bytes,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "lstm_bwd_persistent")
     lstm_bwd.launches += 1
+    if plan.cluster > 1:
+        lstm_bwd.clustered_launches += 1
     return dxproj, db_part.sum(dim=0)
 
 
 lstm_bwd.launches = 0            # one kernel a call
+lstm_bwd.clustered_launches = 0  # of them in clusters of two blocks
 
 
 def barrier_probe(device: torch.device, plan: RecurrencePlan,
                   steps: int) -> None:
     """Launch ``steps`` step barriers and nothing else on ``plan``'s grid
-    (``csrc/recurrence_probe.cu``): the floor that the barrier sets under
-    a step of the recurrence kernels. For measurement only."""
+    (``csrc/recurrence_probe.cu``; in its clusters, with a cluster
+    barrier a step): the floor that the barriers set under a step of the
+    recurrence kernels. For measurement only."""
     require_kernel_device(torch.empty(0, device=device))
     sync = torch.zeros(plan.grid[2] * plan.grid[1], dtype=torch.int32,
                        device=device)
     rc = build.load().recurrence_barrier_probe(
-        sync.data_ptr(), *plan.grid, steps, plan.smem_bytes,
+        sync.data_ptr(), plan.grid[0] * plan.cluster, plan.grid[1],
+        plan.grid[2], steps, plan.cluster, plan.smem_bytes,
         torch.cuda.current_stream(device).cuda_stream)
     build.check(rc, "recurrence_barrier_probe")
 

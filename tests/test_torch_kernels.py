@@ -265,12 +265,53 @@ def _lstm_case(dev, nd, T, B, H, seed):
                                       (2, 9, 1, 16), (1, 20, 70, 16),
                                       (2, 40, 16, 800), (2, 30, 128, 800),
                                       (2, 60, 128, 512), (1, 25, 200, 512),
-                                      (2, 60, 16, 512)])
+                                      (2, 60, 16, 512),
+                                      # K3 in clusters of two: the train
+                                      # cells' B=64, the ladder's B=32, an
+                                      # odd width (2H no multiple of 128)
+                                      (2, 40, 64, 800), (2, 33, 32, 800),
+                                      (2, 40, 64, 512), (2, 30, 32, 400),
+                                      (2, 3, 64, 800)])
 def test_lstm_residuals_and_bptt_match_plain(dev, nd, T, B, H):
     """K2's residual mode and K3 against their plain versions on the same
     bf16 inputs (bf16 outputs: two ulps relative; db f32), with a
     length-1 and an empty row; dgates exactly 0 outside the windows."""
     _check_residuals_and_bptt(dev, nd, T, B, H)
+
+
+@pytest.mark.parametrize("nd,B,H", [(2, 64, 800), (2, 64, 512),
+                                    (2, 32, 800), (2, 128, 800)])
+def test_lstm_bwd_runs_in_clusters_at_the_train_shapes(dev, nd, B, H):
+    """At the train cells' shapes K3 is planned and launched in clusters
+    of two blocks, and says so in its counters."""
+    plan = lstm_cuda.plan_for(dev, nd, B, H, backward=True)
+    assert plan.cluster == 2
+    assert lstm_cuda.cluster_capacity(dev) >= plan.blocks // 2
+    before = (lstm_cuda.lstm_bwd.launches,
+              lstm_cuda.lstm_bwd.clustered_launches)
+    _check_residuals_and_bptt(dev, nd, 5, B, H)
+    assert (lstm_cuda.lstm_bwd.launches,
+            lstm_cuda.lstm_bwd.clustered_launches) \
+        == tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("H,jt,bt", [(272, 32, 64), (272, 16, 64),
+                                     (512, 32, 192)])
+def test_lstm_bwd_clusters_on_any_tiling(dev, monkeypatch, H, jt, bt):
+    """Clustered tilings the planner does not pick at these shapes: 32
+    units with a ragged last tile (H = 272) and 16, each splitting a K of
+    2H = 544 (a partial last chunk and atom); three passes of 64 rows, so
+    the partner's partial tiles alternate between two buffers."""
+    B = bt
+    plan = lstm_cuda.RecurrencePlan(
+        jt, bt, (-(-H // jt), 1, 2),
+        lstm_cuda.recurrence_smem_bytes(H, jt, bt, 4, True, 2), cluster=2)
+    assert plan.smem_bytes <= lstm_cuda.SMEM_PER_BLOCK
+    planned = lstm_cuda.plan_for
+    monkeypatch.setattr(
+        lstm_cuda, "plan_for",
+        lambda *a, **k: plan if k.get("backward") else planned(*a, **k))
+    _check_residuals_and_bptt(dev, 2, 17, B, H)
 
 
 @pytest.mark.parametrize("H", [272, 400, 496])
@@ -334,7 +375,8 @@ def test_lstmseq_autograd_on_card(dev):
 
 
 @pytest.mark.parametrize("nd,T,B,H", [(2, 399, 128, 512), (2, 60, 128, 800),
-                                      (1, 50, 37, 512)])
+                                      (1, 50, 37, 512), (2, 200, 64, 800),
+                                      (2, 200, 64, 512)])
 def test_lstm_persistent_kernels_repeat_bit_equal(dev, nd, T, B, H):
     """Two runs of the persistent K2 and K3 on one input give the same
     bits: no atomics in a sum, and no read of a buffer that another

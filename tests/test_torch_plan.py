@@ -14,8 +14,10 @@ import pytest
 import torch
 
 from ctc_asr_tpu_torch.ops import build, gru_cuda, lstm_cuda
-from ctc_asr_tpu_torch.ops.lstm_cuda import (BLOCKS_PER_SM, SM_COUNT,
-                                             SMEM_PER_BLOCK, LstmSeq,
+from ctc_asr_tpu_torch.ops.lstm_cuda import (BLOCKS_PER_SM, CLUSTERS,
+                                             SM_COUNT, SMEM_PER_BLOCK,
+                                             LstmSeq, RecurrencePlan,
+                                             lstm_bwd_chunks,
                                              plan_recurrence,
                                              recurrence_smem_bytes)
 
@@ -57,6 +59,31 @@ def _gru_layout(H, jt, bt, backward):
         (2 * bt * 4, 128), (2 * stages * 8, 128)])
 
 
+def _lstm_bwd_layout(H, jt, bt, cluster):
+    """``Layout<JT, CL>(H, BT).total`` of ``csrc/lstm_bwd.cu``, field by
+    field: unclustered with 32 units the two halves of K stacked as rows
+    (passes of 32 rows); otherwise passes of 64 rows, of which a block of
+    a cluster of two keeps the state of 32."""
+    stacked = jt == 32 and cluster == 1
+    pr = 32 if stacked else 64
+    cr = pr // cluster
+    kc, stages = (256, 2) if stacked else (128, 3)
+    passes = -(-bt // pr)
+    sr = bt if cluster == 1 else passes * cr
+    xbufs = 0 if cluster == 1 else min(passes, 2)
+    wr = (64 * ((2 * H + 63) // 64 * 64) if stacked
+          else jt * ((4 * H // cluster + 63) // 64 * 64)) * 2
+    return _layout_total([
+        (wr, 1024), (stages * kc * 64 * 2, 1024),    # wh slice, ring
+        (2 * pr * (jt + 4) * 4, 128),                # Cs, two partials
+        (xbufs * cr * (jt + 4) * 4, 128),            # the partner's
+        (sr * jt * 4, 128), (sr * jt * 4, 128),      # dh, dc
+        (sr * 4 * jt * 2, 128),                      # gates tile
+        (sr * jt * 2, 128), (sr * jt * 2, 128),      # c_t, c_{t-1}
+        (sr * jt * 2, 128),                          # g_out
+        (2 * sr * 4, 128), (2 * stages * 8, 128)])
+
+
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("gate_mult", [4, 3])
 @pytest.mark.parametrize("nd", [1, 2])
@@ -71,13 +98,18 @@ def test_plan_covers_the_main_shapes(H, B, nd, gate_mult, backward):
     assert plan is not None
     unit_tiles, row_blocks, dirs = plan.grid
     assert dirs == nd
-    assert plan.blocks == unit_tiles * row_blocks * nd
+    assert plan.blocks == unit_tiles * row_blocks * nd * plan.cluster
     assert plan.blocks <= SM_COUNT * BLOCKS_PER_SM == 132
+    assert plan.blocks <= 2 * CLUSTERS
     assert plan.smem_bytes <= SMEM_PER_BLOCK == 232448
     assert plan.smem_bytes == recurrence_smem_bytes(
-        H, plan.jt, plan.bt, gate_mult, backward)
+        H, plan.jt, plan.bt, gate_mult, backward, plan.cluster)
     if gate_mult == 3:
         assert plan.smem_bytes == _gru_layout(H, plan.jt, plan.bt, backward)
+    if gate_mult == 4 and backward:
+        assert plan.smem_bytes == _lstm_bwd_layout(H, plan.jt, plan.bt,
+                                                   plan.cluster)
+    assert plan.cluster == 1 or (gate_mult == 4 and backward)
     assert plan.jt in (16, 32) and plan.bt % 32 == 0
     # the tiles [i*jt, (i+1)*jt) and [i*bt, (i+1)*bt) partition H and B
     assert (unit_tiles - 1) * plan.jt < H <= unit_tiles * plan.jt
@@ -126,6 +158,128 @@ def test_plan_follows_the_device_attributes():
         assert plan_recurrence(2, 16, 512, gm, backward=True).jt == 16
     assert plan_recurrence(2, 128, 512, 3).smem_bytes \
         < plan_recurrence(2, 128, 512, 4).smem_bytes
+
+
+# The plans before K3 ran in clusters, (jt, bt, grid, smem_bytes): the
+# forward kernels' and the GRU's, and K3's where no cluster is allowed.
+_UNCLUSTERED = {
+    (4, False, 2, 64, 800): (16, 64, (50, 1, 2), 204672),
+    (4, False, 2, 64, 512): (16, 32, (32, 2, 2), 156288),
+    (4, False, 2, 128, 512): (32, 32, (16, 4, 2), 212352),
+    (4, False, 1, 32, 256): (16, 32, (16, 1, 1), 123520),
+    (3, False, 2, 64, 800): (16, 64, (50, 1, 2), 200576),
+    (3, False, 2, 128, 400): (32, 32, (13, 4, 2), 191744),
+    (3, True, 2, 64, 800): (16, 64, (50, 1, 2), 154240),
+    (3, True, 2, 64, 512): (16, 32, (32, 2, 2), 117120),
+    (3, True, 2, 128, 512): (32, 32, (16, 4, 2), 189824),
+    (3, True, 1, 32, 256): (16, 32, (16, 1, 1), 92544),
+    (4, True, 2, 64, 800): (16, 64, (50, 1, 2), 184960),
+    (4, True, 2, 64, 512): (16, 32, (32, 2, 2), 136576),
+    (4, True, 2, 128, 800): (16, 128, (50, 1, 2), 208000),
+    (4, True, 2, 32, 800): (16, 32, (50, 1, 2), 173440),
+}
+
+
+@pytest.mark.parametrize("key", sorted(_UNCLUSTERED))
+def test_forward_and_gru_plans_never_cluster(key):
+    """Only the LSTM's backward runs in clusters: every forward plan and
+    the GRU's keep their tiling whatever clusters the card holds, and K3
+    with no cluster allowed keeps the tiling it had before."""
+    gm, backward, nd, B, H = key
+    clustered_k3 = gm == 4 and backward
+    for clusters in ((0,) if clustered_k3 else (0, CLUSTERS)):
+        plan = plan_recurrence(nd, B, H, gm, backward=backward,
+                               max_clusters=clusters)
+        assert plan.cluster == 1
+        assert (plan.jt, plan.bt, plan.grid, plan.smem_bytes) \
+            == _UNCLUSTERED[key]
+
+
+@pytest.mark.parametrize("nd,B,H,want,chunks", [
+    (2, 64, 800, (32, 64, (25, 1, 2)), (13, 25)),
+    (2, 64, 512, (16, 64, (32, 1, 2)), (8, 16)),
+    (2, 32, 800, (32, 32, (25, 1, 2)), (13, 25)),
+    (2, 128, 800, (32, 128, (25, 1, 2)), (26, 50)),
+])
+def test_k3_plans_clusters_of_two_at_the_train_shapes(nd, B, H, want, chunks):
+    """The backward LSTM at the train cells' shapes (B=64, H=800 and 512)
+    and the ladder's and the B=128 batch at H=800 runs in clusters of two
+    blocks that split K: every block resident, its clusters too, within
+    the shared memory, and fewer chunks of dgates a step than the tiling
+    without clusters."""
+    plan = plan_recurrence(nd, B, H, backward=True)
+    assert plan.cluster == 2
+    assert (plan.jt, plan.bt, plan.grid) == want
+    assert plan.blocks <= SM_COUNT == 132
+    assert plan.blocks // 2 <= CLUSTERS
+    assert plan.smem_bytes <= SMEM_PER_BLOCK == 232448
+    assert plan.smem_bytes == _lstm_bwd_layout(H, plan.jt, plan.bt, 2)
+    today = plan_recurrence(nd, B, H, backward=True, max_clusters=0)
+    assert today.cluster == 1
+    assert (lstm_bwd_chunks(plan, H, B), lstm_bwd_chunks(today, H, B)) \
+        == chunks
+
+
+@pytest.mark.parametrize("nd,B,H,chunks", [
+    (2, 128, 512, (4, 8)), (2, 256, 256, (2, 4)), (2, 192, 256, (2, 4)),
+    (1, 256, 512, (4, 8)),
+])
+def test_k3_keeps_the_stacked_tiling_where_it_streams_fewer_chunks(
+        nd, B, H, chunks):
+    """At B >= 128 with H <= 512 the unclustered tiling of 32 units (the
+    two halves of K stacked, passes of 32 rows) streams fewer chunks a
+    step than any clustered one that fits, so K3 keeps it."""
+    plan = plan_recurrence(nd, B, H, backward=True)
+    assert (plan.jt, plan.bt, plan.cluster) == (32, 32, 1)
+    pair = RecurrencePlan(32, 64, (-(-H // 32), -(-B // 64), nd),
+                          recurrence_smem_bytes(H, 32, 64, 4, True, 2), 2)
+    assert pair.blocks <= SM_COUNT and pair.smem_bytes <= SMEM_PER_BLOCK
+    assert (lstm_bwd_chunks(plan, H, B), lstm_bwd_chunks(pair, H, B)) \
+        == chunks
+
+
+@pytest.mark.parametrize("H,jt,bt,cluster", [
+    (800, 32, 64, 2), (800, 32, 128, 2), (800, 32, 192, 2), (512, 16, 64, 2),
+    (400, 16, 32, 2), (272, 32, 64, 2), (48, 16, 32, 2), (800, 16, 64, 1),
+    (512, 32, 32, 1), (400, 32, 32, 1), (512, 16, 32, 1)])
+def test_k3_budget_is_its_layout(H, jt, bt, cluster):
+    """``recurrence_smem_bytes`` of the LSTM's backward against a
+    field-by-field mirror of ``Layout<JT, CL>`` in ``csrc/lstm_bwd.cu``."""
+    assert recurrence_smem_bytes(H, jt, bt, 4, True, cluster) \
+        == _lstm_bwd_layout(H, jt, bt, cluster)
+
+
+@pytest.mark.parametrize("nd,B,H,clusters,want", [
+    (2, 64, 800, 50, (32, 64, (25, 1, 2), 2)),
+    (2, 64, 800, 49, (16, 64, (50, 1, 2), 1)),
+    (2, 64, 512, 64, (16, 64, (32, 1, 2), 2)),
+    (2, 64, 512, 63, (32, 64, (16, 1, 2), 2)),
+    (2, 64, 512, 31, (16, 32, (32, 2, 2), 1)),
+])
+def test_k3_clusters_beyond_the_card_fall_back(nd, B, H, clusters, want):
+    """A clustered grid whose clusters the card cannot hold at once is
+    not planned: the next clustered tiling that fits, or the tiling
+    without clusters."""
+    plan = plan_recurrence(nd, B, H, backward=True, max_clusters=clusters)
+    assert (plan.jt, plan.bt, plan.grid, plan.cluster) == want
+    assert plan.blocks <= 2 * clusters or plan.cluster == 1
+
+
+def test_k3_with_no_plan_but_clusters_the_card_cannot_hold():
+    """Where only a clustered tiling fits the shared memory, a card that
+    holds too few clusters leaves no plan (the wrappers then refuse the
+    shape before any launch)."""
+    small = 110_000
+    plan = plan_recurrence(2, 64, 512, backward=True, smem_per_block=small)
+    assert (plan.jt, plan.cluster) == (16, 2) and plan.smem_bytes <= small
+    for clusters in (63, 0):
+        assert plan_recurrence(2, 64, 512, backward=True,
+                               smem_per_block=small,
+                               max_clusters=clusters) is None
+    with pytest.raises(ValueError, match="clusters of 2"):
+        recurrence_smem_bytes(512, 16, 64, 3, True, cluster=2)
+    with pytest.raises(ValueError, match="clusters of 2"):
+        recurrence_smem_bytes(512, 16, 64, 4, False, cluster=2)
 
 
 def test_plan_rejects_shapes_the_kernels_do_not_take():
