@@ -1,10 +1,12 @@
-"""What every run shares: finding a cell's files by name, the run's
-context, the device's identity, the result line and the guard against
-JAX in the process."""
+"""What every run shares: finding a cell's files and its model family by
+name, the run's context, the device's identity, the result line and the
+guard against JAX in the process."""
 
 from __future__ import annotations
 
 import copy
+import importlib
+import importlib.util
 import json
 import math
 import os
@@ -16,6 +18,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 CACHE_DIR = os.path.join(ROOT, "_asrbench_cache")
 FORBIDDEN = ("jax", "jaxlib", "flax", "ctc_asr_tpu")
+# a configuration file without a "family" key is of this one
+DEFAULT_FAMILY = "conv_bilstm"
+# what the harness calls of a family (asrbench/README.md); a decode cell's
+# family has DECODE_HOOK besides
+CONTRACT = ("TINY_CONFIG", "param_shapes", "init_fixed", "train_steps",
+            "logits", "log_probs", "step_flops", "encoder_frames")
+DECODE_HOOK = "shape_for_decode"
 
 
 def log(msg: str) -> None:
@@ -38,11 +47,8 @@ def _json(path: str) -> dict:
         return json.load(f)
 
 
-# the harness's own cut for its CPU tests (--tiny): a narrow model and
-# short utterances on the plain paths; never used on the chip
-TINY_CONFIG = {"model": {"rnn_units": 16, "rnn_layers": 2,
-                         "conv_channels": [4, 4]},
-               "decode": {"beam_width": 8, "nbest": 4}}
+# the harness's own cut for its CPU tests (--tiny): the family's
+# TINY_CONFIG, short utterances, the plain paths; never used on the chip
 TINY_MIX = {"batch_size": 4, "num_buckets": 2, "pool_batches_per_bucket": 1,
             "filter_seconds": [0.7, 1.4], "vocabulary_words": 50}
 # its limits: the cells' are set from readings at the cells' sizes
@@ -71,6 +77,7 @@ class Ctx:
     config_file: dict          # configs/<name>.json as a whole
     mix: dict                  # traffic/<name>.json
     cell_file: dict            # cells/<name>.json
+    family: object             # reference/<family>.py, the model's module
     seed: int
     seconds: float
     trace: bool
@@ -90,6 +97,27 @@ class Ctx:
         return "cpu" if self.tiny else "cuda"
 
 
+def load_family(config_file: dict, path: str, driver: str):
+    """The module ``asrbench/reference/<family>.py`` that the configuration
+    file at ``path`` names under ``"family"`` (``conv_bilstm`` where it
+    names none), checked against what ``driver`` calls; raises
+    SystemExit, naming the file and the key, where there is no such
+    module or it lacks a function of the contract."""
+    name = config_file.get("family", DEFAULT_FAMILY)
+    where = f'{path}: "family": {name!r}'
+    if not (isinstance(name, str) and name.isidentifier()
+            and importlib.util.find_spec(f"asrbench.reference.{name}")):
+        raise SystemExit(f"asrbench: {where} names no module "
+                         f"asrbench/reference/<family>.py")
+    family = importlib.import_module(f"asrbench.reference.{name}")
+    need = CONTRACT + ((DECODE_HOOK,) if driver == "decode" else ())
+    missing = [k for k in need if not hasattr(family, k)]
+    if missing:
+        raise SystemExit(f"asrbench: {where}: asrbench/reference/{name}.py "
+                         f"lacks {missing}, which a {driver} cell calls")
+    return family
+
+
 def load_ctx(cell: str, seed: int, seconds: float, trace: bool, tiny: bool,
              t_start: float, root: str = ROOT) -> Ctx:
     bench = _json(os.path.join(root, "BENCHMARK.json"))
@@ -104,15 +132,16 @@ def load_ctx(cell: str, seed: int, seconds: float, trace: bool, tiny: bool,
     from .traffic import load_mix
     mix = load_mix(w["traffic"], os.path.join(here, "traffic"))
     cell_file = _json(os.path.join(here, "cells", f"{cell}.json"))
+    family = load_family(config_file, conf["file"], cell_file["driver"])
     if tiny:
-        config_file = _merge(config_file, {"config": TINY_CONFIG})
+        config_file = _merge(config_file, {"config": family.TINY_CONFIG})
         mix = _merge(mix, TINY_MIX)
         cell_file = dict(cell_file, limits=TINY_LIMITS[cell_file["driver"]])
     key = "per_layer" if trace else "end_to_end"
     metrics = [m for m in bench[key]
                if cell in m.get("workloads", [cell])]
-    return Ctx(cell, w, config_file, mix, cell_file, seed, seconds, trace,
-               tiny, t_start, metrics)
+    return Ctx(cell, w, config_file, mix, cell_file, family, seed, seconds,
+               trace, tiny, t_start, metrics)
 
 
 def device_identity(n_chips: int) -> dict:

@@ -8,8 +8,8 @@ own sizes (or ``--tiny`` on the CPU):
   and judge as a run (training: its first three steps; decoding: one
   cycle of batches after the warm-up), with no measured window;
 - ``--control``: the reference itself put in the program's place,
-  computed in float8 e4m3 (``reference.conv_bilstm.quantize``), the
-  precision below the configuration's bf16;
+  computed in float8 e4m3 (the family's steps handed ``quant="fp8"``),
+  the precision below the configuration's bf16;
 - ``--faults``: the reference (training) or the program (decoding) with
   a fault planted: half of each batch left out and the mean taken over
   the rest; one character of one answer of each judged batch altered;
@@ -35,7 +35,6 @@ HEAD_FAULT_SCALE = 1.5
 
 def _train(ctx, torch, dev, args, emit):
     from asrbench.drivers import train as dtrain
-    from asrbench.reference import conv_bilstm as ref
     from asrbench import traffic, weights
     b1 = ctx.cfg["train"]["adam_b1"]
     if args.program:
@@ -62,9 +61,9 @@ def _train(ctx, torch, dev, args, emit):
         [("fault_half_batch", None, torch.arange(B // 2, device=dev))]
         if args.faults else [])
     for name, quant, rows in kinds:
-        params0 = weights.make_params(ctx.cfg, ctx.seed, dev)
-        got = ref.train_steps(params0, batches, ctx.cfg, quant=quant,
-                              rows=rows)
+        params0 = weights.make_params(ctx.family, ctx.cfg, ctx.seed, dev)
+        got = ctx.family.train_steps(params0, batches, ctx.cfg, quant=quant,
+                                     rows=rows)
         first = {"losses": got["losses"],
                  "mu1": {k: v * (1.0 - b1) for k, v in got["grads1"].items()},
                  "params": got["params"]}

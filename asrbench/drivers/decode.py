@@ -47,50 +47,41 @@ def win_hop(cfg: dict) -> tuple[int, int]:
             int(f["sample_rate"] * f["hop_ms"] / 1000.0))
 
 
-def shaping(ctx) -> dict:
-    return ctx.config_file["assumed"]["decode_posteriors"]
-
-
 def is_fusion(cfg: dict) -> bool:
     return cfg["decode"]["method"] == "beam"
 
 
-def decode_params(cfg: dict, shaping: dict, seed: int, stream, torch,
-                  dev) -> dict:
-    """The seed's parameters shaped as a trained model's output is: each
-    LSTM driven mostly by its input (``wx_gain``, ``forget_bias``), so
-    that posteriors change from frame to frame, and the output layer
-    scaled and centred so that on a calibration batch (``calibration``
-    rows x seconds of the stream's audio, through the reference in f32)
-    the logits' spread over time is ``logit_std`` and blank wins a
-    ``blank_share`` of the frames. Random weights otherwise give
-    near-uniform posteriors that drift over seconds, and a beam with
-    little to merge. Made by the benchmark and handed to both sides."""
-    from ..reference import conv_bilstm as ref
-    params = weights.make_params(cfg, seed, dev)
-    H = cfg["model"]["rnn_units"]
-    for k, v in params.items():
-        if k.startswith("rnn/") and k.endswith("/wx"):
-            v.mul_(shaping["wx_gain"])
-        elif k.startswith("rnn/") and k.endswith("/b"):
-            v[H:2 * H] = shaping["forget_bias"]
-    rows, seconds = shaping["calibration"]
+def decode_params(ctx, stream, torch, dev) -> dict:
+    """The seed's parameters shaped as a trained model's output is: the
+    family's ``shape_for_decode`` (conv_bilstm: each LSTM driven mostly by
+    its input, so that posteriors change from frame to frame), then the
+    output layer scaled and centred so that on a calibration batch
+    (``calibration`` rows x seconds of the stream's audio, through the
+    family's reference in f32) the logits' spread over time is
+    ``logit_std`` and blank wins a ``blank_share`` of the frames. Random
+    weights otherwise give near-uniform posteriors that drift over
+    seconds, and a beam with little to merge. Made by the benchmark and
+    handed to both sides."""
+    fam, cfg = ctx.family, ctx.cfg
+    shp = ctx.config_file["assumed"]["decode_posteriors"]
+    params = weights.make_params(fam, cfg, ctx.seed, dev)
+    fam.shape_for_decode(params, shp, cfg)
+    rows, seconds = shp["calibration"]
     audio = torch.as_tensor(stream.calibration(rows, seconds), device=dev)
     lens = torch.full((rows,), audio.shape[1], device=dev)
-    with torch.no_grad(), ref.exact_f32():
-        feats, flens = ref.features(audio, lens, cfg["features"])
-        logits, olens = ref.encoder(params, feats, flens, cfg["model"])
+    with torch.no_grad():
+        logits, olens = fam.logits(params, audio, lens, cfg)
         valid = torch.arange(logits.shape[1], device=dev)[None] \
             < olens[:, None]
         x = logits[valid]                               # [frames, C]
         mu = x.mean(0)
-        scale = shaping["logit_std"] / float((x - mu).std())
+        scale = shp["logit_std"] / float((x - mu).std())
         y = (x - mu) * scale
         margin = y[:, :-1].max(-1).values - y[:, -1]
         params["head/w"].mul_(scale)
         params["head/b"].copy_(-scale * mu + params["head/b"] * scale)
         params["head/b"][-1] += float(torch.quantile(
-            margin, shaping["blank_share"]))
+            margin, shp["blank_share"]))
     return params
 
 
@@ -115,7 +106,7 @@ def setup(ctx, torch, dev, lm_dir: str):
         raise ValueError(f"unknown decode method {cfg['decode']['method']!r}")
     marks.append(("LMs", time.perf_counter()))
     pc = pconfig.from_json(json.dumps(cfg))
-    params = decode_params(cfg, shaping(ctx), ctx.seed, stream, torch, dev)
+    params = decode_params(ctx, stream, torch, dev)
     eval_step = peval.make_eval_step(pc, dev)
     if is_fusion(cfg):
         decode, pick_best = peval.make_nbest_decoder(pc)
@@ -322,11 +313,10 @@ def judge(ctx, torch, dev, cfg: dict, kept: dict, quant=None) -> dict:
 
     With ``quant`` the reference in that precision stands in the
     program's place (the control): its posteriors and its own answers."""
-    from ..reference import conv_bilstm as ref
     from ..reference import decode as dref
     plan = traffic.plan(ctx.mix, *win_hop(cfg))
     stream = traffic.Stream(plan, ctx.seed)
-    params = decode_params(cfg, shaping(ctx), ctx.seed, stream, torch, dev)
+    params = decode_params(ctx, stream, torch, dev)
     lms = None
     if is_fusion(cfg):
         lms = (dref.load_char_lm(cfg["decode"]["lm_path"]),
@@ -338,9 +328,9 @@ def judge(ctx, torch, dev, cfg: dict, kept: dict, quant=None) -> dict:
                                             device=dev),
                  "sample_lengths": torch.as_tensor(b.sample_lengths,
                                                    device=dev)}
-        lp, lens = ref.log_probs(params, batch, cfg)
+        lp, lens = ctx.family.log_probs(params, batch, cfg)
         if quant is not None:
-            lq, _ = ref.log_probs(params, batch, cfg, quant)
+            lq, _ = ctx.family.log_probs(params, batch, cfg, quant)
             got = {"answers": decide(lq, lens, cfg, lms), "logits": lq,
                    "lens": lens}
         lp_prog = torch.log_softmax(got["logits"].float(), -1)

@@ -55,7 +55,7 @@ def setup(ctx, torch, dev):
                         pc.features.hop_length)
     stream = traffic.Stream(plan, ctx.seed)
     marks.append(("traffic", time.perf_counter()))
-    params = weights.make_params(ctx.cfg, ctx.seed, dev)
+    params = weights.make_params(ctx.family, ctx.cfg, ctx.seed, dev)
     state = ptrain.state_from_parts(pc, params, Adam(pc.train).init(params),
                                     0, {}, dev)
     del params
@@ -92,7 +92,6 @@ def reference_readings(ctx, torch, dev, first: dict, quant=None,
                        rows=None) -> dict:
     """The reference's first steps from the seed's start, held against
     ``first`` (the program's, or a control's)."""
-    from ..reference import conv_bilstm as ref
     plan = traffic.plan(ctx.mix)
     stream = traffic.Stream(plan, ctx.seed)
     batches = []
@@ -104,8 +103,9 @@ def reference_readings(ctx, torch, dev, first: dict, quant=None,
                                      ("sample_lengths", b.sample_lengths),
                                      ("labels", b.labels),
                                      ("label_lengths", b.label_lengths))})
-    params0 = weights.make_params(ctx.cfg, ctx.seed, dev)
-    want = ref.train_steps(params0, batches, ctx.cfg, quant=quant, rows=rows)
+    params0 = weights.make_params(ctx.family, ctx.cfg, ctx.seed, dev)
+    want = ctx.family.train_steps(params0, batches, ctx.cfg, quant=quant,
+                                  rows=rows)
     return judge.train_readings(first, want, params0,
                                 ctx.cfg["train"]["adam_b1"])
 

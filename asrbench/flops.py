@@ -1,14 +1,13 @@
 """The yardstick's arithmetic: the H100's published peaks, the least time
-a piece of work could take on it, and the algorithmic work of the
-model's step.
+a piece of work could take on it, and a window's share of the peak.
 
 Frozen copies, so that a change to the program cannot move the ruler:
-``model_step_flops`` from the repository's ``bench.py`` (its
-``model_step_flops``), and ``bound``, ``lstm_bounds``, ``beam_bound`` and
-``conv_flops`` from ``chip_smoke.py`` (``bound``, ``_lstm_bounds``,
-``_beam_bound``, ``_conv_flops``). The model's geometry comes from the
-configuration's dict (``configs/<name>.json``), never from the program's
-config classes.
+``bound``, ``lstm_bounds``, ``beam_bound`` and ``conv_flops`` from
+``chip_smoke.py`` (``bound``, ``_lstm_bounds``, ``_beam_bound``,
+``_conv_flops``). The model's geometry comes from the configuration's
+dict (``configs/<name>.json``), never from the program's config classes;
+a model's own work (its FLOPs a step, its encoder frames) is counted by
+its family (``reference/<family>.py``), which the run carries.
 """
 
 from __future__ import annotations
@@ -42,49 +41,6 @@ def num_frames(n_samples: int, feat: dict) -> int:
     win = int(feat["sample_rate"] * feat["win_ms"] / 1000.0)
     hop = int(feat["sample_rate"] * feat["hop_ms"] / 1000.0)
     return 0 if n_samples < win else 1 + (n_samples - win) // hop
-
-
-def encoder_frames(n_samples: int, cfg: dict) -> int:
-    """Encoder output frames of an utterance of ``n_samples`` samples:
-    each strided SAME conv maps L -> ceil(L / s) on the time axis."""
-    t = num_frames(n_samples, cfg["features"])
-    if cfg["model"]["frontend"] == "conv":
-        for st, _ in cfg["model"]["conv_strides"]:
-            t = _cdiv(t, st)
-    return t
-
-
-def model_step_flops(cfg: dict, batch: int, seconds: float) -> float:
-    """Analytic ALGORITHMIC matmul FLOPs of one train step (fwd ~x3 for
-    fwd+bwd, the standard MFU convention — counts the math the model
-    defines, not the banded/padded formulation actually executed).
-    Elementwise/DSP work is excluded (<2% of the dot FLOPs here)."""
-    fcfg, m = cfg["features"], cfg["model"]
-    T = int(seconds * 1000 / fcfg["hop_ms"])          # feature frames
-    F = fcfg["n_mfcc"] if fcfg["feature_type"] == "mfcc" else fcfg["n_mels"]
-    fwd = 0.0
-    if m["frontend"] == "conv":
-        t, f, cin = T, F, 1
-        for ch, (kt, kf), (st, sf) in zip(m["conv_channels"],
-                                          m["conv_kernels"],
-                                          m["conv_strides"]):
-            t, f = -(-t // st), -(-f // sf)
-            fwd += 2.0 * t * f * ch * kt * kf * cin
-            cin = ch
-        d, Tp = f * cin, t
-    else:
-        d, Tp = F, T
-        for _ in range(m["dense_layers"]):
-            fwd += 2.0 * Tp * d * m["dense_units"]
-            d = m["dense_units"]
-    H = m["rnn_units"]
-    gates = {"lstm": 4, "gru": 3, "rnn": 1}[m["rnn_type"]]
-    nd = 2 if m["bidirectional"] else 1
-    for _ in range(m["rnn_layers"]):
-        fwd += nd * 2.0 * Tp * (d * gates * H + H * gates * H)
-        d = nd * H
-    fwd += 2.0 * Tp * d * m["num_classes"]
-    return 3.0 * fwd * batch
 
 
 def lstm_bounds(nd: int, T: int, B: int, H: int) -> tuple[dict, dict]:
@@ -169,11 +125,11 @@ def frontend_bound(cfg: dict, B: int, T: int, form: str = "2-D") -> dict:
     return bound(2 * io + 4 * B * t * f * cin, flops, PEAK_BF16)
 
 
-def window_mfu(records, cfg: dict, wall: float, sr: int,
+def window_mfu(family, records, cfg: dict, wall: float, sr: int,
                fwd_only: bool) -> float:
-    """Algorithmic FLOPs of the records' unpadded rows over the wall time
-    at the bf16 peak, in %."""
-    work = sum(model_step_flops(cfg, 1, n / sr)
+    """Algorithmic FLOPs of the records' unpadded rows (``family``'s
+    ``step_flops``) over the wall time at the bf16 peak, in %."""
+    work = sum(family.step_flops(cfg, 1, n / sr)
                for r in records for n in r["lengths"])
     if fwd_only:
         work /= 3.0

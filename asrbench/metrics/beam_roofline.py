@@ -23,8 +23,9 @@ def read(run):
     umax = max_decode_len(run.cfg)
     bound = 0.0
     for r in tr.records:
-        T = flops.encoder_frames(r["S"], run.cfg)
-        lens = [flops.encoder_frames(int(n), run.cfg) for n in r["lengths"]]
+        T = run.family.encoder_frames(r["S"], run.cfg)
+        lens = [run.family.encoder_frames(int(n), run.cfg)
+                for n in r["lengths"]]
         bound += flops.beam_bound(lens, r["B"], d["beam_width"], C,
                                   min(umax, T), d["beam_width"],
                                   run.out["lm_table_bytes"])["bound_ms"]

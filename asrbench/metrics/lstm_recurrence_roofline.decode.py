@@ -20,6 +20,6 @@ def read(run):
     m = run.cfg["model"]
     nd = 2 if m["bidirectional"] else 1
     bound = sum(m["rnn_layers"] * flops.lstm_bounds(
-        nd, flops.encoder_frames(r["S"], run.cfg), r["B"],
+        nd, run.family.encoder_frames(r["S"], run.cfg), r["B"],
         m["rnn_units"])[0]["bound_ms"] for r in tr.records)
     return 100.0 * bound / ms

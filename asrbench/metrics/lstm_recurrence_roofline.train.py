@@ -22,7 +22,7 @@ def read(run):
     nd = 2 if m["bidirectional"] else 1
     bound = 0.0
     for r in tr.records:
-        T = flops.encoder_frames(r["S"], run.cfg)
+        T = run.family.encoder_frames(r["S"], run.cfg)
         k2, k3 = flops.lstm_bounds(nd, T, r["B"], m["rnn_units"])
         bound += m["rnn_layers"] * (k2["bound_ms"] + k3["bound_ms"])
     return 100.0 * bound / ms

@@ -1,5 +1,8 @@
-"""Plain reference of the conv + bidirectional-LSTM CTC model, in
-float32 with TF32 off: features, encoder, CTC loss and the optimizer.
+"""The ``conv_bilstm`` family: the plain reference of the conv +
+bidirectional-LSTM CTC model, in float32 with TF32 off (features,
+encoder, CTC loss and the optimizer), its parameters' layout, its FLOP
+count and its tiny cut. It is the family of a configuration that names
+none (``asrbench/README.md`` gives the contract).
 
 It is the model's math written down once more, with library calls and no
 kernel of the port: the log-mel frontend by ``torch.fft.rfft``, the two
@@ -30,9 +33,17 @@ import torch
 import torch.nn.functional as F
 from torch import _VF
 
+from ..flops import num_frames
+
 WIRE_SCALE = 32768.0
 LOG_FLOOR = 1e-6
 FP8_MAX = 448.0
+
+# the harness's --tiny cut for its CPU tests: a narrow model and a small
+# beam; never used on the chip
+TINY_CONFIG = {"model": {"rnn_units": 16, "rnn_layers": 2,
+                         "conv_channels": [4, 4]},
+               "decode": {"beam_width": 8, "nbest": 4}}
 
 
 @contextlib.contextmanager
@@ -64,6 +75,69 @@ def quantize(x: torch.Tensor, quant: str | None) -> torch.Tensor:
     scale = FP8_MAX / torch.clamp_min(x.detach().abs().amax(), 1e-30)
     q = (x.detach() * scale).to(torch.float8_e4m3fn).to(x.dtype) / scale
     return x + (q - x.detach())
+
+
+# ---------------------------------------------------------------------------
+# Parameters: the port's keys and layouts, and how a fresh model starts
+# ---------------------------------------------------------------------------
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def param_shapes(cfg: dict) -> dict:
+    """Every leaf's shape, in the order of the seeded draw, under the
+    port's keys and layouts: ``frontend/<i>/w [kt, kf, cin, cout]``,
+    ``frontend/<i>/b``, ``rnn/<i>/<fwd|bwd>/wx [d, 4H]``, ``wh [H, 4H]``,
+    ``b [4H]``, ``head/w [d, C]``, ``head/b [C]``."""
+    m, feat = cfg["model"], cfg["features"]
+    F = feat["n_mfcc"] if feat["feature_type"] == "mfcc" else feat["n_mels"]
+    out = {}
+    cin, f = 1, F
+    for i, (ch, (kt, kf), (_st, sf)) in enumerate(zip(
+            m["conv_channels"], m["conv_kernels"], m["conv_strides"])):
+        out[f"frontend/{i}/w"] = (kt, kf, cin, ch)
+        out[f"frontend/{i}/b"] = (ch,)
+        cin, f = ch, _cdiv(f, sf)
+    d = f * cin
+    G = {"lstm": 4, "gru": 3, "rnn": 1}[m["rnn_type"]] * m["rnn_units"]
+    dirs = ("fwd/", "bwd/") if m["bidirectional"] else ("",)
+    for i in range(m["rnn_layers"]):
+        for p in dirs:
+            out[f"rnn/{i}/{p}wx"] = (d, G)
+            out[f"rnn/{i}/{p}wh"] = (m["rnn_units"], G)
+            out[f"rnn/{i}/{p}b"] = (G,)
+        d = len(dirs) * m["rnn_units"]
+    out["head/w"] = (d, m["num_classes"])
+    out["head/b"] = (m["num_classes"],)
+    return out
+
+
+def init_fixed(key: str, shape: tuple, cfg: dict,
+               device) -> torch.Tensor | None:
+    """A bias's starting value as a fresh model has it: zeros, and an
+    LSTM's forget gate 1. None for a weight: the seeded Glorot draw fills
+    it."""
+    if not key.endswith("/b"):
+        return None
+    v = torch.zeros(shape, dtype=torch.float32, device=device)
+    if key.startswith("rnn/") and cfg["model"]["rnn_type"] == "lstm":
+        H = cfg["model"]["rnn_units"]
+        v[H:2 * H] = 1.0
+    return v
+
+
+def shape_for_decode(params: dict, shaping: dict, cfg: dict) -> None:
+    """The decode cells' parameters, in place: each LSTM driven mostly by
+    its input (its input weights times ``wx_gain``, its forget-gate bias
+    ``forget_bias``), so that posteriors change from frame to frame. The
+    decode driver then calibrates the head."""
+    H = cfg["model"]["rnn_units"]
+    for k, v in params.items():
+        if k.startswith("rnn/") and k.endswith("/wx"):
+            v.mul_(shaping["wx_gain"])
+        elif k.startswith("rnn/") and k.endswith("/b"):
+            v[H:2 * H] = shaping["forget_bias"]
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +239,10 @@ def encoder(params: dict, feats: torch.Tensor, flens: torch.Tensor,
     """[B, T, F] features -> (logits [B, T', C] f32, lengths [B])."""
     if model["frontend"] != "conv" or model["rnn_type"] != "lstm" \
             or not model["bidirectional"]:
-        raise ValueError("the reference is the conv + BiLSTM model")
+        raise ValueError(
+            "the conv_bilstm family computes the conv frontend + "
+            "bidirectional LSTM model only; another model names its own "
+            "\"family\" in its configuration file")
     x = feats[:, None]                                   # [B, 1, T, F]
     lens = flens.long()
     for i, (st, sf) in enumerate(model["conv_strides"]):
@@ -272,10 +349,66 @@ def train_steps(params0: dict, batches: list, cfg: dict, quant=None,
 
 
 @torch.no_grad()
+def logits(params: dict, samples: torch.Tensor, lengths: torch.Tensor,
+           cfg: dict, quant=None):
+    """Decode side: int16 samples [B, S] and their lengths [B] ->
+    (logits [B, T', C] f32, lengths [B])."""
+    with exact_f32():
+        feats, flens = features(samples, lengths, cfg["features"])
+        return encoder(params, feats, flens, cfg["model"], quant)
+
+
+@torch.no_grad()
 def log_probs(params: dict, batch: dict, cfg: dict, quant=None):
     """Decode side: (log-posteriors [B, T', C] f32, lengths [B])."""
-    with exact_f32():
-        feats, flens = features(batch["samples"], batch["sample_lengths"],
-                                cfg["features"])
-        logits, lens = encoder(params, feats, flens, cfg["model"], quant)
-        return torch.log_softmax(logits.float(), -1), lens
+    out, lens = logits(params, batch["samples"], batch["sample_lengths"],
+                       cfg, quant)
+    return torch.log_softmax(out.float(), -1), lens
+
+
+# ---------------------------------------------------------------------------
+# Work: encoder frames and the step's algorithmic FLOPs
+# ---------------------------------------------------------------------------
+
+def encoder_frames(n_samples: int, cfg: dict) -> int:
+    """Encoder output frames of an utterance of ``n_samples`` samples:
+    each strided SAME conv maps L -> ceil(L / s) on the time axis."""
+    t = num_frames(n_samples, cfg["features"])
+    if cfg["model"]["frontend"] == "conv":
+        for st, _ in cfg["model"]["conv_strides"]:
+            t = _cdiv(t, st)
+    return t
+
+
+def step_flops(cfg: dict, batch: int, seconds: float) -> float:
+    """Analytic ALGORITHMIC matmul FLOPs of one train step (fwd ~x3 for
+    fwd+bwd, the standard MFU convention — counts the math the model
+    defines, not the banded/padded formulation actually executed).
+    Elementwise/DSP work is excluded (<2% of the dot FLOPs here). A frozen
+    copy of the repository's ``bench.py`` ``model_step_flops``."""
+    fcfg, m = cfg["features"], cfg["model"]
+    T = int(seconds * 1000 / fcfg["hop_ms"])          # feature frames
+    F = fcfg["n_mfcc"] if fcfg["feature_type"] == "mfcc" else fcfg["n_mels"]
+    fwd = 0.0
+    if m["frontend"] == "conv":
+        t, f, cin = T, F, 1
+        for ch, (kt, kf), (st, sf) in zip(m["conv_channels"],
+                                          m["conv_kernels"],
+                                          m["conv_strides"]):
+            t, f = -(-t // st), -(-f // sf)
+            fwd += 2.0 * t * f * ch * kt * kf * cin
+            cin = ch
+        d, Tp = f * cin, t
+    else:
+        d, Tp = F, T
+        for _ in range(m["dense_layers"]):
+            fwd += 2.0 * Tp * d * m["dense_units"]
+            d = m["dense_units"]
+    H = m["rnn_units"]
+    gates = {"lstm": 4, "gru": 3, "rnn": 1}[m["rnn_type"]]
+    nd = 2 if m["bidirectional"] else 1
+    for _ in range(m["rnn_layers"]):
+        fwd += nd * 2.0 * Tp * (d * gates * H + H * gates * H)
+        d = nd * H
+    fwd += 2.0 * Tp * d * m["num_classes"]
+    return 3.0 * fwd * batch

@@ -70,8 +70,9 @@ def main(argv=None) -> int:
                                   "unit": m["unit"]}
     else:
         run = SimpleNamespace(kind=ctx.cell_file["driver"], out=out,
-                              cfg=out["cfg"], sample_rate=ctx.mix[
-                                  "sample_rate"], log=common.log)
+                              cfg=out["cfg"], family=ctx.family,
+                              sample_rate=ctx.mix["sample_rate"],
+                              log=common.log)
         for m in ctx.metrics:
             value = _reader(os.path.join(ROOT, "asrbench", "metrics",
                                          m["name"] + ".py")).read(run)

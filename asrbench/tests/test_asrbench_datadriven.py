@@ -5,10 +5,8 @@ has: the harness finds each by its name."""
 import json
 import os
 import shutil
-import subprocess
-import sys
 
-from benchhelp import ROOT
+from benchhelp import ROOT, checkout, run_in
 
 METRIC = '''"""Mean unpadded audio seconds a window step."""
 
@@ -22,12 +20,7 @@ def read(run):
 
 
 def test_new_files_found_by_name(tmp_path):
-    root = tmp_path / "checkout"
-    shutil.copytree(os.path.join(ROOT, "asrbench"), root / "asrbench",
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
-    os.symlink(os.path.join(ROOT, "ctc_asr_tpu_torch"),
-               root / "ctc_asr_tpu_torch")
+    root = checkout(tmp_path)
     ab = root / "asrbench"
     cfg = json.loads((ab / "configs" / "ds2.json").read_text())
     cfg["config"]["model"]["rnn_layers"] = 2
@@ -53,11 +46,8 @@ def test_new_files_found_by_name(tmp_path):
                                "moves": "train_audio_s_per_s",
                                "workloads": ["ds2two_train_short"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    out = subprocess.run(
-        [sys.executable, "asrbench/run.py", "--workload", "ds2two_train_short",
-         "--seed", "9", "--seconds", "0.3", "--trace", "1", "--tiny"],
-        cwd=root, capture_output=True, text=True, timeout=600,
-        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    out = run_in(root, "run.py", "--workload", "ds2two_train_short", "--seed",
+                 "9", "--seconds", "0.3", "--trace", "1", "--tiny")
     assert out.returncode == 0, out.stderr[-3000:]
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert line["correct"] is True
@@ -66,11 +56,8 @@ def test_new_files_found_by_name(tmp_path):
 
 
 def _run(cwd, *extra):
-    return subprocess.run(
-        [sys.executable, "asrbench/run.py", "--workload", "ds2_train_b64",
-         "--seed", "1", "--seconds", "1", "--trace", "0", *extra], cwd=cwd,
-        capture_output=True, text=True, timeout=600,
-        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    return run_in(cwd, "run.py", "--workload", "ds2_train_b64", "--seed", "1",
+                  "--seconds", "1", "--trace", "0", *extra)
 
 
 def test_no_card_no_result():

@@ -1,7 +1,8 @@
 """The copied arithmetic reproduces the records it was copied with: the
-TPU record's FLOPs a step (``bench.py``'s ``model_step_flops``: ds3
-2.33e13 and ds2 6.96e12 at B=128 x 8 s) and the bound column of
-``PERF.md``'s kernel table at its shapes (``chip_smoke.py``)."""
+TPU record's FLOPs a step (``bench.py``'s ``model_step_flops``, now the
+conv_bilstm family's ``step_flops``: ds3 2.33e13 and ds2 6.96e12 at
+B=128 x 8 s) and the bound column of ``PERF.md``'s kernel table at its
+shapes (``chip_smoke.py``)."""
 
 import json
 import os
@@ -11,6 +12,7 @@ import pytest
 
 from benchhelp import ROOT
 from asrbench import flops
+from asrbench.reference import conv_bilstm
 
 
 def _cfg(name):
@@ -20,7 +22,7 @@ def _cfg(name):
 
 @pytest.mark.parametrize("name,want", [("ds3", 2.33e13), ("ds2", 6.96e12)])
 def test_model_step_flops(name, want):
-    assert flops.model_step_flops(_cfg(name), 128, 8.0) == \
+    assert conv_bilstm.step_flops(_cfg(name), 128, 8.0) == \
         pytest.approx(want, rel=3e-3)
 
 
@@ -53,4 +55,4 @@ def test_beam_bound():
 def test_encoder_frames():
     cfg = _cfg("ds3")
     assert flops.num_frames(128000, cfg["features"]) == 798
-    assert flops.encoder_frames(128000, cfg) == 399
+    assert conv_bilstm.encoder_frames(128000, cfg) == 399
