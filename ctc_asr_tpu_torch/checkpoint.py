@@ -16,7 +16,10 @@ The train state is written under the keys the reference's
 - ``step`` (int32) and ``rng`` (uint32[2]).
 
 The port's own state, the torch generators of dropout and SpecAugment,
-goes under ``torch_rng/...``, which the reference's loader ignores.
+goes under ``torch_rng/...``, which the reference's loader ignores; the
+model state that no optimizer updates (the Conformer's BatchNorm
+running statistics, a model the reference does not have) under
+``batch_stats/...``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from .config import Config, TrainConfig
-from .models.encoder import init_shapes
+from .models.encoder import init_shapes, state_shapes
 from .parallel.mesh import process_world
 
 
@@ -67,11 +70,15 @@ def resolve_checkpoint(path: str) -> str:
 def load_params(path: str, cfg: Config,
                 device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
     """Read a checkpoint and check it against the configured model's
-    parameter tree (every key present, every shape equal)."""
+    parameter tree (every key present, every shape equal). The model
+    state (``batch_stats/...``) comes with the parameters, under its own
+    keys: what an eval forward reads."""
     with np.load(resolve_checkpoint(path)) as z:
         params = params_from_jax({k: z[k] for k in z.files
                                   if k.startswith("params/")})
-    want = init_shapes(cfg.model, cfg.features.feature_dim)
+        params.update(model_state_from_flat(z, cfg))
+    want = {**init_shapes(cfg.model, cfg.features.feature_dim),
+            **state_shapes(cfg.model)}
     missing = sorted(set(want) - set(params))
     if missing:
         raise KeyError(f"checkpoint missing leaves {missing}")
@@ -91,7 +98,8 @@ def _opt_keys(tcfg: TrainConfig) -> tuple[str, str]:
 
 def state_to_flat(params: dict, opt_state: dict, step: int,
                   rng_states: dict[str, torch.Tensor],
-                  tcfg: TrainConfig, seed: int) -> dict[str, np.ndarray]:
+                  tcfg: TrainConfig, seed: int,
+                  model_state: dict | None = None) -> dict[str, np.ndarray]:
     """The train state as the reference's flat keypath -> array dict.
     ``rng`` (the reference's PRNG key) is written as [seed, step]: torch
     cannot produce JAX's key, and any uint32[2] is a valid one."""
@@ -108,7 +116,26 @@ def state_to_flat(params: dict, opt_state: dict, step: int,
     flat["rng"] = np.asarray([seed, step], np.uint32)
     for name, st in rng_states.items():
         flat[f"torch_rng/{name}"] = st.cpu().numpy()
+    for k, v in (model_state or {}).items():
+        flat[f"batch_stats/{k}"] = v.float().cpu().numpy()
     return flat
+
+
+def model_state_from_flat(flat, cfg: Config) -> dict[str, torch.Tensor]:
+    """The model state (``batch_stats/...``) of a flat checkpoint dict
+    on the CPU, checked against the configured model's; empty for a
+    model that keeps none."""
+    out = {}
+    for k, shape in state_shapes(cfg.model).items():
+        key = f"batch_stats/{k}"
+        if key not in flat:
+            raise KeyError(f"checkpoint missing leaf {key!r}")
+        v = np.asarray(flat[key], np.float32)
+        if tuple(v.shape) != tuple(shape):
+            raise ValueError(f"shape mismatch for {key!r}: ckpt "
+                             f"{tuple(v.shape)} vs model {tuple(shape)}")
+        out[k] = torch.from_numpy(np.array(v))
+    return out
 
 
 def state_from_flat(flat: dict[str, np.ndarray], cfg: Config):

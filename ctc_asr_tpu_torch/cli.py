@@ -110,6 +110,7 @@ def cmd_train(argv):
     if cfg.data.eval_manifest:
         def eval_fn(state):       # on every rank, each on its shard
             params = {k: v.detach() for k, v in state["params"].items()}
+            params.update(state["model_state"])
             res = evaluate(cfg, params, args.device, log_samples=2)
             res.pop("per_utt", None)
             res.pop("device", None)

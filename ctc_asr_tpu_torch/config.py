@@ -61,7 +61,9 @@ class FeatureConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """Acoustic encoder (reference: asr/model.py — dense or conv2d frontend,
-    (bi)RNN stack, dense projection to vocab)."""
+    (bi)RNN stack, dense projection to vocab). The port's other kind of
+    encoder, the Conformer, is ``ConformerModelConfig``: a model section
+    whose ``frontend`` is ``"conformer"`` loads as that class."""
 
     frontend: str = "dense"  # "dense" (DS1-style) | "conv" (DS2-style)
     # dense frontend
@@ -92,6 +94,36 @@ class ModelConfig:
     use_pallas_rnn: bool = True
     # rematerialize each RNN layer in the backward pass (reference only)
     remat: bool = False
+
+
+@dataclass(frozen=True)
+class ConformerModelConfig:
+    """Conformer-CTC encoder (Gulati et al., arXiv:2005.08100, as NVIDIA
+    NeMo's ``ConformerEncoder`` computes it with relative-position
+    self-attention; ``models/conformer.py``): striding-conv subsampling,
+    ``n_layers`` blocks of macaron feed-forward halves around
+    self-attention and a depthwise-conv module, and a dense head. It
+    stands in ``Config.model`` in place of ``ModelConfig``, which the
+    JAX package's presets share, so those stay as they are; ``from_json``
+    picks it where the model section's ``frontend`` is ``"conformer"``.
+    The defaults are NeMo's Large row (``conformer_ctc_char.yaml``)."""
+
+    frontend: str = "conformer"
+    d_model: int = 512
+    n_heads: int = 8
+    n_layers: int = 18
+    ff_expansion: int = 4
+    conv_kernel: int = 31
+    # "striding" subsampling: log2(factor) 3x3 stride-2 convs
+    subsampling_factor: int = 4
+    subsampling_channels: int = 512
+    xscaling: bool = True      # scale the subsampled input by sqrt(d_model)
+    untie_biases: bool = True  # per-layer u / v biases of the attention
+    bn_momentum: float = 0.1
+    bn_eps: float = 1e-5
+    dropout: float = 0.1
+    num_classes: int = text_mod.NUM_CLASSES
+    compute_dtype: str = "bfloat16"   # parameters stay f32
 
 
 @dataclass(frozen=True)
@@ -254,6 +286,13 @@ def _coerce(value: Any, target_type) -> Any:
     return value
 
 
+def _model_class(d: dict) -> type:
+    """The model section's class: the Conformer's where its frontend says
+    so, else ``ModelConfig``."""
+    return (ConformerModelConfig if d.get("frontend") == "conformer"
+            else ModelConfig)
+
+
 def _from_dict(cls, d: dict):
     # `from __future__ import annotations` stringifies f.type, so resolve
     # field types from the field defaults (every field here has one).
@@ -265,7 +304,9 @@ def _from_dict(cls, d: dict):
         if f.default_factory is not dataclasses.MISSING:  # nested dataclass
             sub = f.default_factory()
             if dataclasses.is_dataclass(sub):
-                kwargs[f.name] = _from_dict(type(sub), v)
+                sub_cls = (_model_class(v) if isinstance(sub, ModelConfig)
+                           else type(sub))
+                kwargs[f.name] = _from_dict(sub_cls, v)
                 continue
             kwargs[f.name] = _coerce(v, type(sub))
         else:

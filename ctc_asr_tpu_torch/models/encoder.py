@@ -1,4 +1,4 @@
-"""DS1/DS2-style acoustic encoders.
+"""DS1/DS2-style acoustic encoders, and the dispatch to the Conformer.
 
 Counterpart of ``ctc_asr_tpu/models/encoder.py``: a dense (DS1) or
 conv2d (DS2) frontend with clipped ReLU (the conv form chosen by
@@ -12,6 +12,12 @@ dropout after each frontend layer and each RNN layer, and ``cfg.remat``
 recomputes each RNN layer in the backward pass
 (``torch.utils.checkpoint``), as ``jax.checkpoint`` does in the
 reference.
+
+A model config whose ``frontend`` is ``"conformer"``
+(``config.ConformerModelConfig``) is the Conformer encoder of
+``models/conformer.py``: each function here hands it on, and
+``state_shapes`` / ``init_state`` give its model state (BatchNorm's
+running statistics; nothing for the RNN encoders).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ModelConfig
 from ..utils.profiling import span
 
+from . import conformer
 from .layers import (clipped_relu, conv2d_apply, conv2d_blocked_apply,
                      conv2d_matmul_apply, dense_apply, dropout, dropout_mask,
                      glorot)
@@ -44,6 +51,8 @@ def output_lengths(frame_lengths: torch.Tensor, cfg: ModelConfig):
     """Frontend input frame counts -> encoder output lengths: each
     stride-s SAME conv maps L -> ceil(L / s) on the time axis; the dense
     frontend keeps the length."""
+    if cfg.frontend == "conformer":
+        return conformer.output_lengths(frame_lengths, cfg)
     lens = frame_lengths.long()
     if cfg.frontend == "conv":
         for (st, _sf) in cfg.conv_strides:
@@ -54,6 +63,8 @@ def output_lengths(frame_lengths: torch.Tensor, cfg: ModelConfig):
 def init_shapes(cfg: ModelConfig, feat_dim: int) -> dict[str, tuple]:
     """Keypath -> shape of every parameter, the same tree as the
     reference's ``init_params``."""
+    if cfg.frontend == "conformer":
+        return conformer.param_shapes(cfg, feat_dim)
     shapes: dict[str, tuple] = {}
     if cfg.frontend == "dense":
         d = feat_dim
@@ -93,6 +104,8 @@ def init_params(cfg: ModelConfig, feat_dim: int,
     """Fresh f32 CPU parameters (``encoder.init_params``): Glorot-uniform
     weights, zero biases, LSTM forget-gate bias 1 (gate order i, f, g,
     o). The values come from ``generator``, not JAX's PRNG."""
+    if cfg.frontend == "conformer":
+        return conformer.init_params(cfg, feat_dim, generator)
     params = {}
     for k, shape in init_shapes(cfg, feat_dim).items():
         if k.endswith("/b"):
@@ -103,6 +116,20 @@ def init_params(cfg: ModelConfig, feat_dim: int,
             v = glorot(shape, generator)
         params[k] = v
     return params
+
+
+def state_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    """Keypath -> shape of the model state that no optimizer updates."""
+    if cfg.frontend == "conformer":
+        return conformer.state_shapes(cfg)
+    return {}
+
+
+def init_state(cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """A fresh model state (f32 CPU tensors)."""
+    if cfg.frontend == "conformer":
+        return conformer.init_state(cfg)
+    return {}
 
 
 def _layer(params: dict, prefix: str) -> dict:
@@ -120,7 +147,8 @@ def _frontend_layer(fn, params: dict, prefix: str, x: torch.Tensor, tp):
 def apply_encoder(params: dict, feats: torch.Tensor,
                   frame_lengths: torch.Tensor, cfg: ModelConfig,
                   train: bool = False,
-                  generator: torch.Generator | None = None, tp=None):
+                  generator: torch.Generator | None = None, tp=None,
+                  model_state: dict | None = None):
     """feats [B, T, F], frame_lengths [B] -> (logits [B, T', C] f32,
     lens [B] int32). The LSTM and GRU recurrences go through the CUDA
     kernel wrappers when ``cfg.use_pallas_rnn`` (the reference's kernel
@@ -130,7 +158,16 @@ def apply_encoder(params: dict, feats: torch.Tensor,
 
     ``tp`` (a ``parallel.tp.TensorParallel``) makes it the
     tensor-parallel encoder: ``params`` then hold this rank's columns of
-    the leaves ``tp`` shards, and those layers run column-parallel."""
+    the leaves ``tp`` shards, and those layers run column-parallel.
+
+    ``model_state`` is the Conformer's (``conformer.apply``); the RNN
+    encoders have none."""
+    if cfg.frontend == "conformer":
+        if tp is not None:
+            raise NotImplementedError("the Conformer has no tensor-parallel "
+                                      "form")
+        return conformer.apply(params, feats, frame_lengths, cfg, train,
+                               generator, model_state)
     cdt = getattr(torch, cfg.compute_dtype)
     rate = cfg.dropout if train else 0.0
     if cfg.frontend == "dense":

@@ -42,12 +42,14 @@ group. Sequence parallelism (``--mesh.seq_axis=N``, one process,
 ``parallel.seqpar``): the step shards the time axis of one batch over N
 devices.
 
-State: ``{"params": {k: tensor}, "opt_state": {...}, "step": int,
-"generators": {"dropout": Generator, "specaugment": Generator}}`` on
-the device; in one process the generators are seeded from
-``train.seed`` for a fresh run and restored from the checkpoint on
-resume; with several, each rank's are seeded anew at every step from
-(``train.seed``, step, rank).
+State: ``{"params": {k: tensor}, "opt_state": {...}, "model_state":
+{k: tensor}, "step": int, "generators": {"dropout": Generator,
+"specaugment": Generator}}`` on the device (``model_state``: what the
+model keeps that no optimizer updates, the Conformer's BatchNorm running
+statistics, moved by each step; empty for the RNN encoders); in one
+process the generators are seeded from ``train.seed`` for a fresh run
+and restored from the checkpoint on resume; with several, each rank's
+are seeded anew at every step from (``train.seed``, step, rank).
 """
 
 from __future__ import annotations
@@ -63,11 +65,11 @@ from .config import Config
 from .data import DataLoader, read_manifest
 from .features import extract_features, spec_augment
 from .metrics import MetricsWriter, NullMetricsWriter, ThroughputMeter
-from .models.encoder import apply_encoder, init_params
+from .models.encoder import apply_encoder, init_params, init_state
 from .models.layers import deterministic_convs
 from .ops.ctc_cuda import ctc_loss
 from .ops.dispatch import resolve_device
-from .optim import Adam
+from .optim import Adam, flat_leaves
 from .parallel.dist import (all_reduce_mean, broadcast_state, current_group,
                             gather_state, grid_groups, reseed_for_row,
                             shard_state)
@@ -102,18 +104,23 @@ def init_train_state(cfg: Config, device="cpu") -> dict:
 
 
 def state_from_parts(cfg: Config, params: dict, opt_state: dict, step: int,
-                     rng_states: dict, dev: torch.device) -> dict:
+                     rng_states: dict, dev: torch.device,
+                     model_state: dict | None = None) -> dict:
     """Move CPU parameters and moments to ``dev`` (parameters as leaves
-    that want a gradient) and set the generators.
+    that want a gradient), each kind tiling one buffer
+    (``optim.flat_leaves``, which Adam updates in one operation), and set
+    the generators. ``model_state`` None is a fresh one
+    (``models.init_state``).
 
     Saved generator states restore exactly; one saved on another kind
     of device (a CPU generator's state does not fit a CUDA one) raises,
     since reseeding would change the dropout and SpecAugment draws of
     the resumed run."""
-    params = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+    params = {k: v.requires_grad_(True)
+              for k, v in flat_leaves(params, dev).items()}
     opt_state = {"count": opt_state["count"],
-                 "mu": {k: v.to(dev) for k, v in opt_state["mu"].items()},
-                 "nu": {k: v.to(dev) for k, v in opt_state["nu"].items()}}
+                 "mu": flat_leaves(opt_state["mu"], dev),
+                 "nu": flat_leaves(opt_state["nu"], dev)}
     gens = _seed_generators(cfg.train.seed, step, dev)
     for name, st in rng_states.items():
         if name not in gens or st.numel() != gens[name].get_state().numel():
@@ -122,8 +129,11 @@ def state_from_parts(cfg: Config, params: dict, opt_state: dict, step: int,
                 f"generator on {dev}: it was saved by a run on another kind "
                 f"of device, and resuming it here would not be exact")
         gens[name].set_state(st)
-    return {"params": params, "opt_state": opt_state, "step": step,
-            "generators": gens}
+    if model_state is None:
+        model_state = init_state(cfg.model)
+    return {"params": params, "opt_state": opt_state,
+            "model_state": {k: v.to(dev) for k, v in model_state.items()},
+            "step": step, "generators": gens}
 
 
 def state_to_flat(cfg: Config, state: dict) -> dict:
@@ -131,7 +141,7 @@ def state_to_flat(cfg: Config, state: dict) -> dict:
     return ckpt_mod.state_to_flat(
         state["params"], state["opt_state"], state["step"],
         {k: g.get_state() for k, g in state["generators"].items()},
-        cfg.train, cfg.train.seed)
+        cfg.train, cfg.train.seed, state["model_state"])
 
 
 def make_step_fn(cfg: Config, group=None, mesh: ProcessMesh | None = None,
@@ -176,9 +186,10 @@ def make_step_fn(cfg: Config, group=None, mesh: ProcessMesh | None = None,
             with deterministic_convs():
                 feats, flens = _train_features(cfg, gens, samples,
                                                sample_lengths)
-                logits, logit_lens = apply_encoder(params, feats, flens,
-                                                   cfg.model, train=True,
-                                                   generator=gens["dropout"])
+                logits, logit_lens = apply_encoder(
+                    params, feats, flens, cfg.model, train=True,
+                    generator=gens["dropout"],
+                    model_state=state["model_state"])
                 loss = ctc_loss(logits, logit_lens, labels, label_lengths,
                                 use_kernel=tcfg.use_pallas_ctc)
                 grads = dict(zip(params, torch.autograd.grad(
@@ -307,6 +318,8 @@ def precompile_bucket_shapes(step_fn, state: dict, loader: DataLoader,
                 m: {k: torch.zeros_like(v)
                     for k, v in state["opt_state"][m].items()}
                 for m in ("mu", "nu")}},
+            "model_state": {k: v.clone()
+                            for k, v in state["model_state"].items()},
             "step": state["step"],
             "generators": _seed_generators(cfg.train.seed, 0, dev)}
         step_fn(zeros, samples,
@@ -357,7 +370,14 @@ def check_regime(cfg: Config) -> ProcessMesh:
     size is formed. Training and evaluation call it before any work, so
     that such a config never runs as if it were something else (the
     reference branches on these settings: ``ctc_asr_tpu/train.py:297-331``,
-    ``ctc_asr_tpu/evaluate.py:123-148``)."""
+    ``ctc_asr_tpu/evaluate.py:123-148``). The Conformer runs in one
+    process or data-parallel: a model or sequence axis is refused."""
+    m = cfg.mesh
+    if cfg.model.frontend == "conformer" and (
+            m.seq_axis > 1 or m.model_axis > 1 or m.shard_model):
+        raise NotImplementedError(
+            "the Conformer has no tensor- or sequence-parallel form: drop "
+            "--mesh.model_axis, --mesh.shard_model and --mesh.seq_axis")
     return build_mesh(cfg.mesh)
 
 
@@ -401,7 +421,8 @@ def train(cfg: Config, device="cuda", max_steps: int | None = None,
     flat, meta = ckpt_mod.restore_latest(ckpt_dir)
     if flat is not None:
         state = state_from_parts(cfg, *ckpt_mod.state_from_flat(flat, cfg),
-                                 dev)
+                                 dev, ckpt_mod.model_state_from_flat(flat,
+                                                                     cfg))
         if "loader" in meta:
             loader.load_state_dict(meta["loader"])
         print(f"[train] resumed from step {state['step']}", flush=True)

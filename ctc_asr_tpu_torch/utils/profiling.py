@@ -11,7 +11,9 @@ Counterpart of ``ctc_asr_tpu/utils/profiling.py``:
   autograd nodes a span created is tied to it by the nodes' sequence
   numbers, as the profiler records them.
 - ``count(name, n)`` adds to a process-wide counter; ``counters()``
-  returns a copy of them all.
+  returns a copy of them all. ``n`` may be a 0-d integer tensor, which
+  is summed on its own device with no wait for it; ``counters()`` then
+  fetches the sums.
 - ``trace`` / ``maybe_trace`` capture a ``torch.profiler`` trace of the
   enclosed block (host activity, and the device's kernels and copies
   where CUDA is present) and write it as a Chrome trace
@@ -37,6 +39,7 @@ from torch.profiler import record_function
 
 _OFF = contextlib.nullcontext()
 _counts: dict[str, int] = {}
+_device_counts: dict[tuple, torch.Tensor] = {}   # (name, device) -> sum
 _counts_lock = threading.Lock()
 
 
@@ -48,16 +51,27 @@ def span(name: str):
     return _OFF
 
 
-def count(name: str, n: int) -> None:
-    """Add ``n`` to the process-wide counter ``name``."""
+def count(name: str, n) -> None:
+    """Add ``n`` (an int, or a 0-d integer tensor) to the process-wide
+    counter ``name``."""
     with _counts_lock:
-        _counts[name] = _counts.get(name, 0) + n
+        if isinstance(n, torch.Tensor):
+            key = (name, n.device)
+            n = n.detach().long()
+            held = _device_counts.get(key)
+            _device_counts[key] = n.clone() if held is None else held + n
+        else:
+            _counts[name] = _counts.get(name, 0) + n
 
 
 def counters() -> dict[str, int]:
-    """A copy of every counter of the process."""
+    """A copy of every counter of the process (waits for the device's
+    sums)."""
     with _counts_lock:
-        return dict(_counts)
+        out = dict(_counts)
+        for (name, _dev), v in _device_counts.items():
+            out[name] = out.get(name, 0) + int(v)
+        return out
 
 
 @contextlib.contextmanager
