@@ -54,6 +54,13 @@ Phases (any failure exits non-zero; no phase is skipped):
    ``model.conv_as_matmul`` / ``model.conv_blocked_fwd`` (blocked band,
    full band, the 2-D cuDNN conv) and three other ways of computing the
    banded time conv, each against the f32 2-D conv with its FLOP bound.
+   Then K9 (the Conformer's fused relative-position attention, forward
+   and backward; no TPU kernel) at the Conformer cell's B=64, 8 heads of
+   64, T' 216 and 422 with each bucket's ragged lengths: output and
+   gradients against the plain core in f32, two backward calls bit-equal,
+   its times beside its bound, the plain core and
+   ``scaled_dot_product_attention`` on a materialised bias, and the peak
+   memory of one layer's forward + backward.
 4. Serving slice: a seeded random checkpoint at full ``conv_bilstm3``
    width in the reference's keypath format, a synthetic corpus, then
    the port's ``cli evaluate`` and ``cli transcribe`` on ``cuda``. The
@@ -1909,6 +1916,172 @@ def paths_agreement(tag: str, cfg, params, manifest: str,
         f"{limit}) identical transcripts={same}/{n_utts}")
     if agree < limit:
         raise AssertionError(f"{tag}: argmax agreement {agree} < {limit}")
+
+
+# the Conformer cell's buckets at T' 216 and 422 (libri_train_b64): the
+# padded length and the range of its rows' encoder lengths
+ATTENTION_CASES = ((216, 33, 213), (422, 389, 420))
+# K9's output and gradients against the plain core in f32: the largest
+# error over the largest magnitude (at least 0.01), two bf16 ulps
+ATTENTION_TOL = 1.6e-2
+
+
+def attention_inputs(B: int, H: int, T: int, lo: int, hi: int, seed: int):
+    """q, the biases u, v [H, 64] (f32), k, v [B, H, T, 64] and p [H,
+    2T-1, 64] bf16 in the projections' layouts, the output's gradient,
+    and lengths drawn in [lo, hi] (int32, on the card)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    lens = np.sort(rng.integers(lo, hi + 1, size=B))[::-1].copy()
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def mk(*shape):
+        return (0.5 * torch.randn(*shape, generator=g, device="cuda")).to(
+            torch.bfloat16)
+    q, k, v, do = (mk(B, T, H, 64).transpose(1, 2) for _ in range(4))
+    u, vb = (mk(H, 64).float() for _ in range(2))
+    p = mk(2 * T - 1, H, 64).transpose(0, 1)
+    return [q, u, vb, k, v, p], do, torch.from_numpy(lens).to(
+        "cuda", torch.int32)
+
+
+def attention_err(got, want) -> float:
+    """Largest error over the largest magnitude of ``want`` (at least
+    0.01)."""
+    return ((got.float() - want.float()).abs().max()
+            / max(want.float().abs().max().item(), 1e-2)).item()
+
+
+def phase_attention() -> dict:
+    """K9 against the plain core (``rel_queries`` and
+    ``attention_core_plain``) at the Conformer cell's shapes
+    (``ATTENTION_CASES``): the errors of the output and the six input
+    gradients (q, the biases u and v, k, v, p) against the plain core on
+    the inputs in f32 (qu and qv rounded to bf16 as K9 rounds them),
+    beside the plain core's own in bf16; two backward
+    calls bit-equal; the CUDA-event medians of the forward (no grad) and
+    the forward + backward of K9, of the plain core and of
+    ``scaled_dot_product_attention`` with the relative term and the mask
+    as an additive bias (its build included; a yardstick the port never
+    calls), and K9's own device time from ``torch.profiler`` (the
+    CUDA-event time of a call holds its host time where the host is
+    slower); the bound of the same work for the rows' real lengths
+    (``asrbench/reference/conformer.attention_work``, forward and
+    backward; the forward alone its three products and its reads and
+    writes); the peak memory of one layer's forward + backward above its
+    inputs."""
+    import torch
+    import torch.nn.functional as F
+    from asrbench.reference.conformer import attention_work
+    from ctc_asr_tpu_torch.models import conformer
+    from ctc_asr_tpu_torch.ops import attention_cuda as ac
+    B, H = 64, 8
+    names = ("o", "dq", "du", "dvb", "dk", "dv", "dp")
+    out = {}
+    for T, lo, hi in ATTENTION_CASES:
+        xs, do, lens = attention_inputs(B, H, T, lo, hi, seed=T)
+        key_pad = torch.arange(T, device="cuda")[None, :] >= lens[:, None]
+
+        def fused(*ys):
+            return conformer.attention_core(*ys, key_pad, lens)
+
+        def plain(q, u, vb, k, v, p):
+            return conformer.attention_core_plain(
+                *conformer.rel_queries(q, u, vb), k, v, p, key_pad)
+
+        def plain_f32(q, u, vb, k, v, p):
+            qs = [x + (x.bfloat16().float() - x).detach()
+                  for x in conformer.rel_queries(q, u, vb)]
+            return conformer.attention_core_plain(*qs, k, v, p, key_pad)
+
+        def library(q, u, vb, k, v, p):
+            qu, qv = conformer.rel_queries(q, u, vb)
+            bias = conformer.rel_shift(torch.matmul(qv, p.transpose(-2, -1)))
+            bias = bias.masked_fill(key_pad[:, None, None, :],
+                                    conformer.MASK_FILL)
+            o = F.scaled_dot_product_attention(qu, k, v, attn_mask=bias,
+                                               scale=1.0)
+            return o.masked_fill(key_pad[:, None, :, None], 0.0)
+
+        def leaves(ins):
+            return [x.detach().clone().requires_grad_() for x in ins]
+
+        def fwd_bwd(fn, ys):
+            o = fn(*ys)
+            return [o.detach(), *torch.autograd.grad(o, ys, do.to(o.dtype))]
+
+        n0 = (ac.rel_attention.launches, ac.rel_attention_backward.launches)
+        ys = leaves(xs)
+        got, again = fwd_bwd(fused, ys), fwd_bwd(fused, ys)
+        if (ac.rel_attention.launches - n0[0],
+                ac.rel_attention_backward.launches - n0[1]) != (2, 2):
+            raise AssertionError("K9 did not launch once a call")
+        want = fwd_bwd(plain_f32, leaves([x.float() for x in xs]))
+        pl = fwd_bwd(plain, leaves(xs))
+        torch.cuda.synchronize()
+        err = {n: attention_err(g_, w) for n, g_, w in zip(names, got, want)}
+        plain_err = {n: attention_err(g_, w)
+                     for n, g_, w in zip(names, pl, want)}
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("K9: two backward calls differ")
+        if max(err.values()) > ATTENTION_TOL:
+            raise AssertionError(f"K9 at T'={T}: errors {err} over "
+                                 f"{ATTENTION_TOL}")
+        row = {"B": B, "H": H, "T": T, "lengths": [lo, hi], "err": err,
+               "plain_err": plain_err}
+        cfg = {"model": {"d_model": H * 64, "n_layers": 1}}
+        frames = lens.tolist()
+        w = attention_work(cfg, frames)
+        d, rows = H * 64, float(sum(frames))
+        fwd_w = {"flops": 6.0 * d * sum(float(t) * t for t in frames),
+                 # q, k, v read and o written; p's rows once
+                 "bytes": 2.0 * d * (4 * rows + 2 * max(frames) - 1)}
+        row["bound_ms"] = {"fwd": bound(fwd_w["bytes"], fwd_w["flops"],
+                                        PEAK_BF16),
+                           "fwd_bwd": bound(w["bytes"], w["flops"],
+                                            PEAK_BF16)}
+        for name, fn in (("kernel_ms", fused), ("plain_ms", plain),
+                         ("library_ms", library)):
+            ys = leaves(xs)
+
+            def forward(fn=fn, ys=ys):
+                with torch.no_grad():
+                    fn(*ys)
+            row[name] = {"fwd": cuda_ms(forward, reps=20),
+                         "fwd_bwd": cuda_ms(lambda fn=fn, ys=ys:
+                                            fwd_bwd(fn, ys), reps=10)}
+            if fn is fused:     # one kernel forward, three backward
+                row["device_ms"] = {
+                    "fwd": _device_ms(forward, "rel_attn"),
+                    "fwd_bwd": 4 * _device_ms(
+                        lambda ys=ys: fwd_bwd(fused, ys), "rel_attn")}
+        peak = {}
+        for name, fn in (("kernel", fused), ("plain", plain)):
+            ys = leaves(xs)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fwd_bwd(fn, ys)
+            torch.cuda.synchronize()
+            peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        row["peak_mib"] = peak
+        log(f"[attention] K9 B={B} H={H} T'={T} (rows {lo}-{hi}): fwd "
+            f"{row['kernel_ms']['fwd']:.4f} ms, fwd+bwd "
+            f"{row['kernel_ms']['fwd_bwd']:.4f} ms (device "
+            f"{row['device_ms']['fwd']:.4f} / "
+            f"{row['device_ms']['fwd_bwd']:.4f} ms); bound "
+            f"{row['bound_ms']['fwd']['bound_ms']:.4f} / "
+            f"{row['bound_ms']['fwd_bwd']['bound_ms']:.4f} ms "
+            f"({row['bound_ms']['fwd_bwd']['bound_by']}); plain "
+            f"{row['plain_ms']['fwd']:.4f} / {row['plain_ms']['fwd_bwd']:.4f}"
+            f" ms; sdpa + bias {row['library_ms']['fwd']:.4f} / "
+            f"{row['library_ms']['fwd_bwd']:.4f} ms; peak MiB above the "
+            f"inputs {peak['kernel']:.1f} (plain {peak['plain']:.1f}); "
+            f"errors {json.dumps({n: round(e, 6) for n, e in err.items()})}"
+            f" (plain bf16 "
+            f"{json.dumps({n: round(e, 6) for n, e in plain_err.items()})})")
+        out[f"T{T}"] = row
+    return out
 
 
 def phase_slice(tmp: str) -> dict:
@@ -3779,6 +3952,7 @@ def main() -> int:
     k45 = timed(phase_gru)
     k5_f64 = timed(phase_gru_f64)
     conv = timed(phase_conv)
+    k9 = timed(phase_attention)
     with tempfile.TemporaryDirectory() as tmp:
         sl = timed(phase_slice, tmp)
         tr = timed(phase_train, tmp, sl["manifest"])
@@ -3871,6 +4045,9 @@ def main() -> int:
             pair = rep["launches"]["gru" if key.startswith("gru")
                                    else "lstm"]
             row["repro_launches"] = pair[key]
+    kernels.append({"name": "rel_attention", "route": "cuda",
+                    "source": "ctc_asr_tpu_torch/csrc/rel_attention.cu",
+                    "replaces": None, **k9})
     log(f"[repro] B=128 x 8 s step ms (median, deterministic by default): "
         f"LSTM {rep['step_ms']['lstm']:.2f}, GRU {rep['step_ms']['gru']:.2f}")
     log(f"[step] train step ms at B=128 x 8 s: LSTM kernel path "

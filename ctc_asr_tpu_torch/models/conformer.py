@@ -27,7 +27,9 @@ f32 parameters (bf16 on the card: the tensor cores' GEMMs, outputs in
 bf16), but the first subsampling conv, which runs in f32; LayerNorm, BatchNorm (its statistics too), the attention's
 softmax and the residual stream run in f32. No library attention is
 called (``scaled_dot_product_attention`` cannot take the relative term
-without a materialised bias).
+without a materialised bias): on CUDA tensors at dropout 0 the core is
+the hand-written kernel K9 (``ops.attention_cuda``), elsewhere
+``rel_queries`` and ``attention_core_plain``.
 
 BatchNorm's running statistics are model state that no optimizer
 updates: ``model_state`` (``state_shapes``, ``init_state``) holds them;
@@ -45,6 +47,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops.attention_cuda import rel_attention
 from ..utils.profiling import count, span
 from .layers import dense_apply, dropout, glorot
 
@@ -59,6 +62,9 @@ CONV_RANGE = "conformer.conv_module"
 # and those of real frames (H x sum of each row's T'^2)
 ENTRIES_COUNTER = "attention.core.entries"
 REAL_ENTRIES_COUNTER = "attention.core.real_entries"
+# calls of the attention core, and those the fused kernel K9 took
+CALLS_COUNTER = "attention.core.calls"
+FUSED_COUNTER = "attention.core.fused_calls"
 
 MASK_FILL = -10000.0
 LN_EPS = 1e-5                                # LayerNorm's, as NeMo's
@@ -163,6 +169,18 @@ def _sub(params: dict, prefix: str) -> dict:
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix)}
 
 
+def _layers(params: dict, n_layers: int) -> list[dict]:
+    """Each block's leaves, ``layers/<i>/`` taken off their keys: one pass
+    over the leaves, where a ``_sub`` a block would scan them all again
+    on the host at every step."""
+    out = [{} for _ in range(n_layers)]
+    for k, v in params.items():
+        if k.startswith("layers/"):
+            i, rest = k[len("layers/"):].split("/", 1)
+            out[int(i)][rest] = v
+    return out
+
+
 class _CastLeaves(torch.autograd.Function):
     """f32 leaves to another dtype in one multi-tensor copy, and their
     gradients back to f32 in one: a few launches a step for all of them,
@@ -248,46 +266,71 @@ def rel_shift(bd: torch.Tensor) -> torch.Tensor:
                          bd.storage_offset() + T - 1)
 
 
-def attention_core(qu: torch.Tensor, qv: torch.Tensor, k: torch.Tensor,
-                   v: torch.Tensor, p: torch.Tensor, key_pad: torch.Tensor,
+def rel_queries(q: torch.Tensor, u: torch.Tensor,
+                vb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """qu = (q + u) / sqrt(d_k) and qv = (q + v) / sqrt(d_k) of q [B, H,
+    T, d_k] and the biases u, v [H, d_k] (f32): each sum and scale in
+    f32, rounded once to q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf = q.float()
+    return (((qf + u[:, None, :]) * scale).to(q.dtype),
+            ((qf + vb[:, None, :]) * scale).to(q.dtype))
+
+
+def attention_core(q: torch.Tensor, u: torch.Tensor, vb: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor, p: torch.Tensor,
+                   key_pad: torch.Tensor, lens: torch.Tensor,
                    rate: float = 0.0, generator=None) -> torch.Tensor:
-    """The attention of every head: qu = (q + u) / sqrt(d_k), qv = (q + v)
-    / sqrt(d_k), k, v [B, H, T, d_k] and p [H, 2T-1, d_k] in the compute
-    dtype, ``key_pad`` [B, T] True past each row's length -> [B, H, T,
-    d_k] in the compute dtype, 0 at padded queries (NeMo masks their
-    every key and zeroes the weights). The scores sum, mask and softmax
-    in f32."""
+    """The attention of every head: q, k, v [B, H, T, d_k] and p [H,
+    2T-1, d_k] in the compute dtype, the biases u, v [H, d_k] (f32), the
+    rows' lengths ``lens`` [B] int32 and ``key_pad`` [B, T] (True at and
+    past them) -> [B, H, T, d_k] in the compute dtype, 0 at padded
+    queries (NeMo masks their every key and zeroes the weights). CUDA
+    tensors at ``rate`` 0 go to the fused kernel K9, which raises for a
+    dtype or head width it does not take; CPU tensors and calls with
+    dropout to ``rel_queries`` and ``attention_core_plain``."""
     with span(CORE_RANGE):
-        scores = torch.matmul(qu, k.transpose(-2, -1)).float()
-        bd = torch.matmul(qv, p.transpose(-2, -1))       # [B, H, T, 2T-1]
-        scores = scores.add_(rel_shift(bd))
-        scores = scores.masked_fill_(key_pad[:, None, None, :], MASK_FILL)
-        probs = dropout(torch.softmax(scores, dim=-1), rate, generator)
-        o = torch.matmul(probs.to(v.dtype), v)
-        return o.masked_fill(key_pad[:, None, :, None], 0.0)
+        count(CALLS_COUNTER, 1)
+        if q.is_cuda and rate <= 0.0:
+            count(FUSED_COUNTER, 1)
+            return rel_attention(q, u, vb, k, v, p, lens)
+        return attention_core_plain(*rel_queries(q, u, vb), k, v, p,
+                                    key_pad, rate, generator)
 
 
-def _mhsa(p: dict, x: torch.Tensor, pos: torch.Tensor, key_pad, uv,
+def attention_core_plain(qu: torch.Tensor, qv: torch.Tensor,
+                         k: torch.Tensor, v: torch.Tensor, p: torch.Tensor,
+                         key_pad: torch.Tensor, rate: float = 0.0,
+                         generator=None) -> torch.Tensor:
+    """``attention_core`` in plain PyTorch from qu = (q + u) / sqrt(d_k),
+    qv = (q + v) / sqrt(d_k) [B, H, T, d_k] (``rel_queries``): the scores
+    sum, mask and softmax in f32; dropout of the probabilities at
+    ``rate``."""
+    scores = torch.matmul(qu, k.transpose(-2, -1)).float()
+    bd = torch.matmul(qv, p.transpose(-2, -1))           # [B, H, T, 2T-1]
+    scores = scores.add_(rel_shift(bd))
+    scores = scores.masked_fill_(key_pad[:, None, None, :], MASK_FILL)
+    probs = dropout(torch.softmax(scores, dim=-1), rate, generator)
+    o = torch.matmul(probs.to(v.dtype), v)
+    return o.masked_fill(key_pad[:, None, :, None], 0.0)
+
+
+def _mhsa(p: dict, x: torch.Tensor, pos: torch.Tensor, key_pad, lens, uv,
           cfg, cdt, rate: float, generator) -> torch.Tensor:
     """The self-attention block of a layer's ``att/`` leaves."""
     with span(ATTENTION_RANGE):
         B, T, d = x.shape
         H = cfg.n_heads
         dk = d // H
-        scale = 1.0 / math.sqrt(dk)
 
         def heads(y):                         # [B, T, d] -> [B, H, T, dk]
             return y.view(B, T, H, dk).transpose(1, 2)
 
         h = _layer_norm(p, "ln", x).to(cdt)
-        q = heads(_linear(p, "q", h, cdt)).float()
-        k, v = heads(_linear(p, "k", h, cdt)), heads(_linear(p, "v", h, cdt))
-        pp = (pos.to(cdt) @ p["pos/w"].to(cdt)).view(-1, H, dk) \
+        q, k, v = (heads(_linear(p, n, h, cdt)) for n in ("q", "k", "v"))
+        pp = (pos @ p["pos/w"].to(cdt)).view(-1, H, dk) \
             .transpose(0, 1)                            # [H, 2T-1, dk]
-        u, vb = uv
-        qu = ((q + u[:, None, :]) * scale).to(cdt)
-        qv = ((q + vb[:, None, :]) * scale).to(cdt)
-        o = attention_core(qu, qv, k, v, pp, key_pad, rate, generator)
+        o = attention_core(q, *uv, k, v, pp, key_pad, lens, rate, generator)
         return _linear(p, "o", o.transpose(1, 2).reshape(B, T, d), cdt)
 
 
@@ -366,7 +409,7 @@ def apply(params: dict, feats: torch.Tensor, frame_lengths: torch.Tensor,
         count(ENTRIES_COUNTER, cfg.n_layers * B * cfg.n_heads * T * T)
         count(REAL_ENTRIES_COUNTER,
               cfg.n_layers * cfg.n_heads * (lens.long() ** 2).sum())
-    pos = relative_positions(T, d, x.device)
+    pos = relative_positions(T, d, x.device).to(cdt)
 
     def block(p, x, i):
         uv = ((p["att/pos_u"], p["att/pos_v"]) if cfg.untie_biases
@@ -379,9 +422,9 @@ def apply(params: dict, feats: torch.Tensor, frame_lengths: torch.Tensor,
         # the residual stream stays f32: each add promotes its branch
         x = torch.add(x, dropout(_ffn(_sub(p, "ff1/"), x, cfg, cdt, rate,
                                       generator), rate, generator), alpha=0.5)
-        x = torch.add(x, dropout(_mhsa(_sub(p, "att/"), x, pos, key_pad, uv,
-                                       cfg, cdt, rate, generator), rate,
-                                 generator))
+        x = torch.add(x, dropout(_mhsa(_sub(p, "att/"), x, pos, key_pad,
+                                       lens, uv, cfg, cdt, rate, generator),
+                                 rate, generator))
         x = torch.add(x, dropout(_conv_module(_sub(p, "conv/"), x, key_pad,
                                               mean, var, cfg, cdt, train),
                                  rate, generator))
@@ -389,7 +432,7 @@ def apply(params: dict, feats: torch.Tensor, frame_lengths: torch.Tensor,
                                       generator), rate, generator), alpha=0.5)
         return _layer_norm(p, "out/ln", x)
 
-    for i in range(cfg.n_layers):
-        x = block(_sub(params, f"layers/{i}/"), x, i)
+    for i, p in enumerate(_layers(params, cfg.n_layers)):
+        x = block(p, x, i)
     logits = dense_apply(_sub(params, "head/"), x, cdt)
     return logits, lens

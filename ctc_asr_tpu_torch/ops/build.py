@@ -11,7 +11,7 @@ loads a stale library. Nothing is built or loaded at import time.
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` and returns the ``cudaError_t`` of its launches; the wrappers
 in ``stft_cuda`` / ``lstm_cuda`` / ``gru_cuda`` / ``ctc_cuda`` /
-``beam_cuda`` raise when it is not 0.
+``beam_cuda`` / ``attention_cuda`` raise when it is not 0.
 """
 
 from __future__ import annotations
@@ -80,6 +80,14 @@ _SIGNATURES = {
                     _I, _I, _I, _F, _F, _I, _P],
     # scores, h1, N, K, NP, reps, select, out_keys, out_flat, stream
     "beam_select_probe": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # q, u, v, k, v, pe, lens, qu, qv, o, lse, strides (host int64), B, H,
+    # T, scale, stream
+    "rel_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _F, _P],
+    # qu, qv, k, v, pe, o, dout, lens, lse, delta, part, duv, dq, dk, dv,
+    # dpe, strides (host int64), B, H, T, group, scale, stream
+    "rel_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

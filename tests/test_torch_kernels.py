@@ -18,16 +18,22 @@ import torch
 from beam_select_cases import SELECT_CASES, select_case
 from ctc_asr_tpu_torch import train as train_mod
 from ctc_asr_tpu_torch.config import FeatureConfig, ModelConfig, preset
-from ctc_asr_tpu_torch.models import apply_encoder, init_shapes
-from ctc_asr_tpu_torch.ops import (beam_cuda, ctc_cuda, gru_cuda, lstm_cuda,
-                                   stft_cuda)
+from ctc_asr_tpu_torch.models import apply_encoder, conformer, init_shapes
+from ctc_asr_tpu_torch.ops import (attention_cuda, beam_cuda, ctc_cuda,
+                                   gru_cuda, lstm_cuda, stft_cuda)
 from ctc_asr_tpu_torch.ops.dispatch import cuda_supported
+from ctc_asr_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
 STFT_TOL = 2e-3   # f32 log-features, sums in another order
 LSTM_TOL = 8e-3   # two bf16 ulps of h at |h| in [0.5, 1)
 CTC_TOL = 1e-4    # f32 log-space DP, same operation order per state
+# K9 against the plain core in f32: the largest error over the largest
+# magnitude (at least 0.01: at T' = 1 the gradients of q, k and p are 0
+# but for rounding), two bf16 ulps; the plain core in bf16 reads up to
+# 1.4e-2 at these shapes
+ATT_TOL = 1.6e-2
 
 
 @pytest.fixture
@@ -987,3 +993,118 @@ def test_three_steps_from_one_seed_are_bit_equal(dev, rnn_type):
     assert torch.isfinite(l1).all() and torch.equal(l1, l2)
     for a, b in zip(trees1, trees2):
         assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _att_case(dev, B, H, T, lens, seed):
+    """q, k, v [B, H, T, 64] and p [H, 2T-1, 64] bf16 in the projections'
+    layouts with the biases u, v [H, 64] f32 (in that order: q, u, v, k,
+    v, p), the output's gradient and the lengths; a (lo, hi) pair of
+    ``lens`` draws B lengths in that range."""
+    if isinstance(lens, tuple):
+        rng = np.random.default_rng(seed)
+        lens = sorted(rng.integers(lens[0], lens[1] + 1, B).tolist(),
+                      reverse=True)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def mk(*shape):
+        return (0.5 * torch.randn(*shape, generator=g, device=dev)).to(
+            torch.bfloat16)
+    q, k, v, do = (mk(B, T, H, 64).transpose(1, 2) for _ in range(4))
+    u, vb = (mk(H, 64).float() for _ in range(2))
+    p = mk(2 * T - 1, H, 64).transpose(0, 1)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    key_pad = torch.arange(T, device=dev)[None, :] >= lens[:, None]
+    return [q, u, vb, k, v, p], do, lens, key_pad
+
+
+def _att_plain_f32(key_pad):
+    """The plain core in f32 with the kernel's prologue: qu and qv rounded
+    to bf16 as K9 rounds them, their gradients passed on in f32."""
+    def fn(q, u, vb, k, v, p):
+        qs = [x + (x.bfloat16().float() - x).detach()
+              for x in conformer.rel_queries(q, u, vb)]
+        return conformer.attention_core_plain(*qs, k, v, p, key_pad)
+    return fn
+
+
+def _att_grads(fn, xs, do):
+    ys = [x.detach().clone().requires_grad_() for x in xs]
+    o = fn(*ys)
+    return [o.detach(), *torch.autograd.grad(o, ys, do.to(o.dtype))]
+
+
+def _att_err(got, want) -> float:
+    return ((got.float() - want).abs().max()
+            / max(want.abs().max().item(), 1e-2)).item()
+
+
+def _launches():
+    return (attention_cuda.rel_attention.launches,
+            attention_cuda.rel_attention_backward.launches)
+
+
+@pytest.mark.parametrize("B,H,T,lens", [
+    (64, 8, 216, (33, 213)),      # the Conformer cell's buckets
+    (64, 8, 422, (389, 420)),
+    (3, 8, 70, [70, 1, 33]),      # T' not a tile multiple; a row of 1
+    (2, 8, 1, [1, 1]),            # T' = 1
+    (4, 8, 128, [128] * 4),       # every row full
+    (3, 2, 130, [0, 130, 64]),    # an empty row; lengths at tile edges
+])
+def test_rel_attention_matches_plain(dev, monkeypatch, B, H, T, lens):
+    """K9's output and the six input gradients (q, the biases u and v, k,
+    v, p) against the plain core in f32; two backward calls bit-equal;
+    exact zeros at padded queries (output, dq) and padded keys (dk, dv);
+    one launch of each direction a call, and no library attention."""
+    xs, do, lens, key_pad = _att_case(dev, B, H, T, lens, seed=T)
+
+    def refuse(*a, **k):
+        raise AssertionError("the core called a library attention")
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention",
+                        refuse)
+    n0 = _launches()
+
+    def fused(*ys):
+        return conformer.attention_core(*ys, key_pad, lens)
+    got = _att_grads(fused, xs, do)
+    again = _att_grads(fused, xs, do)
+    torch.cuda.synchronize()
+    assert _launches() == (n0[0] + 2, n0[1] + 2)
+    want = _att_grads(_att_plain_f32(key_pad), [x.float() for x in xs], do)
+    for name, g_, w in zip(("o", "dq", "du", "dvb", "dk", "dv", "dp"), got,
+                           want):
+        assert _att_err(g_, w) <= ATT_TOL, (name, _att_err(g_, w))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for b, L in enumerate(lens.tolist()):
+        for t in (got[0], got[1], got[4], got[5]):      # o, dq, dk, dv
+            assert not t[b, :, L:].any()
+
+
+def test_rel_attention_eval_runs_the_forward_alone(dev):
+    xs, _, lens, key_pad = _att_case(dev, 2, 8, 40, [40, 17], seed=1)
+    ys = [x.detach().clone().requires_grad_() for x in xs]
+    n0 = _launches()
+    c0 = profiling.counters().get(conformer.FUSED_COUNTER, 0)
+    with torch.no_grad():
+        o = conformer.attention_core(*ys, key_pad, lens)
+    torch.cuda.synchronize()
+    assert o.grad_fn is None and not o[1, :, 17:].any()
+    assert _launches() == (n0[0] + 1, n0[1])
+    assert profiling.counters()[conformer.FUSED_COUNTER] == c0 + 1
+
+
+def test_rel_attention_dropout_takes_the_plain_core(dev):
+    xs, do, lens, key_pad = _att_case(dev, 2, 8, 40, [40, 17], seed=2)
+    n0 = _launches()
+    c0 = profiling.counters()
+    g = torch.Generator(device=dev).manual_seed(0)
+    got = _att_grads(lambda *ys: conformer.attention_core(
+        *ys, key_pad, lens, 0.1, g), xs, do)
+    torch.cuda.synchronize()
+    c1 = profiling.counters()
+    assert _launches() == n0
+    assert c1.get(conformer.FUSED_COUNTER, 0) == \
+        c0.get(conformer.FUSED_COUNTER, 0)
+    assert c1[conformer.CALLS_COUNTER] == \
+        c0.get(conformer.CALLS_COUNTER, 0) + 1
+    assert torch.isfinite(got[0]).all() and not got[0][1, :, 17:].any()
